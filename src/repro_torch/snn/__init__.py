@@ -1,0 +1,24 @@
+"""Spiking-neural-network subsystem of the port (counterpart of
+``repro.snn``): LIF pools, the SNN-to-VP mapping and the rate-coded
+inference jobs with their CPU oracle."""
+from repro_torch.snn.neuron import LIFParams, lif_step, lif_step_multi, pool_state
+from repro_torch.snn.topology import (
+    RecurrentEdge,
+    SNNLayer,
+    StripeGroup,
+    auto_segmentation_for,
+    build_snn,
+    connectivity,
+    layer_groups,
+    n_units_for,
+    output_spike_counts,
+    segmentation_for,
+    total_spikes,
+)
+from repro_torch.snn.workloads import (
+    SNNJob,
+    oracle_run,
+    random_snn,
+    rate_encode,
+    snn_inference_job,
+)
