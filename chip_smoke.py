@@ -2,24 +2,39 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — a spiking job built by ``snn.build_snn`` and
-run to completion by ``Controller.run`` on a CPU-free platform — through
-the hand-written CUDA kernels, and fails (non-zero exit, no result line)
-unless every phase holds:
+Drives the port's two paths through the hand-written CUDA kernels — a
+spiking job built by ``snn.build_snn`` on a CPU-free platform, and the
+paper's dense VMM offload on live RISC-V CPUs built by
+``segmentation.build(programs=...)`` — each run to completion by
+``Controller.run``, and fails (non-zero exit, no result line) unless every
+phase holds:
 
   0. environment: the card's name and power limit, the kernels built from
      the sources in this checkout (one nvcc per source, all at once);
-  1. every kernel equals its plain PyTorch version bit for bit on the card,
-     and its time, the plain version's time and its bound at the main
-     path's shape;
+  1. ``lif_step`` and ``crossbar_vmm`` equal their plain PyTorch versions
+     bit for bit on the card, with their times, the plain versions' times,
+     their bounds and a library yardstick at the main paths' shapes;
   2. ``fig5snn`` (128x96x64x10, T=24): 2045 spikes in 28 rounds under three
      placements and both backends, the oracle's output counts, one kernel
      launch per round (per segment on ``sequential``), and a CPU rerun
      whose final state trees equal the card's leaf for leaf;
   3. ``fullxbar`` (eight full 256x256 crossbars, T=24): 24502 spikes in 34
-     rounds under three placements — the main path at full width, with the
-     launch counts read from this run;
-  4. one round of ``fullxbar`` under ``torch.cuda.set_sync_debug_mode("error")``.
+     rounds under three placements — the spiking path at full width, with
+     the ``lif_step`` launch counts read from this run — then its profile;
+  4. one round of ``fullxbar`` under ``torch.cuda.set_sync_debug_mode("error")``;
+  5. dense: two small jobs (an offload, remote DRAM reads and writes)
+     whose card and CPU final trees are equal, and the store-log and
+     outbox overflow messages equal to the CPU's; ``slot_scan`` equal to
+     its plain version from mid-run states of the Table III jobs, over 500
+     slots and over a full 10,000-slot quantum, and its time per round at
+     that quantum;
+  6. dense main path: every Table III target (the paper's layers, uniform
+     offload, plus load-oriented, RISC-V and mixed runs of Googlenet-conv1,
+     and Googlenet-conv1 on ``sequential``) reproduces the reference's
+     rounds, simulated cycles, instructions per segment, CIM OPs and
+     ``O == A @ B``, with the ``crossbar_vmm`` and ``slot_scan`` launch
+     counts read from this run; then its profile and one round under
+     sync-debug "error".
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' numbers as JSON.  Imports nothing of JAX.
@@ -43,6 +58,7 @@ import torch  # noqa: E402
 # tensor-core operations/s, the bounds each kernel is held against
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT8_OPS_PER_S = 1.979e15
+PEAK_FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores
 
 QUANTUM = 32
 CHECK_EVERY = 2
@@ -50,7 +66,31 @@ MAX_ROUNDS = 400
 STRATEGIES = ("uniform", "load_oriented", "auto")
 FIG5SNN = dict(sizes=(128, 96, 64, 10), spikes=2045, rounds=28, in_cap=None)
 FULLXBAR = dict(sizes=(256,) * 9, spikes=24502, rounds=34, in_cap=8192)
-KERNELS = ["lif_step"]
+KERNELS = ["lif_step", "crossbar_vmm", "slot_scan"]
+
+# the dense targets: Table III layers at their published sizes, channel
+# latency = quantum = 10,000, check_every=2, as the reference's benchmark
+# builds them; (layer, strategy, mode, backend) -> (rounds, max sim_time,
+# stats.instrs per segment, cims.ops total), the JAX package's own numbers
+DENSE_QUANTUM = 10_000
+DENSE_TARGETS = [
+    ("Googlenet-conv1", "uniform", "cim", "vmap", 8, 80000, [32891, 28499], 7),
+    ("Googlenet-conv1", "uniform", "cim", "sequential", 8, 80000, [32891, 28499], 7),
+    ("Googlenet-conv2", "uniform", "cim", "vmap", 6, 60000, [14043, 13679], 3),
+    ("ImageNet-conv1", "uniform", "cim", "vmap", 10, 100000, [46369, 42297], 11),
+    ("ImageNet-conv2", "uniform", "cim", "vmap", 6, 60000, [26694, 15955], 5),
+    ("MobileNets-conv1", "uniform", "cim", "vmap", 6, 60000, [16171, 14743], 3),
+    ("MobileNets-conv2", "uniform", "cim", "vmap", 6, 60000, [14753, 14033], 3),
+    ("Googlenet-conv1", "load_oriented", "cim", "vmap", 20, 200000, [0, 109429, 0, 0], 7),
+    ("Googlenet-conv1", "uniform", "riscv", "vmap", 436, 4360000, [3199618, 0], 0),
+    ("Googlenet-conv1", "uniform", "mixed", "vmap", 188, 1880000, [1371778, 56093], 7),
+]
+SCAN_SLOTS = 500  # slots of each kernel-vs-plain scan
+# (layer, strategy, mode, rounds run before the scan's state is taken)
+SCAN_STATES = [("Googlenet-conv1", "uniform", "cim", 2),
+               ("Googlenet-conv1", "uniform", "cim", 5),
+               ("Googlenet-conv1", "load_oriented", "cim", 5),
+               ("Googlenet-conv1", "uniform", "riscv", 3)]
 
 
 def check(cond, msg):
@@ -100,7 +140,7 @@ def stream_ms(fn, reps=21, inner=20):
 
 
 # ---------------------------------------------------------------------------
-# phase 1: the kernel against its plain version
+# phase 1: the kernels against their plain versions
 
 
 def lif_inputs(shape, seed, extra=False, saturated=False):
@@ -170,8 +210,78 @@ def kernel_phase():
             "library_ms": None}
 
 
+def xbar_inputs(shape, seed, wide):
+    """Weights and inputs for one crossbar_vmm case; ``wide`` inputs
+    saturate the DAC at every resolution and the ADC at most of them."""
+    u, r, c = shape
+    rng = np.random.default_rng(seed)
+    lim = (128, 40_000) if wide else (8, 8)
+    w = rng.integers(-lim[0], lim[0], (u, r, c)).astype(np.int8)
+    x = rng.integers(-lim[1], lim[1], (u, c)).astype(np.int32)
+    return torch.from_numpy(w).cuda(), torch.from_numpy(x).cuda()
+
+
+def xbar_bound_ms(u, r, c):
+    """Least time for one batched VMM: U*R*C int8 weights + U*C int32 in +
+    U*R int32 out against the memory rate; 2*U*R*C int ops against the
+    int8 rate.  Returns (ms, "bytes" | "operations")."""
+    t_bytes = (u * r * c + 4 * u * c + 4 * u * r) / PEAK_BYTES_PER_S
+    t_ops = 2 * u * r * c / PEAK_INT8_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def xbar_phase():
+    from repro_torch.kernels.crossbar_vmm import ops, ref
+
+    shapes = [(4, 256, 256), (8, 256, 256), (2, 224, 224), (3, 130, 17), (1, 8, 8)]
+    resolutions = [(8, 8), (4, 3), (1, 1), (8, 2)]
+    max_err, seed = 0, 0
+    for shape in shapes:
+        for in_res, out_res in resolutions:
+            for wide in (False, True):
+                seed += 1
+                w, x = xbar_inputs(shape, seed, wide)
+                got = ops.crossbar_vmm_batch(w, x, in_res, out_res)
+                want = ref.crossbar_vmm_batch(w, x, in_res, out_res)
+                torch.cuda.synchronize()
+                max_err = max(max_err, int((got.long() - want.long()).abs().max()))
+                check(torch.equal(got, want),
+                      f"crossbar_vmm {shape} res {in_res}/{out_res} wide={wide} differs")
+        print(f"crossbar_vmm {shape}: bit-equal at res {resolutions}, narrow and "
+              "saturating inputs", flush=True)
+    # crossbar_matmul: one crossbar, N input vectors (weights stride 0)
+    w, _ = xbar_inputs((1, 256, 256), 99, True)
+    xs = torch.from_numpy(np.random.default_rng(98).integers(
+        -200, 200, (256, 5)).astype(np.int32)).cuda()
+    check(torch.equal(ops.crossbar_matmul(w[0], xs), ref.crossbar_matmul(w[0], xs)),
+          "crossbar_matmul differs")
+
+    row = None
+    for shape in [(4, 256, 256), (8, 256, 256)]:  # U = S * slots: uniform, load_oriented
+        w, x = xbar_inputs(shape, 7, True)
+        kernel = lambda: ops.crossbar_vmm_batch(w, x, 8, 8)
+        plain = lambda: ref.crossbar_vmm_batch(w, x, 8, 8)
+        # the yardstick: one fp32 batched product, TF32 off (exact here:
+        # |acc| < 2^23), on inputs converted and clipped beforehand
+        wf = w.float()
+        xf = x.clamp(-128, 127).float().unsqueeze(-1)
+        library = lambda: torch.bmm(wf, xf)
+        ms, plain_ms, library_ms = device_ms(kernel), device_ms(plain), device_ms(library)
+        bound_ms, bound_by = xbar_bound_ms(*shape)
+        print(f"crossbar_vmm {shape}: device time kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+              f"torch.bmm fp32 {library_ms:.6f} ms, bound {bound_ms:.6f} ms ({bound_by}); "
+              f"eager call through the wrapper {stream_ms(kernel):.6f} ms", flush=True)
+        if row is None:  # the uniform placement's shape: the row of the JSON line
+            row = {"name": "crossbar_vmm", "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/crossbar_vmm.cu",
+                   "replaces": "src/repro/kernels/crossbar_vmm/kernel.py:64",
+                   "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+    return row
+
+
 # ---------------------------------------------------------------------------
-# phases 2-4: the main path
+# phases 2-4: the spiking path
 
 
 def build(job, strategy, in_cap, device):
@@ -219,8 +329,26 @@ def run_job(name, spec, job, strategy, backend="vmap", device=None):
     return ctl, meta, secs
 
 
+def final_trees(ctl):
+    return {"states": ctl.result_states(), "pending": ctl._pending_stacked()}
+
+
+def equal_trees(what, card, host):
+    """Check two trees leaf for leaf (keys, dtypes, values); returns the
+    number of leaves and the largest difference between two leaves."""
+    from repro_torch import tree
+
+    a, b = tree.leaves(tree.to_numpy(card)), tree.leaves(tree.to_numpy(host))
+    check([p for p, _ in a] == [p for p, _ in b], f"{what}: trees differ in keys")
+    err = max((int(np.abs(x.astype(np.int64) - y.astype(np.int64)).max())
+               for (_, x), (_, y) in zip(a, b) if x.size and x.shape == y.shape), default=0)
+    for (path, x), (_, y) in zip(a, b):
+        check(x.dtype == y.dtype and np.array_equal(x, y), f"{what}: trees differ at {path}")
+    return len(a), err
+
+
 def fig5snn_phase():
-    from repro_torch import snn, tree
+    from repro_torch import snn
 
     spec = FIG5SNN
     job = snn.snn_inference_job(spec["sizes"], t_steps=24, rate=0.5, seed=2)
@@ -229,17 +357,11 @@ def fig5snn_phase():
     for strategy in STRATEGIES:
         ctl, _, _ = run_job("fig5snn", spec, job, strategy)
         if strategy == "uniform":
-            card = tree.to_numpy((ctl.result_states(), ctl._pending_stacked()))
+            card = final_trees(ctl)
     run_job("fig5snn", spec, job, "uniform", backend="sequential")
-    cpu = run_job("fig5snn", spec, job, "uniform", device="cpu")[0]
-    host = tree.to_numpy((cpu.result_states(), cpu._pending_stacked()))
-    a, b = tree.leaves({"states": card[0], "pending": card[1]}), \
-        tree.leaves({"states": host[0], "pending": host[1]})
-    check([p for p, _ in a] == [p for p, _ in b], "CPU and card trees differ in keys")
-    for (path, x), (_, y) in zip(a, b):
-        check(x.dtype == y.dtype and np.array_equal(x, y),
-              f"CPU and card final trees differ at {path}")
-    print(f"fig5snn uniform/vmap: CPU and card final trees equal on all {len(a)} leaves",
+    host = final_trees(run_job("fig5snn", spec, job, "uniform", device="cpu")[0])
+    n, _ = equal_trees("fig5snn uniform/vmap, card vs CPU", card, host)
+    print(f"fig5snn uniform/vmap: CPU and card final trees equal on all {n} leaves",
           flush=True)
 
 
@@ -260,18 +382,15 @@ def fullxbar_phase():
     return {"lif_step": launches}, job, secs["uniform"]
 
 
-def profile_phase(job, unprofiled_s):
-    """Where a fullxbar run's time goes: device kernel time against the
-    wall time, and the kernels by device time (torch.profiler).  The
-    profiler's own host cost inflates its wall time, so the busy share is
-    also given against the same run unprofiled (phase 3)."""
+def profile_phase(name, make_ctl, unprofiled_s):
+    """Where a run's time goes: device kernel time against the wall time,
+    and the kernels by device time (torch.profiler).  The profiler's own
+    host cost inflates its wall time, so the busy share is also given
+    against the same run unprofiled."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.controller import Controller
-
-    cfg, states, pending, _ = build(job, "uniform", FULLXBAR["in_cap"], None)
-    ctl = Controller(cfg, states, pending, quantum=QUANTUM)
+    ctl = make_ctl()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -281,11 +400,11 @@ def profile_phase(job, unprofiled_s):
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     if busy == 0:
-        print("fullxbar profile: device time not measured (no CUDA events)", flush=True)
+        print(f"{name} profile: device time not measured (no CUDA events)", flush=True)
         return
     n = sum(e.count for e in kernels)
     r = ctl.rounds_run
-    print(f"fullxbar uniform profile: {r} rounds, device kernel time {busy:.6f} s "
+    print(f"{name} profile: {r} rounds, device kernel time {busy:.6f} s "
           f"= {1e6 * busy / r:.1f} us/round; {n} kernels ({n / r:.1f} per round, "
           f"{1e6 * busy / n:.2f} us each); busy {100 * busy / wall:.2f}% of the "
           f"profiled wall {wall:.6f} s, {100 * busy / unprofiled_s:.2f}% of the "
@@ -295,11 +414,8 @@ def profile_phase(job, unprofiled_s):
               flush=True)
 
 
-def sync_free_phase(job):
-    from repro_torch.core.controller import Controller
-
-    cfg, states, pending, _ = build(job, "uniform", FULLXBAR["in_cap"], None)
-    ctl = Controller(cfg, states, pending, quantum=QUANTUM)
+def sync_free_phase(name, make_ctl):
+    ctl = make_ctl()
     ctl.round()  # warm: allocator and library state settle outside the check
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -308,8 +424,305 @@ def sync_free_phase(job):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    print("fullxbar: one Controller.round() ran under set_sync_debug_mode('error')",
+    print(f"{name}: one Controller.round() ran under set_sync_debug_mode('error')",
           flush=True)
+
+
+def fullxbar_controller(job):
+    from repro_torch.core.controller import Controller
+
+    cfg, states, pending, _ = build(job, "uniform", FULLXBAR["in_cap"], None)
+    return Controller(cfg, states, pending, quantum=QUANTUM)
+
+
+# ---------------------------------------------------------------------------
+# phases 5-6: the dense path
+
+
+def dense_layer(name):
+    from repro_torch.vp import workloads as wl
+
+    return next(layer for layer in wl.TABLE_III if layer.name == name)
+
+
+def build_dense(layer, strategy, mode, latency, device=None, **caps):
+    """One dense job as the reference's benchmark builds it: uniform (2
+    CPU segments x 2 units) or load-oriented (one manager CPU) placement;
+    ``cim`` offload, ``riscv`` on the DRAM segment's CPU, or ``mixed``
+    (CPU0 computes half of the columns on RISC-V while CPU1 offloads).
+    ``caps`` go to the builder (in_cap/out_cap/store_log).  Returns
+    ``(cfg, states, pending, job)``."""
+    from repro_torch.core import segmentation as sg
+    from repro_torch.vp import workloads as wl
+
+    if strategy == "uniform":
+        descs, mgrs, ids = sg.uniform(2, 2), [0, 1], {0: (0, 1), 1: (2, 3)}
+    else:
+        descs, mgrs, ids = sg.load_oriented(), [1], {1: (0, 2)}
+    kw = {}
+    if mode == "riscv":
+        job = wl.riscv_workload(layer)
+    else:
+        job = wl.cim_workload(layer, mgr_segments=mgrs if mode == "cim" else mgrs[-1:],
+                              cim_ids_per_mgr=ids, ordinals=sg.mailbox_ordinals(descs))
+        if mode == "mixed":
+            half = wl.Layer(layer.network, layer.layer, layer.h, layer.w, max(layer.p // 2, 1))
+            job = {**job, "programs": {**job["programs"],
+                                       0: wl.riscv_workload(half)["programs"][0]}}
+        kw = dict(crossbars=job["crossbars"], scratch_init=job["scratch"])
+    cfg, states, pending = sg.build(descs, programs=job["programs"], dram_words=job["dram"],
+                                    channel_latency=latency, device=device, **kw, **caps)
+    return cfg, states, pending, job
+
+
+def dense_o(states, job, layer):
+    o = job["o_word"]
+    return states["dram"]["data"][0, o: o + layer.h * layer.p].cpu().numpy().reshape(
+        layer.h, layer.p)
+
+
+# CPU1 has no local DRAM: two blocking remote loads (request, stall,
+# response), a posted remote store and scratch stores — paths no Table III
+# job takes
+REMOTE_PROG = """
+    li t0, 4096
+    lw t1, 0(t0)
+    lw t2, 4(t0)
+    add t3, t1, t2
+    sw t3, 8(t0)
+    li t4, 0x70000000
+    sw t3, 0(t4)
+    lw t5, 12(t0)
+    sw t5, 4(t4)
+    halt
+"""
+
+
+def dense_cpu_phase():
+    """Two small dense jobs on the card and on the CPU, with equal final
+    trees: a load-oriented offload, and remote DRAM reads and writes.  The
+    first dense CUDA work of the run, so it also warms up."""
+    from repro_torch.core import segmentation as sg
+    from repro_torch.core.controller import Controller
+    from repro_torch.vp import workloads as wl
+
+    layer = wl.Layer("small", "lo", 8, 8, 2)
+    dram = np.arange(2048, dtype=np.int32) * 3 - 1000
+    trees = {"offload": {}, "remote": {}}
+    for device in ("cuda", "cpu"):
+        cfg, states, pending, job = build_dense(layer, "load_oriented", "cim", 1000, device)
+        ctl = Controller(cfg, states, pending, quantum=1000, device=device)
+        ctl.run(max_rounds=MAX_ROUNDS, check_every=CHECK_EVERY)
+        st = ctl.result_states()
+        check(ctl.rounds_run == 8 and st["stats"]["instrs"].tolist() == [0, 2769, 0, 0]
+              and np.array_equal(dense_o(st, job, layer), job["expected"]),
+              f"small load_oriented offload on {device}: rounds {ctl.rounds_run}")
+        trees["offload"][device] = final_trees(ctl)
+
+        built = sg.build(sg.uniform(2, 2), programs={1: REMOTE_PROG}, dram_words=dram,
+                         channel_latency=300, device=device)
+        ctl = Controller(*built, quantum=300, device=device)
+        ctl.run(max_rounds=MAX_ROUNDS, check_every=CHECK_EVERY)
+        st = ctl.result_states()
+        total = int(dram[1024] + dram[1025])
+        check(int(st["dram"]["data"][0, 1026]) == total
+              and st["scratch"][1, :2].tolist() == [total, int(dram[1027])],
+              f"remote reads and writes on {device}: wrong words")
+        trees["remote"][device] = final_trees(ctl)
+    for name, pair in trees.items():
+        n, _ = equal_trees(f"small {name} job, card vs CPU", pair["cuda"], pair["cpu"])
+        print(f"small {name} job: results right, CPU and card final trees equal on "
+              f"all {n} leaves", flush=True)
+
+    # past capacity inside the scan: store-log entries clip onto the last
+    # one, outbox appends drop; both watermarks raise the same message
+    rv = wl.riscv_workload(wl.Layer("small", "rv", 8, 8, 4))
+    overflows = {
+        "DRAM store-log overflow": lambda device: Controller(*sg.build(
+            [sg.SegmentDesc(cpu=True, dram=True)], programs=rv["programs"],
+            dram_words=rv["dram"], store_log=2, device=device), quantum=400, device=device),
+        "outbox overflow": lambda device: Controller(*build_dense(
+            wl.Layer("small", "u", 6, 6, 2), "uniform", "cim", 500, device, out_cap=4)[:3],
+            quantum=500, device=device),
+    }
+    for name, make in overflows.items():
+        msgs, trees = {}, {}
+        for device in ("cuda", "cpu"):
+            ctl = make(device)
+            try:
+                ctl.run(max_rounds=100, check_every=CHECK_EVERY)
+            except RuntimeError as err:
+                msgs[device] = (ctl.rounds_run, str(err))
+            trees[device] = final_trees(ctl)
+        check(len(msgs) == 2 and msgs["cuda"] == msgs["cpu"]
+              and msgs["cuda"][1].startswith(name), f"{name}: card {msgs.get('cuda')}, "
+              f"CPU {msgs.get('cpu')}")
+        n, _ = equal_trees(f"{name}, card vs CPU", trees["cuda"], trees["cpu"])
+        print(f"{name} at round {msgs['cuda'][0]}: the card's message equals the "
+              f"CPU's, and so do its trees on all {n} leaves", flush=True)
+
+
+def scan_bound_ms(st_in, st_out, box):
+    """Least time for one scan: the state it reads and writes (scratch,
+    program, cache tags, registers and some 40 scalar fields per segment)
+    once each, a word per local DRAM access and the outbox entries it
+    appends, against the memory rate; one operation per simulated
+    instruction against the card's float32 rate outside the tensor cores.
+    Returns (ms, "bytes" | "operations", simulated instructions)."""
+    size = lambda *xs: sum(x.numel() * x.element_size() for x in xs)
+    carried = lambda st: size(st["scratch"], st["icache"]["tags"], st["dcache"]["tags"],
+                              st["cpu"]["regs"])
+    delta = lambda f: int((f(st_out) - f(st_in)).sum())
+    touches = delta(lambda st: st["dcache"]["hits"] + st["dcache"]["misses"])
+    instrs = delta(lambda st: st["stats"]["instrs"])
+    nbytes = (carried(st_in) + carried(st_out) + size(st_in["prog"])
+              + 40 * 4 * st_in["time"].numel() + 4 * touches
+              + 21 * int(box["count"].sum()))  # 5 int32 fields and a flag per entry
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = instrs / PEAK_FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), instrs
+
+
+def scan_phase():
+    """slot_scan against its plain version on the card, from mid-run states
+    of the Table III jobs; then its device time per round at the jobs'
+    quantum (10,000 slots)."""
+    from repro_torch import tree
+    from repro_torch.core import channel as ch
+    from repro_torch.core.controller import Controller
+    from repro_torch.kernels.slot_scan import ops, ref
+
+    def state_after(name, strategy, mode, rounds):
+        cfg, states, pending, _ = build_dense(dense_layer(name), strategy, mode,
+                                              DENSE_QUANTUM)
+        ctl = Controller(cfg, states, pending, quantum=DENSE_QUANTUM)
+        for _ in range(rounds):
+            ctl.round()
+        wiring = [torch.tensor(x, dtype=torch.int32, device="cuda")
+                  for x in (cfg.cim_seg, cfg.cim_slot)]
+        return cfg, ctl.states, ctl._limits(ctl.states["time"]), wiring
+
+    def fresh(cfg, states):  # the scan updates DRAM and the outbox in place
+        return (tree.tree_map(lambda x: x.clone(), states),
+                ch.empty_box(cfg.out_cap, (cfg.n_segments,), "cuda"))
+
+    cases = [(f"{name} {strategy}/{mode} after {rounds} rounds",
+              *state_after(name, strategy, mode, rounds))
+             for name, strategy, mode, rounds in SCAN_STATES]
+    max_err = 0
+    for label, cfg, states, limit, wiring in cases:
+        outs = []
+        for fn in (ops.slot_scan, ref.slot_scan):
+            st, box = fresh(cfg, states)
+            outs.append(fn(cfg, SCAN_SLOTS, st, box, limit, *wiring))
+        torch.cuda.synchronize()
+        n, err = equal_trees(f"slot_scan {label}",
+                             {"states": outs[0][0], "outbox": outs[0][1]},
+                             {"states": outs[1][0], "outbox": outs[1][1]})
+        max_err = max(max_err, err)
+        executed = (outs[0][0]["stats"]["instrs"] - states["stats"]["instrs"]).tolist()
+        print(f"slot_scan {label}, {SCAN_SLOTS} slots: kernel and plain equal on all "
+              f"{n} leaves (instructions run {executed}, messages "
+              f"{outs[0][1]['count'].tolist()})", flush=True)
+
+    # time per round at the main path's quantum, from Googlenet-conv1's
+    # uniform offload after 2 rounds (both CPUs streaming inputs); the plain
+    # version's full quantum is held against the kernel's first call, which
+    # started from the same state and ends on the closed-form clock advance
+    label = f"Googlenet-conv1 uniform/cim after 2 rounds, {DENSE_QUANTUM} slots"
+    cfg, states, limit, wiring = state_after("Googlenet-conv1", "uniform", "cim", 2)
+    reps = 10
+    inputs = [fresh(cfg, states) for _ in range(reps + 1)]
+    out = ops.slot_scan(cfg, DENSE_QUANTUM, *inputs[-1], limit, *wiring)  # warm
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for st, box in inputs[:reps]:
+        ops.slot_scan(cfg, DENSE_QUANTUM, st, box, limit, *wiring)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps
+    st, box = fresh(cfg, states)
+    start.record()
+    plain = ref.slot_scan(cfg, DENSE_QUANTUM, st, box, limit, *wiring)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    n, err = equal_trees(f"slot_scan {label}", {"states": out[0], "outbox": out[1]},
+                         {"states": plain[0], "outbox": plain[1]})
+    max_err = max(max_err, err)
+    print(f"slot_scan {label}: kernel and plain equal on all {n} leaves", flush=True)
+    bound_ms, bound_by, instrs = scan_bound_ms(states, out[0], out[1])
+    print(f"slot_scan Googlenet-conv1 uniform/cim, one round of {DENSE_QUANTUM} slots on "
+          f"{cfg.n_segments} segments ({instrs} instructions run): kernel {ms:.6f} ms "
+          f"(mean of {reps}) = {ms * 1e6 / DENSE_QUANTUM:.1f} ns per slot, "
+          f"{ms * 1e6 / instrs:.1f} ns per simulated instruction; plain {plain_ms:.3f} ms; "
+          f"bound {bound_ms:.6f} ms ({bound_by})", flush=True)
+    return {"name": "slot_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/slot_scan.cu",
+            "replaces": "src/repro/vp/platform.py:627",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            # no PyTorch call simulates a RISC-V instruction stream
+            "library_ms": None}
+
+
+def run_dense(target):
+    """Build, run and check one Table III target; returns (controller, seconds)."""
+    from repro_torch.core.controller import Controller
+    from repro_torch.kernels.crossbar_vmm.ops import crossbar_vmm_batch
+    from repro_torch.kernels.slot_scan.ops import slot_scan
+
+    name, strategy, mode, backend, rounds, sim_time, instrs, n_ops = target
+    layer = dense_layer(name)
+    cfg, states, pending, job = build_dense(layer, strategy, mode, DENSE_QUANTUM)
+    ctl = Controller(cfg, states, pending, backend=backend, quantum=DENSE_QUANTUM)
+    before = crossbar_vmm_batch.launches, slot_scan.launches
+    t0 = time.perf_counter()
+    ctl.run(max_rounds=2000, check_every=CHECK_EVERY)
+    secs = time.perf_counter() - t0
+    launches = (crossbar_vmm_batch.launches - before[0], slot_scan.launches - before[1])
+    st = ctl.result_states()
+    got = (ctl.rounds_run, int(st["time"].max()), st["stats"]["instrs"].tolist(),
+           int(st["cims"]["ops"].sum()))
+    label = f"{name} {strategy}/{mode}/{backend}"
+    print(f"{label}: rounds {got[0]}, sim cycles {got[1]}, instrs {got[2]}, CIM ops "
+          f"{got[3]}, launches crossbar_vmm {launches[0]} slot_scan {launches[1]}, "
+          f"{secs:.6f} s, {secs / got[0] * 1e6:.1f} us/round, "
+          f"{sum(got[2]) / secs:.1f} simulated instructions/s", flush=True)
+    check(got == (rounds, sim_time, instrs, n_ops), f"{label}: {got}, want "
+          f"{(rounds, sim_time, instrs, n_ops)}")
+    check(np.array_equal(dense_o(st, job, layer), job["expected"]), f"{label}: O != A @ B")
+    per_round = cfg.n_segments if backend == "sequential" else 1
+    check(launches == (per_round * got[0],) * 2,
+          f"{label}: launches {launches} for {got[0]} rounds")
+    return ctl, secs
+
+
+def dense_phase():
+    from repro_torch.kernels.crossbar_vmm.ops import crossbar_vmm_batch
+    from repro_torch.kernels.slot_scan.ops import slot_scan
+
+    crossbar_vmm_batch.launches = slot_scan.launches = 0  # the dense path's run starts here
+    secs, expected = {}, 0
+    for target in DENSE_TARGETS:
+        ctl, secs[target[:4]] = run_dense(target)
+        expected += ctl.rounds_run * (ctl.cfg.n_segments if target[3] == "sequential" else 1)
+    launches = {"crossbar_vmm": crossbar_vmm_batch.launches, "slot_scan": slot_scan.launches}
+    check(launches == {"crossbar_vmm": expected, "slot_scan": expected},
+          f"dense path: launches {launches}, want {expected} each")
+    g1 = ("Googlenet-conv1", "uniform", "cim")
+    print(f"Googlenet-conv1 uniform/cim: sequential / vmap wall = "
+          f"{secs[g1 + ('sequential',)] / secs[g1 + ('vmap',)]:.3f}", flush=True)
+    return launches, secs[g1 + ("vmap",)]
+
+
+def dense_controller():
+    from repro_torch.core.controller import Controller
+
+    cfg, states, pending, _ = build_dense(dense_layer("Googlenet-conv1"), "uniform", "cim",
+                                          DENSE_QUANTUM)
+    return Controller(cfg, states, pending, quantum=DENSE_QUANTUM)
 
 
 def main():
@@ -338,14 +751,22 @@ def main():
                 print(f"  {name}: {line.strip()}", flush=True)
 
     phase("1 kernels against their plain versions")
-    rows = [kernel_phase()]
+    rows = [kernel_phase(), xbar_phase()]
     phase("2 fig5snn")
     fig5snn_phase()
-    phase("3 fullxbar (main path at full width)")
+    phase("3 fullxbar (the spiking path at full width)")
     launches, job, uniform_s = fullxbar_phase()
-    profile_phase(job, uniform_s)
-    phase("4 no host sync inside a round")
-    sync_free_phase(job)
+    profile_phase("fullxbar uniform", lambda: fullxbar_controller(job), uniform_s)
+    phase("4 no host sync inside a spiking round")
+    sync_free_phase("fullxbar", lambda: fullxbar_controller(job))
+    phase("5 dense: card against CPU, slot_scan against its plain version")
+    dense_cpu_phase()
+    rows.append(scan_phase())
+    phase("6 dense main path: the Table III targets")
+    dense_launches, g1_s = dense_phase()
+    launches.update(dense_launches)
+    profile_phase("Googlenet-conv1 uniform/cim", dense_controller, g1_s)
+    sync_free_phase("Googlenet-conv1 uniform/cim", dense_controller)
 
     for row in rows:
         row["launches"] = launches[row["name"]]

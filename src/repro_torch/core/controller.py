@@ -30,6 +30,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.core import channel as ch
+from repro_torch.vp import isa
 from repro_torch.vp import platform as pf
 
 _BIG = 2**30
@@ -72,6 +73,19 @@ class Controller:
             injected = self.pending["valid"] & (self.pending["kind"] != ch.MSG_SPIKE)
             if bool(injected.any()):
                 self.cfg = dataclasses.replace(self.cfg, has_cpu=True)
+        if self.cfg.has_cpu and self.cfg.has_snn:
+            # a spiking platform takes the full step with every CPU halted
+            # and no spike-count readback asked for: a live CPU beside
+            # spike-mode units (tick-addressed CIM_REG_SPIKE stores) or a
+            # CIM_REG_COUNTS request makes a hybrid job
+            cpu, pen = self.states["cpu"], self.pending
+            counts = pen["valid"] & (pen["kind"] == ch.MSG_W_CIM) & (
+                (pen["addr"] & 0xFFFF) == isa.CIM_REG_COUNTS)
+            if bool((cpu["present"] & ~cpu["halted"]).any() | counts.any()
+                    | (self.states["cims"]["count_req"] >= 0).any()):
+                raise NotImplementedError(
+                    "hybrid dense+spiking jobs (live CPUs beside spike-mode units, "
+                    "CIM_REG_COUNTS readbacks) come with ROADMAP module item 8")
         self.lat = self.cfg.latency_matrix(self.device)
         self._step = pf.make_segment_step(self.cfg, self.quantum, self.obs)
         s = self.cfg.n_segments

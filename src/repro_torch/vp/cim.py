@@ -1,10 +1,19 @@
-"""Memristor-based CIM unit state and its spiking (LIF) tick (counterpart
+"""Memristor-based CIM unit: controller FSM (IDLE->IN->OP->OUT), the
+crossbar calculator (quantized VMM) and the spiking (LIF) tick (counterpart
 of ``repro/vp/cim.py``).
 
-Only the spike mode of the CPU-free slice is here: ``cim_state`` and
-``snn_tick``.  The dense FSM (``apply_*``, ``finish_ops``) comes with the
-dense slice (ROADMAP module item 6) and the grouped tick of multi-crossbar
-layers with ROADMAP module item 7.
+The FSM timing model is the reference's:
+
+  IN  cycles = ceil(w * in_res / PORT_BITS)   (input streaming)
+  OP  cycles = in_res * OP_CYCLE + ADC_LAT    (bit-serial drive + conversion)
+  OUT cycles = h * out_res / PORT_BITS        (result streaming)
+
+Every function works over a leading segment axis: cims fields are
+``(S, n_slots, ...)``.  The ``apply_*`` register writes update every unit
+of every segment at once, ``pred`` ``(S, n_slots)`` selecting the units
+written (the reference applies one unit at a time and selects with the
+same predicate).  The grouped tick of multi-crossbar layers comes with
+ROADMAP module item 7.
 """
 from __future__ import annotations
 
@@ -12,10 +21,15 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels.crossbar_vmm.ops import crossbar_vmm_batch
+from repro_torch.kernels.crossbar_vmm import ref as xbar_ref
 from repro_torch.kernels.lif_step.ops import lif_step_units
 from repro_torch.vp import isa
 
 XBAR = 256  # crossbar dimension (Table II: 256x256)
+PORT_BITS = 32
+OP_CYCLE = 2
+ADC_LAT = 16
 
 _I32 = torch.int32
 
@@ -74,6 +88,95 @@ def cim_state(n_slots: int, snn_fanout: int = 1):
         "ticks": z(n_slots),
         "count_req": full((n_slots,), -1),
     }
+
+
+def _select(cims, pred, new):
+    """Fields of ``new`` where ``pred`` (S, n) holds, else the old ones."""
+    out = dict(cims)
+    for k, v in new.items():
+        p = pred.reshape(pred.shape + (1,) * (v.dim() - pred.dim()))
+        out[k] = torch.where(p, v, cims[k])
+    return out
+
+
+def apply_config(cims, pred, value):
+    """CIM_REG_CONFIG write: {rows[8:0], cols[17:9], in_res[21:18],
+    out_res[25:22]}; the unit becomes ready for input."""
+    return _select(cims, pred, {
+        "rows": value & 0x1FF,  # 9 bits: up to 256
+        "cols": (value >> 9) & 0x1FF,
+        "in_res": (value >> 18) & 0xF,
+        "out_res": (value >> 22) & 0xF,
+        "state": torch.full_like(value, isa.CIM_ST_IN),
+        "in_count": torch.zeros_like(value),
+    })
+
+
+def apply_mode(cims, pred, value):
+    """CIM_REG_MODE write: {mode[0], thresh[16:1], leak[24:17], refrac[28:25]}."""
+    return _select(cims, pred, {
+        "mode": value & 1,
+        "thresh": torch.clamp((value >> 1) & 0xFFFF, min=1),
+        "leak": (value >> 17) & 0xFF,
+        "refrac_period": (value >> 25) & 0xF,
+    })
+
+
+def apply_input(cims, pred, value):
+    """One CIM_REG_INPUT write: the next input element of each selected unit."""
+    idx = cims["in_count"].clamp(0, XBAR - 1).to(torch.int64).unsqueeze(-1)
+    row = cims["in_buf"].scatter(-1, idx, value.unsqueeze(-1))
+    return _select(cims, pred, {"in_buf": row, "in_count": cims["in_count"] + 1})
+
+
+def apply_start(cims, pred, t_now):
+    """Launch OP: busy_until = now + IN-residual + OP + OUT cycles."""
+    w = cims["cols"]
+    h = cims["rows"]
+    in_cyc = (w * cims["in_res"] + PORT_BITS - 1) // PORT_BITS
+    op_cyc = cims["in_res"] * OP_CYCLE + ADC_LAT
+    out_cyc = (h * cims["out_res"] + PORT_BITS - 1) // PORT_BITS
+    return _select(cims, pred, {
+        "state": torch.full_like(w, isa.CIM_ST_OP),
+        "busy_until": t_now + in_cyc + op_cyc + out_cyc,
+    })
+
+
+# the reference's plain crossbar VMM oracle is the kernel's plain version
+crossbar_vmm_ref = xbar_ref.crossbar_vmm
+
+
+def finish_ops(cims, t_end, use_kernel: bool = False):
+    """Batched quantum-boundary completion: every unit whose OP finishes by
+    ``t_end`` (S,) computes its VMM and returns to IDLE.  Returns (cims,
+    done (S, n)).
+
+    Every unit of every segment goes through ONE ``crossbar_vmm_batch``
+    call — the CUDA kernel on the card, the plain version on the CPU
+    (``use_kernel`` is kept so ``VPConfig`` matches the reference; the
+    tensor's device decides) — and ``done`` selects which results land, so
+    the host never reads ``done``.  The platform runs the Table II
+    configuration (8-bit I/O), as the reference does.
+    """
+    del use_kernel
+    done = (
+        cims["present"]
+        & (cims["state"] == isa.CIM_ST_OP)
+        & (cims["busy_until"] <= t_end.unsqueeze(-1))
+    )
+    lead = done.shape  # (S, n)
+    outs = crossbar_vmm_batch(
+        cims["weights"].reshape(-1, XBAR, XBAR), cims["in_buf"].reshape(-1, XBAR),
+        8, 8).reshape(*lead, XBAR)
+    cims = dict(cims)
+    cims["out_buf"] = torch.where(done.unsqueeze(-1), outs, cims["out_buf"])
+    # outputs ship by DMA in the same boundary step, so OUT completes at
+    # once and the FSM returns to IDLE (OUT cycles are inside busy_until)
+    cims["state"] = torch.where(done, isa.CIM_ST_IDLE, cims["state"])
+    cims["op_done_at"] = torch.where(done, cims["busy_until"], cims["op_done_at"])
+    cims["ops"] = cims["ops"] + done.to(_I32)
+    cims["in_count"] = torch.where(done, 0, cims["in_count"])
+    return cims, done
 
 
 def snn_tick(cims, t_gate, use_kernel: bool = False, grouped: bool = False):

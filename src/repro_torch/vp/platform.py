@@ -6,10 +6,14 @@ outbox, pending')`` written over a leading segment axis: every tensor is
 ``(S, ...)`` and ``t_limit`` is ``(S,)``.  The stacked backend calls it on
 all segments at once; the sequential backend on one-segment stacks.
 
-This slice ports the CPU-free path (``has_cpu=False``): the AER branch of
-the inbox, the passive clock advance, the LIF tick and the fan-out
-appends.  A round contains no host sync — no ``.item()``, ``nonzero`` or
-boolean-mask indexing — so it can later be captured as a CUDA graph.
+Both paths are ported: the CPU-free spiking step (``has_cpu=False``) and
+the step with live RISC-V CPUs (``has_cpu=True``: the MMIO/DMA inbox, the
+instruction-slot scan and dense CIM completion).  A spiking platform
+takes the step with CPUs only as the fallback for a hand-injected MMIO/DMA
+message, with every CPU halted: hybrid jobs (live CPUs beside ticking
+units, the spike-count readback) come with ROADMAP module item 8.  A round contains no host sync — no ``.item()``,
+``nonzero`` or boolean-mask indexing — so it can later be captured as a
+CUDA graph.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import channel as ch
+from repro_torch.kernels.slot_scan.ops import slot_scan
 from repro_torch.vp import cim as cim_mod
 from repro_torch.vp import isa, memory, riscv
 
@@ -97,14 +102,47 @@ def _scatter_add(base, idx, vals):
     return sink.scatter_add(-1, idx.to(torch.int64), vals.to(base.dtype))[..., :n]
 
 
-def _apply_inbox(cfg: VPConfig, st, pending):
-    """Apply the messages that are due; returns ``(st, pending')``.
+def _apply_mmio(cfg: VPConfig, cims, mc, addr, data, t_avail, t):
+    """CIM register writes of one inbox application, every unit at once:
+    per unit, CONFIG (the largest value wins), the INPUT stream (a ranked
+    scatter in slot order, positions clipped to the crossbar), WROW, START
+    (``t_start = max(t, max t_avail)``) and MODE (the largest value wins),
+    in the reference's order.  ``mc`` (S, L) selects the MSG_W_CIM lanes."""
+    n = cfg.n_cim_slots
+    units = torch.arange(n, dtype=_I32, device=mc.device).reshape(1, n, 1)
+    mu = mc.unsqueeze(1) & ((addr >> 16).unsqueeze(1) == units)  # (S, n, L)
+    reg = (addr & 0xFFFF).unsqueeze(1)
+    d = data.unsqueeze(1).expand(mu.shape)
+    largest = lambda m, empty: torch.where(m, d, empty).amax(-1)
 
-    AER spikes (MSG_SPIKE) integrate at their unit's next tick: a spike is
-    consumed when ``t_avail <= next_tick[u]``.  Spikes a unit can never
-    integrate (slot out of range, unit not ticking) are dropped once they
-    have arrived.  On a CPU-free platform no other kind can be produced,
-    so stray other kinds just drain.
+    mcfg = mu & (reg == isa.CIM_REG_CONFIG)
+    cims = cim_mod.apply_config(cims, mcfg.any(-1), largest(mcfg, -(2**31) + 1))
+    mi = mu & (reg == isa.CIM_REG_INPUT)
+    rank = mi.to(_I32).cumsum(-1, dtype=_I32) - 1
+    pos = (cims["in_count"].unsqueeze(-1) + rank).clamp(0, cim_mod.XBAR - 1)
+    cims["in_buf"] = memory.write_last_wins(cims["in_buf"], pos, d, mi)
+    cims["in_count"] = cims["in_count"] + mi.sum(-1, dtype=_I32)
+    mwr = mu & (reg == isa.CIM_REG_WROW)
+    cims["wrow"] = torch.where(mwr.any(-1), largest(mwr, 0), cims["wrow"])
+    mst = mu & (reg == isa.CIM_REG_START)
+    t_start = torch.maximum(t.unsqueeze(-1), torch.where(
+        mst, t_avail.unsqueeze(1), 0).amax(-1))
+    cims = cim_mod.apply_start(cims, mst.any(-1), t_start)
+    mmd = mu & (reg == isa.CIM_REG_MODE)
+    return cim_mod.apply_mode(cims, mmd.any(-1), largest(mmd, 0))
+
+
+def _apply_inbox(cfg: VPConfig, st, pending):
+    """Apply the messages that are due; returns ``(st, pending', responses)``.
+
+    With a live CPU: scratch DMA writes, DRAM posted writes and CIM
+    register writes apply (a duplicate address takes the last message's
+    value, deterministically on every device); DRAM read requests become
+    ``responses`` that read the image after this inbox's posted writes; and
+    a read response wakes its waiting CPU.  AER spikes (MSG_SPIKE)
+    integrate at their unit's next tick: a spike is consumed when
+    ``t_avail <= next_tick[u]``, and spikes a unit can never integrate are
+    dropped once they have arrived.  Kinds nothing handles just drain.
     """
     t = st["time"].unsqueeze(-1)  # (S, 1)
     kind, addr, data = pending["kind"], pending["addr"], pending["data"]
@@ -112,7 +150,20 @@ def _apply_inbox(cfg: VPConfig, st, pending):
     if cfg.has_snn:
         m = m & (kind != ch.MSG_SPIKE)
     cims = st["cims"]
+    st = dict(st)
     stats = dict(st["stats"])
+    if cfg.has_cpu:
+        ms = m & (kind == ch.MSG_W_SCRATCH)
+        st["scratch"] = memory.write_last_wins(
+            st["scratch"], addr.clamp(0, SCRATCH_WORDS - 1), data, ms)
+        md = m & (kind == ch.MSG_W_DRAM) & st["dram_present"].unsqueeze(-1)
+        d_idx = addr.clamp(0, DRAM_BACKING - 1)
+        dram = dict(st["dram"])
+        dram["data"] = memory.write_last_wins(dram["data"], d_idx, data, md)
+        dram["writes"] = dram["writes"] + md.sum(-1, dtype=_I32)
+        st["dram"] = dram
+        cims = _apply_mmio(cfg, dict(cims), m & (kind == ch.MSG_W_CIM), addr, data,
+                           pending["t_avail"], st["time"])
     spk_applied = torch.zeros_like(m)
     if cfg.has_snn:
         n = cfg.n_cim_slots
@@ -142,26 +193,60 @@ def _apply_inbox(cfg: VPConfig, st, pending):
         stats["spikes_consumed"] = stats["spikes_consumed"] + integrated.sum(-1, dtype=_I32)
     retired = m | spk_applied
     stats["txn_hist"] = _scatter_add(stats["txn_hist"], kind.clamp(0, 7), retired)
-    st = dict(st)
     st["cims"] = cims
     st["stats"] = stats
+    responses = None
+    if cfg.has_cpu:
+        responses = {"mask": m & (kind == ch.MSG_R_DRAM) & st["dram_present"].unsqueeze(-1),
+                     "tag": data,
+                     "data": st["dram"]["data"].gather(-1, d_idx.to(torch.int64)),
+                     "t_req": pending["t_avail"]}
+        # read responses: deliver to the waiting CPU (tag = rd register); the
+        # value is the largest over this round's responses and 0, as in the
+        # reference
+        mr = m & (kind == ch.MSG_R_RESP)
+        has_resp = mr.any(-1)
+        resp_val = torch.where(mr, data, 0).amax(-1)
+        resp_rd = torch.where(mr, addr, 0).amax(-1)
+        cpu = riscv.writeback(st["cpu"], torch.where(has_resp, resp_rd, 0), resp_val)
+        cpu["waiting"] = cpu["waiting"] & ~has_resp
+        st["cpu"] = cpu
     pending = dict(pending)
     pending["valid"] = pending["valid"] & ~m & ~spk_applied
-    return st, pending
+    return st, pending, responses
+
+
+def _mailbox_append(outbox, sel, cims):
+    """Dense completion's DMA, per unit in unit order: ``out_buf[u,
+    :rows[u]]`` to the manager's OUT area, then 1 to its flag word — as ONE
+    bulk append, identical to the reference's per-unit row and flag appends
+    (each append keeps lane order, truncation included).  ``sel`` (S, n)
+    selects the units."""
+    xb = cim_mod.XBAR
+    rows = torch.arange(xb, dtype=_I32, device=sel.device)
+    one = lambda x: x.unsqueeze(-1)
+    lane = lambda r, f: torch.cat([r, f], -1).reshape(sel.shape[0], -1)
+    full = lambda x: one(x).expand(*sel.shape, xb)
+    return ch.box_append_bulk(
+        outbox,
+        lane(one(sel) & (rows < one(cims["rows"])), one(sel)),
+        ch.MSG_W_SCRATCH,
+        lane(full(cims["mgr_seg"]), one(cims["mgr_seg"])),
+        lane(one(cims["out_addr"]) + rows, one(cims["flag_addr"])),
+        lane(cims["out_buf"], torch.ones_like(one(cims["flag_addr"]))),
+        lane(full(cims["busy_until"].clamp(min=0)), one(cims["busy_until"])))
 
 
 def make_segment_step(cfg: VPConfig, quantum: int, obs=None):
-    """The pure step over a leading segment axis, for the CPU-free path.
+    """The pure step over a leading segment axis.
 
-    ``quantum`` bounds the CPU's instruction slots, which a CPU-free
-    platform does not run; it is kept for the reference's signature.
+    With a live CPU (``has_cpu``) a round is: the inbox (MMIO/DMA and AER
+    branches), the DRAM read service, ``quantum`` instruction slots and the
+    store log (``kernels/slot_scan``: one kernel launch on the card), the
+    passive clock advance, dense CIM completion (``vp/cim.finish_ops``: one
+    ``crossbar_vmm`` launch) with its mailbox DMA, then the LIF tick on
+    spiking platforms.
     """
-    del quantum
-    if cfg.has_cpu:
-        raise NotImplementedError(
-            "platforms with a live CPU (has_cpu=True: the instruction-slot "
-            "scan, MMIO/DMA inbox and dense CIM completion) come with ROADMAP "
-            "module item 6")
     if obs is not None:
         raise NotImplementedError("telemetry (obs=) comes with ROADMAP module item 10")
     if cfg.faults is not None:
@@ -170,17 +255,41 @@ def make_segment_step(cfg: VPConfig, quantum: int, obs=None):
         raise NotImplementedError(
             "multi-crossbar column groups come with ROADMAP module item 7")
     xb = cim_mod.XBAR
+    t = cfg.timing
+    wiring = {}  # device -> the static CIM wiring tables, copied there once
+
+    def cim_wiring(dev):
+        if dev not in wiring:
+            wiring[dev] = tuple(torch.tensor(x, dtype=_I32, device=dev)
+                                for x in (cfg.cim_seg, cfg.cim_slot))
+        return wiring[dev]
 
     def step(st, pending, t_limit):
         t_inbox = st["time"]  # the SNN tick gate: time the inbox was applied at
-        st, pending = _apply_inbox(cfg, st, pending)
+        st, pending, responses = _apply_inbox(cfg, st, pending)
         s = t_inbox.shape[0]
         dev = t_inbox.device
         outbox = ch.empty_box(cfg.out_cap, (s,), dev)
+        if cfg.has_cpu:
+            # service queued DRAM read requests -> responses
+            r = responses
+            outbox = ch.box_append_bulk(
+                outbox, r["mask"], ch.MSG_R_RESP,
+                r["tag"] >> 8,  # requester segment travels in the tag
+                r["tag"] & 0xFF,  # rd register index
+                r["data"],
+                torch.maximum(st["time"].unsqueeze(-1), r["t_req"]) + t.dram_access)
+            st, outbox = slot_scan(cfg, quantum, st, outbox, t_limit, *cim_wiring(dev))
         # passive segments (no CPU or halted) advance to the decoupling bound
         cpu = st["cpu"]
         passive = ~cpu["present"] | cpu["halted"]
         st["time"] = torch.where(passive, torch.maximum(st["time"], t_limit), st["time"])
+
+        if cfg.has_cpu:
+            # dense CIM completion at the quantum boundary
+            cims, done = cim_mod.finish_ops(st["cims"], st["time"], cfg.use_kernel)
+            st["cims"] = cims
+            outbox = _mailbox_append(outbox, done, cims)
 
         if cfg.has_snn:
             cims, fired_rows, _fire, tick_time = cim_mod.snn_tick(

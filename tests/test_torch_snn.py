@@ -15,8 +15,10 @@ import torch
 from repro import snn as jsnn
 from repro.core.controller import Controller as JController
 from repro_torch import snn
+from repro_torch.core import channel as ch
 from repro_torch.core import segmentation as sg
 from repro_torch.core.controller import Controller
+from repro_torch.vp import isa
 from torch_parity import assert_tree_equal, cfg_fields
 
 REPO = Path(__file__).resolve().parents[1]
@@ -136,23 +138,37 @@ def _outside_the_slice():
     descs = snn.segmentation_for(len(job.layers), "uniform", n_segments=2)
     built = snn.build_snn(job.layers, descs, job.raster, device="cpu")[:3]
     ctl = lambda **kw: Controller(*built, device="cpu", **kw)
-    mmio = {**built[2], "valid": built[2]["valid"].clone()}
-    mmio["valid"][0, -1] = True  # a hand-injected MMIO write (kind 0)
+    spike_units = {0: {"mode": 1, "tick_period": 10_000}}
+
+    def hybrid(kind, addr, live_cpu):
+        # a hand-injected message turns on the full step with every CPU
+        # halted; a COUNTS request or a live CPU makes a hybrid job (item 8)
+        cfg, states, pending, _ = snn.build_snn(job.layers, descs, job.raster, device="cpu")
+        for f, v in (("kind", kind), ("addr", addr), ("data", 3), ("t_avail", 0),
+                     ("valid", True)):
+            pending[f][0, -1] = v
+        assert states["cpu"]["present"][0] and states["cpu"]["halted"][0]
+        states["cpu"]["halted"][0] = not live_cpu
+        return Controller(cfg, states, pending, device="cpu")
+
     return {
-        "mmio_inbox": lambda: Controller(*built[:2], mmio, device="cpu"),
         "threads": lambda: ctl(backend="threads"),
         "shard_map": lambda: ctl(backend="shard_map"),
         "obs": lambda: ctl(obs=object()),
         "fused": lambda: ctl().run(fused=True),
-        "programs": lambda: sg.build(descs, programs={0: "ecall"}, device="cpu"),
+        # live CPUs beside spike-mode units: a hybrid job (ROADMAP item 8)
+        "programs": lambda: sg.build(descs, programs={0: "halt"},
+                                     cim_init=spike_units, device="cpu"),
         "faults": lambda: snn.build_snn(job.layers, descs, job.raster,
                                         faults=object(), device="cpu"),
         "traffic": lambda: snn.auto_segmentation_for(job.layers, traffic=np.eye(2)),
+        "counts_request": lambda: hybrid(ch.MSG_W_CIM, isa.CIM_REG_COUNTS, False),
+        "live_cpu": lambda: hybrid(ch.MSG_W_SCRATCH, 7, True),
     }
 
 
-@pytest.mark.parametrize("option", ["mmio_inbox", "threads", "shard_map", "obs",
-                                    "fused", "programs", "faults", "traffic"])
+@pytest.mark.parametrize("option", ["threads", "shard_map", "obs", "fused", "programs",
+                                    "faults", "traffic", "counts_request", "live_cpu"])
 def test_options_outside_the_slice_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _outside_the_slice()[option]()
