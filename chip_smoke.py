@@ -2,18 +2,22 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths through the hand-written CUDA kernels — a
-spiking job built by ``snn.build_snn`` on a CPU-free platform, and the
-paper's dense VMM offload on live RISC-V CPUs built by
-``segmentation.build(programs=...)`` — each run to completion by
+Drives the port's three paths through the hand-written CUDA kernels — a
+spiking job built by ``snn.build_snn`` on a CPU-free platform, the paper's
+dense VMM offload on live RISC-V CPUs built by
+``segmentation.build(programs=...)``, and both under seeded fault
+injection (``faults=FaultConfig(...)``) — each run to completion by
 ``Controller.run``, and fails (non-zero exit, no result line) unless every
 phase holds:
 
   0. environment: the card's name and power limit, the kernels built from
      the sources in this checkout (one nvcc per source, all at once);
-  1. ``lif_step`` and ``crossbar_vmm`` equal their plain PyTorch versions
-     bit for bit on the card, with their times, the plain versions' times,
-     their bounds and a library yardstick at the main paths' shapes;
+  1. ``lif_step`` and ``crossbar_vmm``, and their fault variants, equal
+     their plain PyTorch versions bit for bit on the card (the fault
+     variants with masks drawn by ``faults.unit_masks`` at high rates, each
+     fault input alone, and neutral masks against the clean kernel), with
+     their times, the plain versions' times, their bounds and a library
+     yardstick at the main paths' shapes;
   2. ``fig5snn`` (128x96x64x10, T=24): 2045 spikes in 28 rounds under three
      placements and both backends, the oracle's output counts, one kernel
      launch per round (per segment on ``sequential``), and a CPU rerun
@@ -34,13 +38,25 @@ phase holds:
      rounds, simulated cycles, instructions per segment, CIM OPs and
      ``O == A @ B``, with the ``crossbar_vmm`` and ``slot_scan`` launch
      counts read from this run; then its profile and one round under
-     sync-debug "error".
+     sync-debug "error";
+  7. faults: fullxbar under crossbar, neuron, transport, mild and combined
+     faults (the combined one under two placements) and under the drop
+     policy, the small megaloop job under transport faults and its
+     ``degradation_sweep``, and Googlenet-conv1's offload under crossbar
+     faults, each reproducing the reference's rounds, spikes, dropped /
+     duped / lost counts and fidelities (dense: rounds, cycles,
+     instructions, OPs and the faulted ``O``'s sums and hash), with every
+     faulted tick and dense completion launched through the fault kernels;
+     then card against CPU trees for one small job per family and a small
+     faulted offload, the wall per round with and without transport
+     faults, and one faulted round under sync-debug "error".
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' numbers as JSON.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import statistics
 import subprocess
@@ -66,7 +82,9 @@ MAX_ROUNDS = 400
 STRATEGIES = ("uniform", "load_oriented", "auto")
 FIG5SNN = dict(sizes=(128, 96, 64, 10), spikes=2045, rounds=28, in_cap=None)
 FULLXBAR = dict(sizes=(256,) * 9, spikes=24502, rounds=34, in_cap=8192)
-KERNELS = ["lif_step", "crossbar_vmm", "slot_scan"]
+KERNELS = ["lif_step", "lif_step_faults", "crossbar_vmm", "crossbar_vmm_faults",
+           "slot_scan"]
+SOURCES = ["lif_step", "crossbar_vmm", "slot_scan"]  # kernels/csrc/<name>.cu
 
 # the dense targets: Table III layers at their published sizes, channel
 # latency = quantum = 10,000, check_every=2, as the reference's benchmark
@@ -91,6 +109,55 @@ SCAN_STATES = [("Googlenet-conv1", "uniform", "cim", 2),
                ("Googlenet-conv1", "uniform", "cim", 5),
                ("Googlenet-conv1", "load_oriented", "cim", 5),
                ("Googlenet-conv1", "uniform", "riscv", 3)]
+
+# the fault phase's targets: the JAX package's numbers (per-round vmap
+# dispatch, quantum 32, check_every=2; fidelities as the reference prints
+# them).  fullxbar runs on 4 segments with in_cap=8192.
+XBAR_FAULTS = dict(seed=7, p_stuck0=0.1, p_stuck1=0.05, p_bitflip=0.05,
+                   p_row_fail=0.02, p_col_fail=0.02)
+ALL_FAULTS = dict(XBAR_FAULTS, p_dead=0.1, p_thresh_drift=0.3, p_spike_drop=0.1,
+                  p_spike_dup=0.05)
+# (label, FaultConfig kwargs, strategy, builder caps) ->
+# (rounds, spikes, dropped, duped, outbox lost, inbox lost, fidelity)
+FULLXBAR_FAULTS = [
+    ("crossbar", XBAR_FAULTS, "uniform", {}, (34, 13772, 0, 0, 0, 0, 0.3809993425378041)),
+    ("neuron", dict(seed=7, p_dead=0.2, p_thresh_drift=0.3), "uniform", {},
+     (34, 14116, 0, 0, 0, 0, 0.34352399737015127)),
+    ("transport", dict(seed=7, p_spike_drop=0.1, p_spike_dup=0.05), "uniform", {},
+     (34, 23921, 2357, 1037, 0, 0, 0.9743589743589743)),
+    ("mild", dict(seed=7, p_stuck0=0.02, p_bitflip=0.01, p_dead=0.02, p_thresh_drift=0.1,
+                  p_spike_drop=0.02, p_spike_dup=0.01), "uniform", {},
+     (34, 21051, 447, 201, 0, 0, 0.7258382642998027)),
+    ("all", ALL_FAULTS, "uniform", {}, (34, 9597, 1201, 518, 0, 0, 0.1699539776462854)),
+    ("all", ALL_FAULTS, "load_oriented", {}, (34, 9597, 1201, 518, 0, 0, 0.1699539776462854)),
+    ("drop", dict(on_overflow="drop"), "uniform", {"out_cap": 128},
+     (34, 8876, 0, 0, 3321, 0, 0.04240631163708086)),
+]
+# the megaloop job of benchmarks/bench_snn.py (16x12x8, T=96, rate 0.2,
+# 2 segments, in_cap=640, out_cap=128) under transport faults, and its sweep
+MEGA = dict(sizes=(16, 12, 8), t_steps=96, caps=dict(in_cap=640, out_cap=128))
+MEGA_FAULTS = dict(seed=7, p_spike_drop=0.1, p_spike_dup=0.05)
+MEGA_TARGET = (100, 368, 51, 17, 0, 0, 0.8579545454545454)
+SWEEP_RATES = (0, 0.2, 0.5, 1)
+SWEEP_TARGET = [(100, 1.0), (100, 0.6022727272727273), (100, 0.15909090909090906),
+                (98, 0.0)]
+# Googlenet-conv1 uniform offload under XBAR_FAULTS: rounds, sim cycles,
+# instructions per segment, CIM ops; O's entries off A @ B, int64 sum, |.|
+# sum and the first 16 hex digits of sha256 of its int32 bytes (224 x 7)
+DENSE_FAULT_TARGET = (8, 80000, [32891, 28499], 7)
+DENSE_FAULT_O = (1566, 86951, 1067817, "1a55b060dcdab569")
+# one small job per fault family (tests/test_faults.py): card against CPU
+SMALL_FAULTS = {
+    "transport": dict(seed=7, p_spike_drop=0.25, p_spike_dup=0.1),
+    "crossbar": XBAR_FAULTS,
+    "neuron": dict(seed=7, p_dead=0.2, p_thresh_drift=0.3),
+    "all": dict(seed=7, p_spike_drop=0.2, p_stuck0=0.1, p_dead=0.1),
+    "drop": dict(on_overflow="drop"),
+}
+# phase 1's fault inputs: the reference's draw at high rates
+HIGH_FAULTS = dict(seed=3, p_stuck0=0.3, p_stuck1=0.2, p_bitflip=0.3, p_dead=0.3,
+                   p_thresh_drift=0.5)
+FAULT_INPUTS = ("f_and", "f_xor", "dead", "dth")
 
 
 def check(cond, msg):
@@ -164,11 +231,13 @@ def lif_inputs(shape, seed, extra=False, saturated=False):
     return [None if x is None else torch.from_numpy(x).cuda() for x in xs]
 
 
-def lif_bound_ms(u, r, c):
+def lif_bound_ms(u, r, c, fault_bytes=0):
     """Least time for one fused step: each input read once, each output
     written once, against the card's memory rate; 2*U*R*C int ops against
-    its int8 rate.  Returns (ms, "bytes" | "operations")."""
-    nbytes = u * r * c + 4 * u * c + 2 * 4 * u * r + 3 * 4 * u + 3 * 4 * u * r
+    its int8 rate.  ``fault_bytes``: the fault inputs' bytes.  Returns (ms,
+    "bytes" | "operations")."""
+    nbytes = (u * r * c + 4 * u * c + 2 * 4 * u * r + 3 * 4 * u + 3 * 4 * u * r
+              + fault_bytes)
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = 2 * u * r * c / PEAK_INT8_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -210,6 +279,79 @@ def kernel_phase():
             "library_ms": None}
 
 
+def fault_inputs(shape, seed):
+    """Per-unit fault inputs from ``faults.unit_masks`` at HIGH_FAULTS, cut to
+    the shape, on the card: f_and/f_xor (U, R, C) int8, dead (U, R) bool,
+    dth (U, R) int32."""
+    from repro_torch import faults
+
+    u, r, c = shape
+    fc = faults.FaultConfig(**HIGH_FAULTS)
+    per = [faults.unit_masks(fc, seed * 64 + k, r, c, max(r, c)) for k in range(u)]
+    cut = lambda f, rc: torch.from_numpy(np.stack([m[f][rc] for m in per])).cuda()
+    return {"f_and": cut("f_and", np.s_[:r, :c]), "f_xor": cut("f_xor", np.s_[:r, :c]),
+            "dead": cut("f_dead", np.s_[:r]), "dth": cut("f_dth", np.s_[:r])}
+
+
+def neutral_inputs(shape):
+    u, r, c = shape
+    return {"f_and": torch.full((u, r, c), -1, dtype=torch.int8, device="cuda"),
+            "f_xor": torch.zeros((u, r, c), dtype=torch.int8, device="cuda"),
+            "dead": torch.zeros((u, r), dtype=torch.bool, device="cuda"),
+            "dth": torch.zeros((u, r), dtype=torch.int32, device="cuda")}
+
+
+def lif_faults_phase():
+    """The fault LIF kernel against its plain version: every phase-1 shape
+    and the main path's, with and without ``extra``, with all fault inputs
+    and each alone, saturating spikes included; neutral inputs against the
+    clean kernel; then its times at the main path's shape."""
+    from repro_torch.kernels.lif_step import ops, ref
+
+    shapes = [(1, 8, 8), (2, 100, 64), (3, 256, 256), (4, 130, 17), (16, 256, 256),
+              (8, 256, 256)]
+    cases = [(shape, seed, extra, False) for seed, shape in enumerate(shapes)
+             for extra in (False, True)] + [((2, 256, 256), 9, True, True)]
+    max_err = 0
+    for shape, seed, extra, saturated in cases:
+        args = lif_inputs(shape, seed, extra, saturated)
+        masks = fault_inputs(shape, seed)
+        for given in ("all",) + FAULT_INPUTS:
+            m = {k: v for k, v in masks.items() if given in ("all", k)}
+            got = ops.lif_step_units(*args, **m)
+            want = ref.lif_step_units(*args, **m)
+            torch.cuda.synchronize()
+            for g, w, name in zip(got, want, ("v", "refrac", "fired")):
+                max_err = max(max_err, int((g.long() - w.long()).abs().max()))
+                check(torch.equal(g, w), f"lif_step_faults {shape} extra={extra} "
+                      f"{given}: {name} differs")
+        neutral = ops.lif_step_units(*args, **neutral_inputs(shape))
+        clean = ops.lif_step_units(*args)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(neutral, clean)),
+              f"lif_step_faults {shape} extra={extra}: neutral inputs differ from the clean kernel")
+        print(f"lif_step_faults {shape} extra={extra} saturated={saturated}: bit-equal "
+              f"with all fault inputs and each alone; neutral = clean kernel", flush=True)
+
+    shape = (8, 256, 256)  # fullxbar's uniform placement, as phase 1
+    args, masks = lif_inputs(shape, 5), fault_inputs(shape, 5)
+    kernel = lambda: ops.lif_step_units(*args, **masks)
+    plain = lambda: ref.lif_step_units(*args, **masks)
+    ms, plain_ms = device_ms(kernel), device_ms(plain)
+    u, r, c = shape
+    bound_ms, bound_by = lif_bound_ms(*shape, fault_bytes=2 * u * r * c + 5 * u * r)
+    print(f"lif_step_faults {shape}: device time kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+          f"bound {bound_ms:.6f} ms ({bound_by}); eager call through the wrapper "
+          f"{stream_ms(kernel):.6f} ms", flush=True)
+    return {"name": "lif_step_faults", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/lif_step.cu",
+            "replaces": "src/repro/kernels/lif_step/kernel.py:55",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            # no single PyTorch call computes the fused, faulted LIF step
+            "library_ms": None}
+
+
 def xbar_inputs(shape, seed, wide):
     """Weights and inputs for one crossbar_vmm case; ``wide`` inputs
     saturate the DAC at every resolution and the ADC at most of them."""
@@ -221,11 +363,12 @@ def xbar_inputs(shape, seed, wide):
     return torch.from_numpy(w).cuda(), torch.from_numpy(x).cuda()
 
 
-def xbar_bound_ms(u, r, c):
-    """Least time for one batched VMM: U*R*C int8 weights + U*C int32 in +
-    U*R int32 out against the memory rate; 2*U*R*C int ops against the
-    int8 rate.  Returns (ms, "bytes" | "operations")."""
-    t_bytes = (u * r * c + 4 * u * c + 4 * u * r) / PEAK_BYTES_PER_S
+def xbar_bound_ms(u, r, c, masks=0):
+    """Least time for one batched VMM: U*R*C int8 weights (and ``masks``
+    int8 masks of that shape) + U*C int32 in + U*R int32 out against the
+    memory rate; 2*U*R*C int ops against the int8 rate.  Returns (ms,
+    "bytes" | "operations")."""
+    t_bytes = ((1 + masks) * u * r * c + 4 * u * c + 4 * u * r) / PEAK_BYTES_PER_S
     t_ops = 2 * u * r * c / PEAK_INT8_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -280,20 +423,75 @@ def xbar_phase():
     return row
 
 
+def xbar_faults_phase():
+    """The fault crossbar VMM against its plain version at phase 1's shapes
+    and resolutions, masked; neutral masks against the clean kernel; then
+    its times at the uniform offload's shape, with ``torch.bmm`` in fp32 on
+    weights masked beforehand as the yardstick."""
+    from repro_torch.kernels.crossbar_vmm import ops, ref
+
+    shapes = [(4, 256, 256), (8, 256, 256), (2, 224, 224), (3, 130, 17), (1, 8, 8)]
+    resolutions = [(8, 8), (4, 3), (1, 1), (8, 2)]
+    max_err, seed = 0, 100
+    for shape in shapes:
+        for in_res, out_res in resolutions:
+            for wide in (False, True):
+                seed += 1
+                w, x = xbar_inputs(shape, seed, wide)
+                m = fault_inputs(shape, seed)
+                fa, fx = m["f_and"], m["f_xor"]
+                got = ops.crossbar_vmm_batch(w, x, in_res, out_res, fa, fx)
+                want = ref.crossbar_vmm_batch(w, x, in_res, out_res, fa, fx)
+                neutral = ops.crossbar_vmm_batch(w, x, in_res, out_res,
+                                                 torch.full_like(w, -1), torch.zeros_like(w))
+                clean = ops.crossbar_vmm_batch(w, x, in_res, out_res)
+                torch.cuda.synchronize()
+                max_err = max(max_err, int((got.long() - want.long()).abs().max()))
+                check(torch.equal(got, want), f"crossbar_vmm_faults {shape} res "
+                      f"{in_res}/{out_res} wide={wide} differs")
+                check(torch.equal(neutral, clean), f"crossbar_vmm_faults {shape} res "
+                      f"{in_res}/{out_res}: neutral masks differ from the clean kernel")
+        print(f"crossbar_vmm_faults {shape}: bit-equal at res {resolutions}, narrow and "
+              "saturating inputs; neutral masks = clean kernel", flush=True)
+
+    shape = (4, 256, 256)  # Googlenet-conv1's uniform offload: U = 2 segments x 2 slots
+    w, x = xbar_inputs(shape, 7, True)
+    m = fault_inputs(shape, 7)
+    fa, fx = m["f_and"], m["f_xor"]
+    kernel = lambda: ops.crossbar_vmm_batch(w, x, 8, 8, fa, fx)
+    plain = lambda: ref.crossbar_vmm_batch(w, x, 8, 8, fa, fx)
+    # the yardstick: one fp32 batched product on weights masked beforehand
+    wf = ((w & fa) ^ fx).float()
+    xf = x.clamp(-128, 127).float().unsqueeze(-1)
+    library = lambda: torch.bmm(wf, xf)
+    ms, plain_ms, library_ms = device_ms(kernel), device_ms(plain), device_ms(library)
+    bound_ms, bound_by = xbar_bound_ms(*shape, masks=2)
+    print(f"crossbar_vmm_faults {shape}: device time kernel {ms:.6f} ms, plain "
+          f"{plain_ms:.6f} ms, torch.bmm fp32 on pre-masked weights {library_ms:.6f} ms, "
+          f"bound {bound_ms:.6f} ms ({bound_by}); eager call through the wrapper "
+          f"{stream_ms(kernel):.6f} ms", flush=True)
+    return {"name": "crossbar_vmm_faults", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/crossbar_vmm.cu",
+            "replaces": "src/repro/kernels/crossbar_vmm/kernel.py:35",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
 # ---------------------------------------------------------------------------
 # phases 2-4: the spiking path
 
 
-def build(job, strategy, in_cap, device):
+def build(job, strategy, in_cap, device, n_segments=4, **kw):
+    """``kw`` goes to ``build_snn`` (out_cap, faults)."""
     from repro_torch import snn
 
     placement = None
     if strategy == "auto":
-        descs, placement = snn.auto_segmentation_for(job.layers, n_segments=4)
+        descs, placement = snn.auto_segmentation_for(job.layers, n_segments=n_segments)
     else:
-        descs = snn.segmentation_for(len(job.layers), strategy, n_segments=4)
+        descs = snn.segmentation_for(len(job.layers), strategy, n_segments=n_segments)
     return snn.build_snn(job.layers, descs, job.raster, placement=placement,
-                         in_cap=in_cap, device=device)
+                         in_cap=in_cap, device=device, **kw)
 
 
 def run_job(name, spec, job, strategy, backend="vmap", device=None):
@@ -717,6 +915,169 @@ def dense_phase():
     return launches, secs[g1 + ("vmap",)]
 
 
+# ---------------------------------------------------------------------------
+# phase 7: fault injection
+
+
+def faulted_run(label, job, strategy, kw, caps, target, n_segments=4, device=None):
+    """Build one spiking job under ``FaultConfig(**kw)``, run it and check
+    it against ``target`` = (rounds, spikes, dropped, duped, outbox lost,
+    inbox lost, fidelity).  Returns (controller, seconds)."""
+    from repro_torch import faults, snn
+    from repro_torch.core.controller import Controller
+
+    caps = dict(caps)
+    in_cap = caps.pop("in_cap", None)
+    cfg, states, pending, meta = build(job, strategy, in_cap, device, n_segments,
+                                       faults=faults.FaultConfig(**kw), **caps)
+    ctl = Controller(cfg, states, pending, quantum=QUANTUM, device=device)
+    t0 = time.perf_counter()
+    ctl.run(max_rounds=MAX_ROUNDS, check_every=CHECK_EVERY)
+    secs = time.perf_counter() - t0
+    st, stats = ctl.result_states(), ctl.result_states()["stats"]
+    count = lambda f: int(stats[f].sum()) if f in stats else 0
+    got = (ctl.rounds_run, snn.total_spikes(st), count("spikes_dropped"),
+           count("spikes_duped"), count("outbox_lost"),
+           int(ctl._pending_stacked()["lost_total"].sum()),
+           faults.fidelity(snn.output_spike_counts(st, meta), job.expected_counts))
+    print(f"{label} {strategy}: rounds {got[0]}, spikes {got[1]}, dropped {got[2]}, "
+          f"duped {got[3]}, lost outbox {got[4]} inbox {got[5]}, fidelity {got[6]!r}, "
+          f"{secs:.6f} s, {secs / got[0] * 1e6:.1f} us/round", flush=True)
+    check(got == tuple(target), f"{label} {strategy}: {got}, want {tuple(target)}")
+    return ctl, secs
+
+
+def faults_main_path():
+    """The fault path's runs, each against the reference's numbers; the
+    launch counts are set to 0 before and read after.  Returns the counts
+    {"lif_step_faults": n, "crossbar_vmm_faults": n}."""
+    from repro_torch import snn
+    from repro_torch import faults
+    from repro_torch.core.controller import Controller
+    from repro_torch.kernels.crossbar_vmm.ops import crossbar_vmm_batch
+    from repro_torch.kernels.lif_step.ops import lif_step_units
+
+    fullxbar = snn.snn_inference_job(FULLXBAR["sizes"], t_steps=24, rate=0.5, seed=2)
+    mega = snn.snn_inference_job(MEGA["sizes"], t_steps=MEGA["t_steps"], rate=0.2, seed=2)
+    for f in ("launches", "fault_launches"):
+        setattr(lif_step_units, f, 0)
+        setattr(crossbar_vmm_batch, f, 0)
+    rounds, fault_rounds = 0, 0  # all spiking rounds; those with structural faults
+    for label, kw, strategy, caps, target in FULLXBAR_FAULTS:
+        ctl, _ = faulted_run(f"fullxbar {label}", fullxbar, strategy, kw,
+                             {"in_cap": FULLXBAR["in_cap"], **caps}, target)
+        cfg = ctl.cfg.faults
+        rounds += ctl.rounds_run
+        fault_rounds += ctl.rounds_run * (cfg.has_xbar_faults or cfg.has_neuron_faults)
+    ctl, _ = faulted_run("megaloop transport", mega, "uniform", MEGA_FAULTS, MEGA["caps"],
+                         MEGA_TARGET, n_segments=2)
+    rounds += ctl.rounds_run
+    sweep = snn.degradation_sweep(mega, SWEEP_RATES, fault_kind="transport", seed=7,
+                                  **MEGA["caps"])
+    got = [(r["rounds"], r["fidelity"]) for r in sweep]
+    print(f"megaloop degradation_sweep {SWEEP_RATES}: (rounds, fidelity) {got}", flush=True)
+    check(got == SWEEP_TARGET, f"degradation_sweep: {got}, want {SWEEP_TARGET}")
+    rounds += sum(r["rounds"] for r in sweep)
+
+    # dense completion under crossbar faults: Googlenet-conv1's offload
+    layer = dense_layer("Googlenet-conv1")
+    cfg, states, pending, job = build_dense(layer, "uniform", "cim", DENSE_QUANTUM,
+                                            faults=faults.FaultConfig(**XBAR_FAULTS))
+    ctl = Controller(cfg, states, pending, quantum=DENSE_QUANTUM)
+    t0 = time.perf_counter()
+    ctl.run(max_rounds=2000, check_every=CHECK_EVERY)
+    secs = time.perf_counter() - t0
+    st = ctl.result_states()
+    got = (ctl.rounds_run, int(st["time"].max()), st["stats"]["instrs"].tolist(),
+           int(st["cims"]["ops"].sum()))
+    o = dense_o(st, job, layer)
+    got_o = (int((o != job["expected"]).sum()), int(o.astype(np.int64).sum()),
+             int(np.abs(o.astype(np.int64)).sum()),
+             hashlib.sha256(o.astype(np.int32).tobytes()).hexdigest()[:16])
+    print(f"Googlenet-conv1 uniform/cim under crossbar faults: rounds {got[0]}, sim cycles "
+          f"{got[1]}, instrs {got[2]}, CIM ops {got[3]}; O {o.shape}: {got_o[0]} entries "
+          f"off A @ B, sum {got_o[1]}, |.| sum {got_o[2]}, sha256 {got_o[3]}; {secs:.6f} s, "
+          f"{secs / got[0] * 1e6:.1f} us/round", flush=True)
+    check(got == DENSE_FAULT_TARGET, f"faulted offload: {got}, want {DENSE_FAULT_TARGET}")
+    check(got_o == DENSE_FAULT_O, f"faulted offload O: {got_o}, want {DENSE_FAULT_O}")
+
+    # lif_step_units / crossbar_vmm_batch count both variants' launches
+    launches = {"lif_step_units": lif_step_units.launches,
+                "lif_step_faults": lif_step_units.fault_launches,
+                "crossbar_vmm_batch": crossbar_vmm_batch.launches,
+                "crossbar_vmm_faults": crossbar_vmm_batch.fault_launches}
+    want = {"lif_step_units": rounds, "lif_step_faults": fault_rounds,
+            "crossbar_vmm_batch": ctl.rounds_run, "crossbar_vmm_faults": ctl.rounds_run}
+    print(f"fault path launches {launches}; spiking rounds {rounds}, of them with "
+          f"crossbar or neuron faults {fault_rounds}; dense rounds {ctl.rounds_run}",
+          flush=True)
+    check(launches == want, f"fault path: launches {launches}, want {want}")
+    return {k: launches[k] for k in ("lif_step_faults", "crossbar_vmm_faults")}
+
+
+def faults_checks():
+    """Card against CPU final trees for one small job per family and a small
+    faulted offload; the wall per round of fullxbar with transport faults
+    against without, in turns; one faulted round under sync-debug."""
+    from repro_torch import faults, snn
+    from repro_torch.core.controller import Controller
+    from repro_torch.vp import workloads as wl
+
+    small = snn.snn_inference_job((32, 24, 10), t_steps=8, rate=0.5, seed=2)
+    for family, kw in SMALL_FAULTS.items():
+        trees = {}
+        for device in ("cuda", "cpu"):
+            cfg, states, pending, _ = build(small, "uniform", None, device, n_segments=2,
+                                            faults=faults.FaultConfig(**kw))
+            ctl = Controller(cfg, states, pending, quantum=QUANTUM, device=device)
+            ctl.run(max_rounds=MAX_ROUNDS, check_every=CHECK_EVERY)
+            trees[device] = final_trees(ctl)
+        n, _ = equal_trees(f"small job under {family} faults, card vs CPU",
+                           trees["cuda"], trees["cpu"])
+        print(f"small job under {family} faults: CPU and card final trees equal on all "
+              f"{n} leaves", flush=True)
+    layer, trees = wl.Layer("small", "lo", 8, 8, 2), {}
+    for device in ("cuda", "cpu"):
+        cfg, states, pending, _ = build_dense(layer, "load_oriented", "cim", 1000, device,
+                                              faults=faults.FaultConfig(**XBAR_FAULTS))
+        ctl = Controller(cfg, states, pending, quantum=1000, device=device)
+        ctl.run(max_rounds=MAX_ROUNDS, check_every=CHECK_EVERY)
+        trees[device] = final_trees(ctl)
+    n, _ = equal_trees("small offload under crossbar faults, card vs CPU",
+                       trees["cuda"], trees["cpu"])
+    print(f"small load_oriented offload under crossbar faults: CPU and card final trees "
+          f"equal on all {n} leaves", flush=True)
+
+    # fault-on against fault-off wall per round, in turns (off, on, on, off)
+    job = snn.snn_inference_job(FULLXBAR["sizes"], t_steps=24, rate=0.5, seed=2)
+    transport = next(t for t in FULLXBAR_FAULTS if t[0] == "transport")
+    walls = {"off": [], "on": []}
+    for mode in ("off", "on", "on", "off"):
+        if mode == "on":
+            _, secs = faulted_run("fullxbar transport (timed)", job, "uniform", transport[1],
+                                  {"in_cap": FULLXBAR["in_cap"]}, transport[4])
+            walls["on"].append(secs / transport[4][0])
+        else:
+            _, _, secs = run_job("fullxbar faults=None (timed)", FULLXBAR, job, "uniform")
+            walls["off"].append(secs / FULLXBAR["rounds"])
+    off, on = statistics.mean(walls["off"]), statistics.mean(walls["on"])
+    print(f"fullxbar uniform wall per round: faults=None {off * 1e6:.1f} us "
+          f"({[round(w * 1e6, 1) for w in walls['off']]}), transport faults "
+          f"{on * 1e6:.1f} us ({[round(w * 1e6, 1) for w in walls['on']]}); "
+          f"overhead_pct {100 * (on / off - 1):.2f}", flush=True)
+
+    def faulted(kw):
+        cfg, states, pending, _ = build(job, "uniform", FULLXBAR["in_cap"], None,
+                                        faults=faults.FaultConfig(**kw))
+        return Controller(cfg, states, pending, quantum=QUANTUM)
+
+    # the device ops a transport-faulted round issues, against phase 3's
+    # profile of the same job without faults
+    profile_phase("fullxbar uniform under transport faults", lambda: faulted(transport[1]),
+                  on * transport[4][0])
+    sync_free_phase("fullxbar under all fault families", lambda: faulted(ALL_FAULTS))
+
+
 def dense_controller():
     from repro_torch.core.controller import Controller
 
@@ -742,7 +1103,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    built = kbuild.build_all(KERNELS)
+    built = kbuild.build_all(SOURCES)
     print(f"built {sorted(built) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in kbuild.BUILD_LOGS.items():
@@ -751,7 +1112,7 @@ def main():
                 print(f"  {name}: {line.strip()}", flush=True)
 
     phase("1 kernels against their plain versions")
-    rows = [kernel_phase(), xbar_phase()]
+    rows = [kernel_phase(), lif_faults_phase(), xbar_phase(), xbar_faults_phase()]
     phase("2 fig5snn")
     fig5snn_phase()
     phase("3 fullxbar (the spiking path at full width)")
@@ -767,6 +1128,9 @@ def main():
     launches.update(dense_launches)
     profile_phase("Googlenet-conv1 uniform/cim", dense_controller, g1_s)
     sync_free_phase("Googlenet-conv1 uniform/cim", dense_controller)
+    phase("7 faults: the fault path against the reference's numbers")
+    launches.update(faults_main_path())
+    faults_checks()
 
     for row in rows:
         row["launches"] = launches[row["name"]]

@@ -59,8 +59,6 @@ class Controller:
                 "multi-device backends come with ROADMAP module item 12")
         if self.backend not in ("sequential", "vmap"):
             raise ValueError(self.backend)
-        if self.cfg.faults is not None:
-            raise NotImplementedError("fault injection comes with ROADMAP module item 9")
         self.device = tree.resolve_device(self.device)
         # own the state: the caller's tensors are never shared with a run
         self.states = tree.tree_map(lambda x: x.to(self.device, copy=True), self.states)
@@ -139,21 +137,27 @@ class Controller:
                 f"({int(values[seg])} > cap {cap}; per-segment watermarks "
                 f"{values.tolist()}{hint})")
 
+    def _drop(self) -> bool:
+        """Graceful degradation (``FaultConfig(on_overflow="drop")``): inbox
+        and outbox overflow is counted spike loss, not an abort."""
+        return self.cfg.faults is not None and self.cfg.faults.drop_overflow
+
     def _check_overflow(self):
         msg = overflow_error(self._stacked(), self._pending_stacked(),
                              in_cap=self.cfg.in_cap, out_cap=self.cfg.out_cap,
-                             store_log=self.cfg.store_log)
+                             store_log=self.cfg.store_log, drop=self._drop())
         if msg is not None:
             raise RuntimeError(msg)
 
     def done(self) -> bool:
         """Termination check and loud overflow validation: one host read of
-        the six flags of ``platform.termination_flags``."""
+        the six flags of ``platform.termination_flags``.  Under the drop
+        policy only the store log and late MMIO stay fatal."""
         flags = torch.stack(pf.termination_flags(
             self._stacked(), self._pending_stacked(), self.cfg.in_cap,
             self.cfg.out_cap, self.cfg.store_log)).cpu().tolist()
         d, in_over, out_over, store_over, mmio_late, _trace_over = flags
-        if in_over or out_over or store_over or mmio_late:
+        if ((in_over or out_over) and not self._drop()) or store_over or mmio_late:
             self._check_overflow()  # raises with the detailed watermark message
         return d
 
@@ -204,18 +208,19 @@ class Controller:
 
 
 def overflow_error(states, pending, *, in_cap: int, out_cap: int,
-                   store_log: int):
+                   store_log: int, drop: bool = False):
     """The detailed watermark error message, or ``None`` when clean — the
-    reference's formatter, byte for byte."""
+    reference's formatter, byte for byte.  With ``drop`` (graceful
+    degradation) inbox and outbox overflow is no error."""
     watermark = pending["max_count"].cpu().numpy()
-    if (watermark > in_cap).any():
+    if not drop and (watermark > in_cap).any():
         return (
             "pending inbox overflow: "
             f"{Controller._flag_detail('inbox', watermark, in_cap, 'in_cap')}; "
             "raise in_cap (builder kwarg) or thin the workload's traffic"
         )
     out_peak = states["stats"]["outbox_peak"].cpu().numpy()
-    if (out_peak > out_cap).any():
+    if not drop and (out_peak > out_cap).any():
         return (
             "outbox overflow: "
             f"{Controller._flag_detail('outbox', out_peak, out_cap, 'out_cap')}; "

@@ -3,8 +3,8 @@ builder (counterpart of ``repro/core/segmentation.py``).
 
 ``build`` assembles the stacked simulation state on the host and moves it
 to the device once: programs, DRAM images, crossbar weights, scratch
-presets and CIM state presets.  Fault injection comes with ROADMAP module
-item 9, hybrid dense+spiking jobs with ROADMAP module item 8.
+presets, CIM state presets and the structural fault sites.  Hybrid
+dense+spiking jobs come with ROADMAP module item 8.
 
 Strategies:
   uniform        — every CPU segment gets an equal share of CIM-Units
@@ -20,6 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import faults as flt
 from repro_torch import tree
 from repro_torch.core import channel as ch
 from repro_torch.vp import isa
@@ -105,14 +106,18 @@ def build(descs, *, programs=None, dram_words=None, crossbars=None,
     scratch_init: {seg_id: {word_offset: np.int32 array}}
     cim_init: {global_cim_id: {field: value}} per-slot CIM state presets
     in_cap/out_cap/store_log: channel-box and store-log capacities
+    faults: ``repro_torch.faults.FaultConfig`` or None.  Structural
+        crossbar/neuron fault sites are drawn here per unit, inside the
+        region of its ``crossbars`` entry; transport and overflow behaviour
+        follow the config in the step.  None builds a fault-free tree.
+    fault_uids: {global_cim_id: stable_uid}, the placement-invariant unit
+        identities of the fault draws (default: the global cim id)
     """
     if programs and any(int(f.get("mode", 0)) == isa.CIM_MODE_SPIKE
                         for f in (cim_init or {}).values()):
         raise NotImplementedError(
             "hybrid dense+spiking jobs (programs with spike-mode units) come "
             "with ROADMAP module item 8")
-    if faults is not None or fault_uids is not None:
-        raise NotImplementedError("fault injection comes with ROADMAP module item 9")
     device = tree.resolve_device(device)
     if channel_latency < local_latency:
         raise ValueError("intra-segment hops cannot be slower than cross-segment channels")
@@ -200,6 +205,19 @@ def build(descs, *, programs=None, dram_words=None, crossbars=None,
             cims["weights"][k, : src.shape[0], : src.shape[1]] = torch.from_numpy(src)
         for f, val in (cim_init or {}).get(g, {}).items():
             cims[f][k] = torch.as_tensor(np.asarray(val)).to(cims[f].dtype)
+        if faults is not None:
+            uid = (fault_uids or {}).get(g, g)
+            if faults.has_transport_faults:
+                cims["f_uid"][k] = uid
+            if faults.has_xbar_faults or faults.has_neuron_faults:
+                # faults land only in the unit's programmed region
+                rows, cols = (np.asarray(crossbars[g]).shape
+                              if crossbars and g in crossbars else (0, 0))
+                masks = flt.unit_masks(faults, uid, rows, cols, cims["weights"].shape[-1])
+                fields = (("f_and", "f_xor") if faults.has_xbar_faults else ()) + (
+                    ("f_dead", "f_dth") if faults.has_neuron_faults else ())
+                for f in fields:
+                    cims[f][k] = torch.from_numpy(masks[f])
 
     if dram_words is not None:
         words = np.asarray(dram_words, np.int32)

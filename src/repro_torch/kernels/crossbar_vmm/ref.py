@@ -46,12 +46,14 @@ def crossbar_vmm_batch(weights, x, in_res: int = 8, out_res: int = 8,
     Bit-exact model of the analog pipeline: the same result as
     ``clip(W @ clip(x))``, because the bit-serial accumulation is exact;
     the decomposition is kept so the structure matches the reference.
-    ``f_and``/``f_xor`` (crossbar fault masks) come with ROADMAP module
-    item 9.
+    ``f_and``/``f_xor`` (int8, the weights' shape, optional): crossbar
+    fault masks — the array drives ``(w & f_and) ^ f_xor`` (either mask
+    alone is the other one neutral).
     """
-    if f_and is not None or f_xor is not None:
-        raise NotImplementedError(
-            "crossbar fault masks (f_and/f_xor) come with ROADMAP module item 9")
+    if f_and is not None:
+        weights = weights & f_and
+    if f_xor is not None:
+        weights = weights ^ f_xor
     xq = quantize_dac(x.to(_I32), in_res)
     sign = torch.sign(xq)
     w = weights.to(_I32)

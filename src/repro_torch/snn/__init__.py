@@ -1,6 +1,9 @@
 """Spiking-neural-network subsystem of the port (counterpart of
 ``repro.snn``): LIF pools, the SNN-to-VP mapping and the rate-coded
-inference jobs with their CPU oracle."""
+inference jobs with their CPU oracle; ``FaultConfig`` and
+``degradation_sweep`` (``repro_torch.faults``) are re-exported here, as the
+reference does."""
+from repro_torch.faults import FaultConfig, degradation_sweep
 from repro_torch.snn.neuron import LIFParams, lif_step, lif_step_multi, pool_state
 from repro_torch.snn.topology import (
     RecurrentEdge,

@@ -9,9 +9,9 @@ its own spikes.  ``build_snn`` hands the wiring to
 ``core.segmentation.build`` and pre-schedules the input raster as AER
 events in the pending inboxes.
 
-Outside this slice: wide layers whose fan-in spans several crossbars
-(column groups) and traffic-aware placement (ROADMAP module item 7),
-hybrid jobs (item 8) and fault injection (item 9).
+Outside the port so far: wide layers whose fan-in spans several crossbars
+(column groups) and traffic-aware placement (ROADMAP module item 7), and
+hybrid jobs (item 8).
 """
 from __future__ import annotations
 
@@ -423,6 +423,16 @@ def _wire_spike_units(layers, groups, placement, in_edges, out_edges,
     return crossbars, cim_init, placement, by_layer
 
 
+def _fault_uids(groups, placement):
+    """Placement-invariant unit identities for the fault draws: logical
+    (layer, stripe, tile) coordinates rather than global unit ids."""
+    uids = {}
+    for gi, g in enumerate(groups):
+        for t in range(g.width):
+            uids[placement[gi] + t] = (g.layer << 16) | (g.stripe << 8) | t
+    return uids
+
+
 def build_snn(layers, descs, raster, *, edges=(), n_ticks: int | None = None,
               placement=None, tick_period: int = 10_000,
               channel_latency: int = 10_000, local_latency: int = 64,
@@ -436,11 +446,12 @@ def build_snn(layers, descs, raster, *, edges=(), n_ticks: int | None = None,
     placement: group index -> first global CIM unit id (default first-fit);
     in_cap/out_cap: channel-box capacities (the inbox must hold the busiest
     segment's raster events in half its capacity).
+    faults: ``repro_torch.faults.FaultConfig`` or None.  The fault draws
+    key on logical (layer, stripe, tile) unit identities, so the same
+    network faults identically under every segmentation and placement.
     Returns (cfg, states, pending, meta) ready for the Controller; meta
     locates the output units for spike-count readback.
     """
-    if faults is not None:
-        raise NotImplementedError("fault injection comes with ROADMAP module item 9")
     if not tick_period >= channel_latency >= local_latency:
         raise ValueError("spike delivery must land within one tick under any placement")
     n_layers = len(layers)
@@ -475,7 +486,8 @@ def build_snn(layers, descs, raster, *, edges=(), n_ticks: int | None = None,
     cfg, states, pending = sg.build(
         descs, crossbars=crossbars, cim_init=cim_init,
         channel_latency=channel_latency, local_latency=local_latency,
-        use_kernel=use_kernel, in_cap=in_cap, out_cap=out_cap, device=device)
+        use_kernel=use_kernel, in_cap=in_cap, out_cap=out_cap, faults=faults,
+        fault_uids=_fault_uids(groups, placement), device=device)
     in_tiles = [
         [(cim_seg[placement[gi] + t], cim_slot[placement[gi] + t])
          for t in range(groups[gi].width)]

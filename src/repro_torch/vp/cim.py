@@ -156,7 +156,9 @@ def finish_ops(cims, t_end, use_kernel: bool = False):
     (``use_kernel`` is kept so ``VPConfig`` matches the reference; the
     tensor's device decides) — and ``done`` selects which results land, so
     the host never reads ``done``.  The platform runs the Table II
-    configuration (8-bit I/O), as the reference does.
+    configuration (8-bit I/O), as the reference does.  The crossbar fault
+    masks ``f_and``/``f_xor`` go into the same call when the state has them
+    (a build with crossbar faults).
     """
     del use_kernel
     done = (
@@ -165,9 +167,10 @@ def finish_ops(cims, t_end, use_kernel: bool = False):
         & (cims["busy_until"] <= t_end.unsqueeze(-1))
     )
     lead = done.shape  # (S, n)
+    units = lambda f: None if f not in cims else cims[f].reshape(-1, XBAR, XBAR)
     outs = crossbar_vmm_batch(
-        cims["weights"].reshape(-1, XBAR, XBAR), cims["in_buf"].reshape(-1, XBAR),
-        8, 8).reshape(*lead, XBAR)
+        units("weights"), cims["in_buf"].reshape(-1, XBAR), 8, 8,
+        units("f_and"), units("f_xor")).reshape(*lead, XBAR)
     cims = dict(cims)
     cims["out_buf"] = torch.where(done.unsqueeze(-1), outs, cims["out_buf"])
     # outputs ship by DMA in the same boundary step, so OUT completes at
@@ -190,7 +193,8 @@ def snn_tick(cims, t_gate, use_kernel: bool = False, grouped: bool = False):
     the fused step — the CUDA kernel on the card, the plain version on the
     CPU (``use_kernel`` is kept so ``VPConfig`` matches the reference field
     for field; the tensor's device decides) — and ``fire`` selects which
-    results land.
+    results land.  The fault inputs (``f_and``, ``f_xor``, ``f_dead``,
+    ``f_dth``) go into the same call when the state has them.
 
     Returns (cims', fired_rows bool (S, n, XBAR), fire bool (S, n),
     tick_time (S, n)).
@@ -213,7 +217,9 @@ def snn_tick(cims, t_gate, use_kernel: bool = False, grouped: bool = False):
         x.reshape(*lead, -1) for x in lif_step_units(
             flat(cims["weights"]), flat(cims["in_buf"]), flat(cims["v"]),
             flat(cims["refrac"]), flat(cims["thresh"]), flat(cims["leak"]),
-            flat(cims["refrac_period"])))
+            flat(cims["refrac_period"]), None,
+            *(flat(cims[f]) if f in cims else None
+              for f in ("f_and", "f_xor", "f_dead", "f_dth"))))
     rows_idx = torch.arange(XBAR, dtype=_I32, device=fire.device)
     fire_r = fire.unsqueeze(-1)
     fired_rows = fire_r & (fired_i != 0) & (rows_idx < cims["rows"].unsqueeze(-1))

@@ -144,13 +144,22 @@ def test_cim_plain_vmm_matches_jax():
 
 
 def test_cpu_wrapper_never_launches_and_faults_are_out_of_the_slice():
+    """The name is kept from the slice before fault masks were ported: the
+    CPU wrapper now takes masks and equals the plain version over
+    ``(w & f_and) ^ f_xor``, still without a launch."""
     w, x = _inputs((1, 8, 8), 0)
+    rng = np.random.default_rng(1)
+    f_and, f_xor = (torch.from_numpy(rng.integers(-128, 128, w.shape).astype(np.int8))
+                    for _ in range(2))
     before = ops.crossbar_vmm_batch.launches
     ops.crossbar_vmm_batch(torch.from_numpy(w), torch.from_numpy(x))
+    got = ops.crossbar_vmm_batch(torch.from_numpy(w), torch.from_numpy(x), 8, 8,
+                                 f_and, f_xor)
     assert ops.crossbar_vmm_batch.launches == before
-    with pytest.raises(NotImplementedError, match="ROADMAP module item 9"):
-        ops.crossbar_vmm_batch(torch.from_numpy(w), torch.from_numpy(x), 8, 8,
-                               torch.from_numpy(w), torch.from_numpy(w))
+    masked = (torch.from_numpy(w) & f_and) ^ f_xor
+    assert torch.equal(got, ref.crossbar_vmm_batch(masked, torch.from_numpy(x), 8, 8))
+    assert not torch.equal(got, ref.crossbar_vmm_batch(torch.from_numpy(w),
+                                                       torch.from_numpy(x), 8, 8))
 
 
 @pytest.mark.cuda

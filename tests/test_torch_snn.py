@@ -159,8 +159,9 @@ def _outside_the_slice():
         # live CPUs beside spike-mode units: a hybrid job (ROADMAP item 8)
         "programs": lambda: sg.build(descs, programs={0: "halt"},
                                      cim_init=spike_units, device="cpu"),
-        "faults": lambda: snn.build_snn(job.layers, descs, job.raster,
-                                        faults=object(), device="cpu"),
+        # faults are ported; what stays refused is fused dispatch in the
+        # sweep that drives them (ROADMAP item 5a)
+        "faults": lambda: snn.degradation_sweep(job, (0.1,), fused=True, device="cpu"),
         "traffic": lambda: snn.auto_segmentation_for(job.layers, traffic=np.eye(2)),
         "counts_request": lambda: hybrid(ch.MSG_W_CIM, isa.CIM_REG_COUNTS, False),
         "live_cpu": lambda: hybrid(ch.MSG_W_SCRATCH, 7, True),
