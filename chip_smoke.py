@@ -2,13 +2,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths through the hand-written CUDA kernels — a
+Drives the port's paths through the hand-written CUDA kernels — a
 spiking job built by ``snn.build_snn`` on a CPU-free platform, the paper's
 dense VMM offload on live RISC-V CPUs built by
 ``segmentation.build(programs=...)``, and both under seeded fault
-injection (``faults=FaultConfig(...)``) — each run to completion by
-``Controller.run``, and fails (non-zero exit, no result line) unless every
-phase holds:
+injection (``faults=FaultConfig(...)``), each run to completion by
+``Controller.run``; and falcon-mamba-7b served by ``greedy_generate`` —
+and fails (non-zero exit, no result line) unless every phase holds:
 
   0. environment: the card's name and power limit, the kernels built from
      the sources in this checkout (one nvcc per source, all at once);
@@ -49,7 +49,17 @@ phase holds:
      faulted tick and dense completion launched through the fault kernels;
      then card against CPU trees for one small job per family and a small
      faulted offload, the wall per round with and without transport
-     faults, and one faulted round under sync-debug "error".
+     faults, and one faulted round under sync-debug "error";
+  8. falcon-mamba-7b serving: ``ssm_scan`` against its plain version on
+     the card (the main path's prefill chunk and decode step, small,
+     ragged and slow-decay shapes), with its time, the plain version's and
+     its bound; the model at full width and depth 2 against the JAX
+     package's tokens and sampled logits for the same weights
+     (``FALCON_TARGET``); the main path at full width and all 64 layers
+     (``greedy_generate`` of 16 tokens after a 512-token prompt, 1088 scan
+     launches), its times and peak memory, the same job with the plain
+     scan, profiles of a prefill and a decode step, and one decode step
+     under sync-debug "error".
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' numbers as JSON.  Imports nothing of JAX.
@@ -83,8 +93,8 @@ STRATEGIES = ("uniform", "load_oriented", "auto")
 FIG5SNN = dict(sizes=(128, 96, 64, 10), spikes=2045, rounds=28, in_cap=None)
 FULLXBAR = dict(sizes=(256,) * 9, spikes=24502, rounds=34, in_cap=8192)
 KERNELS = ["lif_step", "lif_step_faults", "crossbar_vmm", "crossbar_vmm_faults",
-           "slot_scan"]
-SOURCES = ["lif_step", "crossbar_vmm", "slot_scan"]  # kernels/csrc/<name>.cu
+           "slot_scan", "ssm_scan"]
+SOURCES = ["lif_step", "crossbar_vmm", "slot_scan", "ssm_scan"]  # kernels/csrc/<name>.cu
 
 # the dense targets: Table III layers at their published sizes, channel
 # latency = quantum = 10,000, check_every=2, as the reference's benchmark
@@ -158,6 +168,58 @@ SMALL_FAULTS = {
 HIGH_FAULTS = dict(seed=3, p_stuck0=0.3, p_stuck1=0.2, p_bitflip=0.3, p_dead=0.3,
                    p_thresh_drift=0.5)
 FAULT_INPUTS = ("f_and", "f_xor", "dead", "dth")
+
+# phase 8: falcon-mamba-7b serving.  The scan's kernel-vs-plain cases:
+# (B, S, D, N), with h0, da drawn in [lo, hi)
+SCAN_CASES = [((4, 256, 8192, 16), False, (0.5, 0.999)),  # main-path prefill chunk
+              ((4, 256, 8192, 16), True, (0.5, 0.999)),
+              ((4, 1, 8192, 16), True, (0.5, 0.999)),  # decode step
+              ((2, 64, 256, 16), True, (0.5, 0.999)),
+              ((1, 17, 136, 8), True, (0.5, 0.999)),
+              ((1, 64, 128, 8), True, (0.999, 1.0)),  # slow decay
+              ((1, 5, 33, 5), True, (0.5, 0.999)),  # scalar loads (N % 4 != 0), ragged D
+              ((2, 9, 130, 64), True, (0.5, 0.999))]  # the widest state
+SCAN_TOL = 1e-5  # rtol = atol, as tests/test_kernels.py holds the Pallas kernel
+FALCON = "falcon-mamba-7b"
+# the JAX package's numbers at full width, depth 2, weights init_numpy(seed=0),
+# B=2, a 256-token prompt from default_rng(1), greedy_generate(steps=8); made
+# on a CPU by `PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/falcon_mamba_targets.py`
+FALCON_JAX = dict(layers=2, batch=2, prompt=256, steps=8, weight_seed=0, prompt_seed=1)
+FALCON_TARGET = {'last_logits': [[-1.328125, -2.453125, 0.6328125, 1.796875, -1.8125, 0.6953125, 1.1484375,
+                  0.30859375, 0.95703125, 0.421875, -0.78515625, 1.6875, -1.9609375, 2.0,
+                  0.310546875, 0.54296875, -0.068359375, -0.45703125, 0.484375, 1.3359375,
+                  -0.19140625, 0.6796875, 0.80859375, 0.63671875, -0.5625, -0.373046875, 0.7265625,
+                  0.08837890625, -0.91015625, -0.0556640625, -2.28125, -0.609375],
+                 [-0.06884765625, -0.388671875, -0.78515625, -0.4140625, 0.98828125, -0.54296875,
+                  -1.890625, 1.5390625, 1.390625, -1.6640625, 1.6484375, -0.7890625, -1.1875,
+                  -1.828125, -1.390625, -0.7265625, 0.57421875, 2.59375, 1.7421875, -1.375,
+                  0.9296875, 1.3203125, -0.486328125, -0.14453125, 0.388671875, -0.7734375,
+                  -1.890625, -2.125, 1.5234375, -1.4375, 2.671875, -1.84375]],
+ 'margins': [[75.84375, 75.84375, 75.875, 75.875, 75.875, 75.875, 75.875, 75.875],
+             [76.40625, 76.46875, 76.4375, 76.4375, 76.4375, 76.4375, 76.4375, 76.4375]],
+ 'prefill_logits': [[-1.34375, -2.421875, 0.64453125, 1.8125, -1.8359375, 0.69140625, 1.1484375,
+                     0.318359375, 0.95703125, 0.43359375, -0.71875, 1.71875, -1.96875, 1.9921875,
+                     0.314453125, 0.546875, -0.0693359375, -0.46484375, 0.48046875, 1.3046875,
+                     -0.1884765625, 0.69921875, 0.828125, 0.61328125, -0.60546875, -0.365234375,
+                     0.71875, 0.078125, -0.92578125, -0.061279296875, -2.265625, -0.60546875],
+                    [-0.04052734375, -0.369140625, -0.74609375, -0.416015625, 0.98046875, -0.515625,
+                     -1.890625, 1.5234375, 1.375, -1.671875, 1.640625, -0.7734375, -1.1953125,
+                     -1.84375, -1.3828125, -0.7109375, 0.5703125, 2.59375, 1.75, -1.3359375,
+                     0.8984375, 1.296875, -0.5, -0.1455078125, 0.408203125, -0.77734375, -1.9140625,
+                     -2.140625, 1.5078125, -1.421875, 2.65625, -1.875]],
+ 'sample': [3584, 5974, 7104, 9756, 12214, 13090, 14287, 16914, 17003, 17875, 19400, 19874, 21767,
+            26896, 27490, 28128, 29332, 36289, 36555, 39007, 41172, 42741, 43517, 44129, 47359,
+            48709, 52859, 52923, 54436, 57220, 61460, 64540],
+ 'tokens': [[13215, 13215, 13215, 13215, 13215, 13215, 13215, 13215],
+            [25077, 25077, 25077, 25077, 25077, 25077, 25077, 25077]]}
+# logits (bf16) are held to the JAX package's at atol 0.0625: two bf16 ulps
+# at |logit| in [4, 8), twice the largest difference of the port on a CPU
+# over the whole vocab (0.03125; 0.0078 at the sample).  A greedy position
+# is skipped where the JAX package's top-1/top-2 margin is below it.
+FALCON_TOL = 0.0625
+# the main path: all 64 layers, weights from a seeded torch.Generator, B=4, a
+# 512-token prompt (two chunks of 256), greedy_generate(steps=16)
+FALCON_MAIN = dict(batch=4, prompt=512, steps=16, weight_seed=0, prompt_seed=1)
 
 
 def check(cond, msg):
@@ -580,19 +642,19 @@ def fullxbar_phase():
     return {"lif_step": launches}, job, secs["uniform"]
 
 
-def profile_phase(name, make_ctl, unprofiled_s):
+def profile_run(name, run, units, unit, unprofiled_s):
     """Where a run's time goes: device kernel time against the wall time,
-    and the kernels by device time (torch.profiler).  The profiler's own
-    host cost inflates its wall time, so the busy share is also given
-    against the same run unprofiled."""
+    and the kernels by device time (torch.profiler).  ``run()`` ends in a
+    host sync and returns after ``units()`` ``unit``s of work.  The
+    profiler's own host cost inflates its wall time, so the busy share is
+    also given against the same run unprofiled."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    ctl = make_ctl()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ctl.run(max_rounds=MAX_ROUNDS, check_every=CHECK_EVERY)
+        run()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
@@ -601,15 +663,21 @@ def profile_phase(name, make_ctl, unprofiled_s):
         print(f"{name} profile: device time not measured (no CUDA events)", flush=True)
         return
     n = sum(e.count for e in kernels)
-    r = ctl.rounds_run
-    print(f"{name} profile: {r} rounds, device kernel time {busy:.6f} s "
-          f"= {1e6 * busy / r:.1f} us/round; {n} kernels ({n / r:.1f} per round, "
+    r = units()
+    print(f"{name} profile: {r} {unit}s, device kernel time {busy:.6f} s "
+          f"= {1e6 * busy / r:.1f} us/{unit}; {n} kernels ({n / r:.1f} per {unit}, "
           f"{1e6 * busy / n:.2f} us each); busy {100 * busy / wall:.2f}% of the "
           f"profiled wall {wall:.6f} s, {100 * busy / unprofiled_s:.2f}% of the "
           f"unprofiled wall {unprofiled_s:.6f} s", flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:100]}",
               flush=True)
+
+
+def profile_phase(name, make_ctl, unprofiled_s):
+    ctl = make_ctl()
+    profile_run(name, lambda: ctl.run(max_rounds=MAX_ROUNDS, check_every=CHECK_EVERY),
+                lambda: ctl.rounds_run, "round", unprofiled_s)
 
 
 def sync_free_phase(name, make_ctl):
@@ -1086,6 +1154,230 @@ def dense_controller():
     return Controller(cfg, states, pending, quantum=DENSE_QUANTUM)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: falcon-mamba-7b serving through the ssm_scan kernel
+
+
+def scan_inputs(shape, seed, with_h0, span):
+    b, s, d, n = shape
+    g = torch.Generator("cuda").manual_seed(seed)
+    lo, hi = span
+    da = torch.rand(shape, generator=g, device="cuda").mul_(hi - lo).add_(lo)
+    dbx = torch.randn(shape, generator=g, device="cuda").mul_(0.2)
+    c = torch.randn((b, s, n), generator=g, device="cuda")
+    h0 = torch.randn((b, d, n), generator=g, device="cuda") if with_h0 else None
+    return da, dbx, c, h0
+
+
+def scan_bound_ms_f32(shape, with_h0):
+    """Least time for one scan: da and dbx (and h0) read once, c read once,
+    y and h_last written once, against the memory rate; two multiplies and
+    two adds per state element and step against the float32 rate outside
+    the tensor cores.  Returns (ms, "bytes" | "operations")."""
+    b, s, d, n = shape
+    nbytes = 4 * (2 * b * s * d * n + b * s * n + b * s * d + (1 + with_h0) * b * d * n)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = 4 * b * s * d * n / PEAK_FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ssm_scan_phase():
+    from repro_torch.kernels.ssm_scan import ops, ref
+
+    max_err = 0.0
+    for i, (shape, with_h0, span) in enumerate(SCAN_CASES):
+        da, dbx, c, h0 = scan_inputs(shape, 100 + i, with_h0, span)
+        y, h = ops.selective_scan(da, dbx, c, h0)
+        y_want, h_want = ref.selective_scan(da, dbx, c, h0)
+        torch.cuda.synchronize()
+        ey = float((y - y_want).abs().max())
+        eh = float((h - h_want).abs().max())
+        max_err = max(max_err, ey, eh)
+        check(torch.allclose(y, y_want, rtol=SCAN_TOL, atol=SCAN_TOL)
+              and torch.allclose(h, h_want, rtol=SCAN_TOL, atol=SCAN_TOL),
+              f"ssm_scan {shape} h0={with_h0} da in {span}: max |dy| {ey}, |dh| {eh}")
+        print(f"ssm_scan {shape} h0={'given' if with_h0 else 'zero'} da in [{span[0]}, "
+              f"{span[1]}): max |y - plain| {ey}, |h_last - plain| {eh} (bit-equal: "
+              f"{bool(torch.equal(y, y_want) and torch.equal(h, h_want))})", flush=True)
+    # no single PyTorch call computes a linear recurrence: no library column
+    times = {}
+    for shape in [(4, 256, 8192, 16), (4, 1, 8192, 16)]:  # prefill chunk, decode step
+        da, dbx, c, h0 = scan_inputs(shape, 7, True, (0.5, 0.999))
+        kernel = lambda: ops.selective_scan(da, dbx, c, h0)
+        plain = lambda: ref.selective_scan(da, dbx, c, h0)
+        ms = device_ms(kernel)
+        plain_ms = device_ms(plain, reps=5, inner=2)
+        bound_ms, bound_by = scan_bound_ms_f32(shape, True)
+        times[shape] = (ms, plain_ms, bound_ms, bound_by)
+        print(f"ssm_scan {shape} with h0: device time kernel {ms:.6f} ms, plain "
+              f"{plain_ms:.6f} ms, bound {bound_ms:.6f} ms ({bound_by}), "
+              f"{100 * bound_ms / ms:.1f}% of the bound; library: none (no single PyTorch "
+              f"call computes a linear recurrence); eager call through the wrapper "
+              f"{stream_ms(kernel):.6f} ms", flush=True)
+    ms, plain_ms, bound_ms, bound_by = times[(4, 256, 8192, 16)]
+    return {"name": "ssm_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+            "replaces": "src/repro/kernels/ssm_scan/kernel.py:50",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def falcon_jax_phase():
+    """falcon-mamba-7b at full width, depth 2, against the JAX package's
+    numbers for the same weights and prompt (FALCON_TARGET)."""
+    import dataclasses
+
+    from repro_torch.common import init_numpy
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build, params_from_numpy
+    from repro_torch.serve.serve_step import greedy_generate
+
+    spec, want = FALCON_JAX, FALCON_TARGET
+    cfg = dataclasses.replace(get_config(FALCON), n_layers=spec["layers"])
+    model = build(cfg)
+    t0 = time.perf_counter()
+    params = params_from_numpy(model.specs, init_numpy(model.specs, seed=spec["weight_seed"]))
+    prompt = np.random.default_rng(spec["prompt_seed"]).integers(
+        0, cfg.vocab_size, (spec["batch"], spec["prompt"])).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(prompt).cuda()}
+    print(f"falcon-mamba-7b depth {spec['layers']}: weights from init_numpy on the host "
+          f"and carried to the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    toks = greedy_generate(model, params, batch, steps=spec["steps"]).cpu().numpy()
+    want_toks, margins = np.array(want["tokens"]), np.array(want["margins"])
+    compared = skipped = 0
+    for r in range(spec["batch"]):
+        for i in range(spec["steps"]):
+            if margins[r, i] < FALCON_TOL:
+                skipped += 1
+                if toks[r, i] != want_toks[r, i]:  # later inputs differ: skip the row's rest
+                    skipped += spec["steps"] - 1 - i
+                    break
+                continue
+            check(toks[r, i] == want_toks[r, i],
+                  f"falcon depth 2: row {r} position {i} token {toks[r, i]} != JAX "
+                  f"{want_toks[r, i]} (JAX margin {margins[r, i]})")
+            compared += 1
+    # the logits at the sample: the prefill's, and the last decode step's fed
+    # the JAX package's tokens
+    sample = torch.tensor(want["sample"], device="cuda")
+    cache, lg = model.prefill(params, batch)
+    errs = [float((lg[:, -1, sample].float().cpu()
+                   - torch.tensor(want["prefill_logits"])).abs().max())]
+    for i in range(spec["steps"] - 1):
+        tok = torch.from_numpy(want_toks[:, i:i + 1].astype(np.int32)).cuda()
+        lg, cache = model.decode_step(params, cache, {"tokens": tok}, spec["prompt"] + i)
+    errs.append(float((lg[:, -1, sample].float().cpu()
+                       - torch.tensor(want["last_logits"])).abs().max()))
+    check(bool(torch.isfinite(lg).all()), "falcon depth 2: non-finite logits")
+    check(max(errs) <= FALCON_TOL,
+          f"falcon depth 2: logits off the JAX package's by {errs} > {FALCON_TOL}")
+    print(f"falcon-mamba-7b depth {spec['layers']}, B={spec['batch']}, prompt "
+          f"{spec['prompt']}, {spec['steps']} greedy steps: tokens equal the JAX package's "
+          f"at {compared} positions, {skipped} skipped (JAX margin < {FALCON_TOL}; the "
+          f"smallest margin is {margins.min()}); logits at {len(want['sample'])} vocab "
+          f"indices off the JAX package's by at most {errs[0]} (prefill) and {errs[1]} "
+          f"(last decode step), tolerance {FALCON_TOL}", flush=True)
+    del params, cache
+    torch.cuda.empty_cache()
+
+
+def falcon_main_path():
+    """falcon-mamba-7b at full width and depth: prefill and greedy decode
+    through the ssm_scan kernel; then the same job with the plain scan."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan import ops, ref
+    from repro_torch.models.model import build
+    from repro_torch.serve.serve_step import greedy_generate
+
+    spec = FALCON_MAIN
+    cfg = get_config(FALCON)
+    model = build(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator("cuda").manual_seed(spec["weight_seed"]))
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for _, x in tree.leaves(params))
+    print(f"falcon-mamba-7b: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params} "
+          f"parameters (float32) made on the card in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (spec["batch"], spec["prompt"]), dtype=torch.int32, device="cuda",
+        generator=torch.Generator("cuda").manual_seed(spec["prompt_seed"]))}
+    steps = spec["steps"]
+    greedy_generate(model, params, batch, steps=2)  # warm-up: cuBLAS and allocator state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.selective_scan.launches = 0  # the main path's run starts here
+    t0 = time.perf_counter()
+    toks = greedy_generate(model, params, batch, steps=steps)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = ops.selective_scan.launches
+    chunks = spec["prompt"] // min(cfg.ssm.chunk, spec["prompt"])
+    expected = cfg.n_layers * chunks + cfg.n_layers * (steps - 1)
+    check(launches == expected, f"falcon: {launches} ssm_scan launches, expected {expected}")
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(toks.shape) == (spec["batch"], steps) and bool(
+        ((toks >= 0) & (toks < cfg.vocab_size)).all()), f"falcon: tokens {toks.shape}")
+
+    t0 = time.perf_counter()
+    cache, lg = model.prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    check(tuple(lg.shape) == (spec["batch"], 1, cfg.vocab_size)
+          and bool(torch.isfinite(lg).all()), "falcon: prefill logits")
+    decode_s = (total_s - prefill_s) / (steps - 1)
+    print(f"falcon-mamba-7b main path: B={spec['batch']}, prompt {spec['prompt']} "
+          f"({chunks} chunks), {steps} greedy tokens: {total_s:.6f} s in all; prefill "
+          f"{1e3 * prefill_s:.3f} ms, decode {1e3 * decode_s:.3f} ms per token (the "
+          f"remainder over {steps - 1} steps), {spec['batch'] * steps / total_s:.1f} "
+          f"generated tokens/s; peak allocated {peak / 2**30:.2f} GiB; ssm_scan launches "
+          f"{launches} = {cfg.n_layers}*{chunks} + {cfg.n_layers}*{steps - 1}", flush=True)
+
+    # the same job with the plain scan swapped in (full width, full depth)
+    real = ops.selective_scan
+    ops.selective_scan = ref.selective_scan
+    try:
+        t0 = time.perf_counter()
+        plain_toks = greedy_generate(model, params, batch, steps=steps)
+        _, plain_lg = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    finally:
+        ops.selective_scan = real
+    err = float((lg.float() - plain_lg.float()).abs().max())
+    check(torch.equal(toks, plain_toks), "falcon: greedy tokens differ with the plain scan")
+    check(err <= FALCON_TOL, f"falcon: prefill logits off the plain scan's by {err}")
+    print(f"falcon-mamba-7b with the plain scan (all {cfg.n_layers} layers, full width): "
+          f"tokens equal; prefill logits off by at most {err} (tolerance {FALCON_TOL}; "
+          f"bit-equal: {bool(torch.equal(lg, plain_lg))}); {plain_s:.3f} s for the job and "
+          f"a second prefill", flush=True)
+
+    # where the time goes, and no host sync inside a decode step
+    profile_run("falcon-mamba-7b prefill", lambda: (model.prefill(params, batch),
+                                                    torch.cuda.synchronize()),
+                lambda: 1, "prefill", prefill_s)
+    tok = toks[:, -1:].contiguous()
+    pos = spec["prompt"] + steps - 1
+    profile_run("falcon-mamba-7b decode step", lambda: (
+        model.decode_step(params, cache, {"tokens": tok}, pos), torch.cuda.synchronize()),
+        lambda: 1, "step", decode_s)
+    model.decode_step(params, cache, {"tokens": tok}, pos)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.decode_step(params, cache, {"tokens": tok}, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("falcon-mamba-7b: one Model.decode_step ran under set_sync_debug_mode('error')",
+          flush=True)
+    del params, cache
+    torch.cuda.empty_cache()
+    return {"ssm_scan": launches}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1131,6 +1423,10 @@ def main():
     phase("7 faults: the fault path against the reference's numbers")
     launches.update(faults_main_path())
     faults_checks()
+    phase("8 falcon-mamba-7b serving through the ssm_scan kernel")
+    rows.append(ssm_scan_phase())
+    falcon_jax_phase()
+    launches.update(falcon_main_path())
 
     for row in rows:
         row["launches"] = launches[row["name"]]
