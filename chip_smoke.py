@@ -11,7 +11,8 @@ injection (``faults=FaultConfig(...)``), each run to completion by
 and fails (non-zero exit, no result line) unless every phase holds:
 
   0. environment: the card's name and power limit, the kernels built from
-     the sources in this checkout (one nvcc per source, all at once);
+     the sources in this checkout (one nvcc per source, all at once), and
+     the global-load opcodes of ``slot_scan``'s SASS;
   1. ``lif_step`` and ``crossbar_vmm``, and their fault variants, equal
      their plain PyTorch versions bit for bit on the card (the fault
      variants with masks drawn by ``faults.unit_masks`` at high rates, each
@@ -30,8 +31,11 @@ and fails (non-zero exit, no result line) unless every phase holds:
      whose card and CPU final trees are equal, and the store-log and
      outbox overflow messages equal to the CPU's; ``slot_scan`` equal to
      its plain version from mid-run states of the Table III jobs, over 500
-     slots and over a full 10,000-slot quantum, and its time per round at
-     that quantum;
+     slots, and over full 10,000-slot quanta: against the plain version on
+     the host CPU from a state where a manager CPU polls (the fast-forward
+     must skip slots there) and from the RISC-V state, and against the
+     plain version on the card from the state after 2 rounds; its device
+     time per round and per simulated instruction at three states;
   6. dense main path: every Table III target (the paper's layers, uniform
      offload, plus load-oriented, RISC-V and mixed runs of Googlenet-conv1,
      and Googlenet-conv1 on ``sequential``) reproduces the reference's
@@ -50,16 +54,19 @@ and fails (non-zero exit, no result line) unless every phase holds:
      then card against CPU trees for one small job per family and a small
      faulted offload, the wall per round with and without transport
      faults, and one faulted round under sync-debug "error";
-  8. falcon-mamba-7b serving: ``ssm_scan`` against its plain version on
-     the card (the main path's prefill chunk and decode step, small,
-     ragged and slow-decay shapes), with its time, the plain version's and
-     its bound; the model at full width and depth 2 against the JAX
-     package's tokens and sampled logits for the same weights
-     (``FALCON_TARGET``); the main path at full width and all 64 layers
-     (``greedy_generate`` of 16 tokens after a 512-token prompt, 1088 scan
-     launches), its times and peak memory, the same job with the plain
-     scan, profiles of a prefill and a decode step, and one decode step
-     under sync-debug "error".
+  8. falcon-mamba-7b serving: ``ssm_scan`` (unfused) and
+     ``ssm_scan_fused`` (the Mamba-1 expansion inside the scan) against
+     their plain versions on the card (a prefill chunk, or the whole
+     prompt, and a decode step, small, ragged and slow-decay shapes), with
+     their times, the plain versions' and their bounds, the fused kernel in
+     turns with the unfused path; the model at full width and depth 2
+     against the JAX package's tokens and sampled logits for the same
+     weights (``FALCON_TARGET``); the main path at full width and all 64
+     layers (``greedy_generate`` of 16 tokens after a 512-token prompt,
+     1024 fused scan launches), its times and peak memory, the same job on
+     the unfused path (expansion ops and the unfused kernel per 256-token
+     chunk, 1088 launches) and with the plain scan, profiles of a prefill
+     and a decode step, and one decode step under sync-debug "error".
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' numbers as JSON.  Imports nothing of JAX.
@@ -93,7 +100,7 @@ STRATEGIES = ("uniform", "load_oriented", "auto")
 FIG5SNN = dict(sizes=(128, 96, 64, 10), spikes=2045, rounds=28, in_cap=None)
 FULLXBAR = dict(sizes=(256,) * 9, spikes=24502, rounds=34, in_cap=8192)
 KERNELS = ["lif_step", "lif_step_faults", "crossbar_vmm", "crossbar_vmm_faults",
-           "slot_scan", "ssm_scan"]
+           "slot_scan", "ssm_scan", "ssm_scan_fused"]
 SOURCES = ["lif_step", "crossbar_vmm", "slot_scan", "ssm_scan"]  # kernels/csrc/<name>.cu
 
 # the dense targets: Table III layers at their published sizes, channel
@@ -119,6 +126,13 @@ SCAN_STATES = [("Googlenet-conv1", "uniform", "cim", 2),
                ("Googlenet-conv1", "uniform", "cim", 5),
                ("Googlenet-conv1", "load_oriented", "cim", 5),
                ("Googlenet-conv1", "uniform", "riscv", 3)]
+# full quanta against the plain version on the host CPU: a state whose
+# manager CPU polls for a CIM completion flag (the fast-forward must skip
+# slots there), and the RISC-V state (every slot executed)
+FULL_SCAN_STATES = [(SCAN_STATES[1], True), (SCAN_STATES[3], False)]
+# the states timed per round: both managers after 2 rounds, the polling
+# state, the RISC-V state
+SCAN_TIMED = [SCAN_STATES[0], SCAN_STATES[1], SCAN_STATES[3]]
 
 # the fault phase's targets: the JAX package's numbers (per-round vmap
 # dispatch, quantum 32, check_every=2; fidelities as the reference prints
@@ -180,6 +194,9 @@ SCAN_CASES = [((4, 256, 8192, 16), False, (0.5, 0.999)),  # main-path prefill ch
               ((1, 5, 33, 5), True, (0.5, 0.999)),  # scalar loads (N % 4 != 0), ragged D
               ((2, 9, 130, 64), True, (0.5, 0.999))]  # the widest state
 SCAN_TOL = 1e-5  # rtol = atol, as tests/test_kernels.py holds the Pallas kernel
+# the fused scan against its plain version: float32 ulps of y and h_last (0:
+# bit-equal; the kernel's expf is the function torch.exp computes on the card)
+FUSED_ULPS = 0
 FALCON = "falcon-mamba-7b"
 # the JAX package's numbers at full width, depth 2, weights init_numpy(seed=0),
 # B=2, a 256-token prompt from default_rng(1), greedy_generate(steps=8); made
@@ -849,10 +866,28 @@ def scan_bound_ms(st_in, st_out, box):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), instrs
 
 
+def queued_ms(calls):
+    """Device time per call of ``calls`` (thunks that each launch work on the
+    current stream): the card first sleeps while the host queues them all,
+    so the events around them see device time only, not the host's issue
+    time.  Returns (ms per call, the last call's result)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of spinning: longer than the queuing
+    start.record()
+    for call in calls:
+        out = call()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / len(calls), out
+
+
 def scan_phase():
     """slot_scan against its plain version on the card, from mid-run states
-    of the Table III jobs; then its device time per round at the jobs'
-    quantum (10,000 slots)."""
+    of the Table III jobs; over a full 10,000-slot quantum against the plain
+    version on the host CPU, from a polling state and the RISC-V state, with
+    the slots the kernel fast-forwarded; then its device time per round and
+    per simulated instruction at three states."""
     from repro_torch import tree
     from repro_torch.core import channel as ch
     from repro_torch.core.controller import Controller
@@ -868,62 +903,87 @@ def scan_phase():
                   for x in (cfg.cim_seg, cfg.cim_slot)]
         return cfg, ctl.states, ctl._limits(ctl.states["time"]), wiring
 
-    def fresh(cfg, states):  # the scan updates DRAM and the outbox in place
-        return (tree.tree_map(lambda x: x.clone(), states),
-                ch.empty_box(cfg.out_cap, (cfg.n_segments,), "cuda"))
+    def fresh(cfg, states, device="cuda"):  # the scan updates DRAM and the outbox in place
+        return (tree.tree_map(lambda x: x.to(device, copy=True), states),
+                ch.empty_box(cfg.out_cap, (cfg.n_segments,), device))
 
-    cases = [(f"{name} {strategy}/{mode} after {rounds} rounds",
-              *state_after(name, strategy, mode, rounds))
-             for name, strategy, mode, rounds in SCAN_STATES]
+    states = {key: state_after(*key) for key in SCAN_STATES}
     max_err = 0
-    for label, cfg, states, limit, wiring in cases:
+    for key in SCAN_STATES:
+        cfg, st0, limit, wiring = states[key]
+        label = "{} {}/{} after {} rounds".format(*key)
         outs = []
         for fn in (ops.slot_scan, ref.slot_scan):
-            st, box = fresh(cfg, states)
+            st, box = fresh(cfg, st0)
             outs.append(fn(cfg, SCAN_SLOTS, st, box, limit, *wiring))
         torch.cuda.synchronize()
         n, err = equal_trees(f"slot_scan {label}",
                              {"states": outs[0][0], "outbox": outs[0][1]},
                              {"states": outs[1][0], "outbox": outs[1][1]})
         max_err = max(max_err, err)
-        executed = (outs[0][0]["stats"]["instrs"] - states["stats"]["instrs"]).tolist()
+        executed = (outs[0][0]["stats"]["instrs"] - st0["stats"]["instrs"]).tolist()
         print(f"slot_scan {label}, {SCAN_SLOTS} slots: kernel and plain equal on all "
               f"{n} leaves (instructions run {executed}, messages "
               f"{outs[0][1]['count'].tolist()})", flush=True)
 
-    # time per round at the main path's quantum, from Googlenet-conv1's
-    # uniform offload after 2 rounds (both CPUs streaming inputs); the plain
-    # version's full quantum is held against the kernel's first call, which
-    # started from the same state and ends on the closed-form clock advance
-    label = f"Googlenet-conv1 uniform/cim after 2 rounds, {DENSE_QUANTUM} slots"
-    cfg, states, limit, wiring = state_after("Googlenet-conv1", "uniform", "cim", 2)
-    reps = 10
-    inputs = [fresh(cfg, states) for _ in range(reps + 1)]
-    out = ops.slot_scan(cfg, DENSE_QUANTUM, *inputs[-1], limit, *wiring)  # warm
-    torch.cuda.synchronize()
+    # full quanta: the kernel on the card against the plain version on the
+    # host CPU, from copies of the same state
+    for key, must_skip in FULL_SCAN_STATES:
+        cfg, st0, limit, wiring = states[key]
+        label = "{} {}/{} after {} rounds, {} slots".format(*key, DENSE_QUANTUM)
+        st, box = fresh(cfg, st0)
+        got = ops.slot_scan(cfg, DENSE_QUANTUM, st, box, limit, *wiring)
+        skipped = ops.slot_scan.skipped.tolist()
+        st, box = fresh(cfg, st0, "cpu")
+        cpu_wiring = [x.cpu() for x in wiring]
+        t0 = time.perf_counter()
+        want = ref.slot_scan(cfg, DENSE_QUANTUM, st, box, limit.cpu(), *cpu_wiring)
+        host_s = time.perf_counter() - t0
+        n, err = equal_trees(f"slot_scan {label}", {"states": got[0], "outbox": got[1]},
+                             {"states": want[0], "outbox": want[1]})
+        max_err = max(max_err, err)
+        executed = (got[0]["stats"]["instrs"] - st0["stats"]["instrs"]).tolist()
+        check(not must_skip or sum(skipped) > 0, f"slot_scan {label}: no slot skipped")
+        print(f"slot_scan {label}: kernel (card) and plain (host CPU, {host_s:.1f} s) equal "
+              f"on all {n} leaves; simulated instructions {executed}, of which the "
+              f"fast-forward skipped {skipped}", flush=True)
+
+    # device time per round at the main path's quantum, at three states; the
+    # plain version's full quantum on the card is held against the kernel's
+    # first call at the first state
+    times = {}
+    for key in SCAN_TIMED:
+        cfg, st0, limit, wiring = states[key]
+        reps = 10
+        inputs = [fresh(cfg, st0) for _ in range(reps + 1)]
+        out = ops.slot_scan(cfg, DENSE_QUANTUM, *inputs[-1], limit, *wiring)  # warm
+        skipped = ops.slot_scan.skipped.tolist()
+        ms, _ = queued_ms([lambda st=st, box=box: ops.slot_scan(
+            cfg, DENSE_QUANTUM, st, box, limit, *wiring) for st, box in inputs[:reps]])
+        bound_ms, bound_by, instrs = scan_bound_ms(st0, out[0], out[1])
+        times[key] = (ms, bound_ms, bound_by, cfg, st0, limit, wiring, out)
+        print(f"slot_scan {key[0]} {key[1]}/{key[2]} after {key[3]} rounds, one round of "
+              f"{DENSE_QUANTUM} slots on {cfg.n_segments} segments ({instrs} simulated "
+              f"instructions, {sum(skipped)} fast-forwarded): kernel {ms:.6f} ms (device, "
+              f"mean of {reps}) = {ms * 1e6 / DENSE_QUANTUM:.1f} ns per slot, "
+              f"{ms * 1e6 / instrs:.1f} ns per simulated instruction, "
+              f"{ms * 1e6 / max(instrs - sum(skipped), 1):.1f} ns per executed one; "
+              f"bound {bound_ms:.6f} ms ({bound_by})", flush=True)
+    key = SCAN_TIMED[0]
+    ms, bound_ms, bound_by, cfg, st0, limit, wiring, out = times[key]
+    st, box = fresh(cfg, st0)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for st, box in inputs[:reps]:
-        ops.slot_scan(cfg, DENSE_QUANTUM, st, box, limit, *wiring)
-    end.record()
-    end.synchronize()
-    ms = start.elapsed_time(end) / reps
-    st, box = fresh(cfg, states)
     start.record()
     plain = ref.slot_scan(cfg, DENSE_QUANTUM, st, box, limit, *wiring)
     end.record()
     end.synchronize()
     plain_ms = start.elapsed_time(end)
-    n, err = equal_trees(f"slot_scan {label}", {"states": out[0], "outbox": out[1]},
+    n, err = equal_trees(f"slot_scan {key} full quantum", {"states": out[0], "outbox": out[1]},
                          {"states": plain[0], "outbox": plain[1]})
     max_err = max(max_err, err)
-    print(f"slot_scan {label}: kernel and plain equal on all {n} leaves", flush=True)
-    bound_ms, bound_by, instrs = scan_bound_ms(states, out[0], out[1])
-    print(f"slot_scan Googlenet-conv1 uniform/cim, one round of {DENSE_QUANTUM} slots on "
-          f"{cfg.n_segments} segments ({instrs} instructions run): kernel {ms:.6f} ms "
-          f"(mean of {reps}) = {ms * 1e6 / DENSE_QUANTUM:.1f} ns per slot, "
-          f"{ms * 1e6 / instrs:.1f} ns per simulated instruction; plain {plain_ms:.3f} ms; "
-          f"bound {bound_ms:.6f} ms ({bound_by})", flush=True)
+    print(f"slot_scan {key[0]} {key[1]}/{key[2]} after {key[3]} rounds, {DENSE_QUANTUM} "
+          f"slots: kernel and plain (on the card, {plain_ms:.3f} ms) equal on all {n} "
+          f"leaves", flush=True)
     return {"name": "slot_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/slot_scan.cu",
             "replaces": "src/repro/vp/platform.py:627",
@@ -1181,6 +1241,46 @@ def scan_bound_ms_f32(shape, with_h0):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def fused_inputs(shape, seed, with_h0, span):
+    """Inputs of the fused scan whose ``exp(dt * a)`` spans [lo, hi) as the
+    unfused case's ``da`` does: a in [-2, -1), dt in [-ln(hi), -ln(lo) / 2);
+    b and c are slices of one (B, S, 2 + 2N) projection, as in the model."""
+    b, s, d, n = shape
+    g = torch.Generator("cuda").manual_seed(seed)
+    lo, hi = span
+    d0, d1 = -float(np.log(hi)), -float(np.log(lo)) / 2
+    dt = torch.rand((b, s, d), generator=g, device="cuda").mul_(d1 - d0).add_(d0)
+    x = torch.randn((b, s, d), generator=g, device="cuda")
+    a = torch.rand((d, n), generator=g, device="cuda").sub_(2.0)
+    proj = torch.randn((b, s, 2 + 2 * n), generator=g, device="cuda")
+    _, bm, cm = torch.split(proj, [2, n, n], dim=-1)
+    h0 = torch.randn((b, d, n), generator=g, device="cuda") if with_h0 else None
+    d_skip = torch.randn((d,), generator=g, device="cuda") if with_h0 else None
+    return dt, x, bm, cm, a, h0, d_skip
+
+
+def fused_bound_ms(shape, with_h0):
+    """Least time for one fused scan: dt and x read and y written once
+    (B, S, D), b and c read once (B, S, N), a (D, N), h0 and d_skip read and
+    h_last written once; 7 float32 operations per state element and step
+    (dt*a, exp, (dt*x)*b, the recurrence's multiply and add, the product
+    with c and its add into y).  Returns (ms, "bytes" | "operations")."""
+    b, s, d, n = shape
+    nbytes = 4 * (3 * b * s * d + 2 * b * s * n + d * n + (1 + with_h0) * b * d * n
+                  + with_h0 * d)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = 7 * b * s * d * n / PEAK_FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ulps(x, y):
+    """Largest distance in float32 units in the last place between x and y."""
+    xi, yi = (t.float().contiguous().view(torch.int32).long() for t in (x, y))
+    xi = torch.where(xi < 0, -(xi & 0x7FFFFFFF), xi)
+    yi = torch.where(yi < 0, -(yi & 0x7FFFFFFF), yi)
+    return int((xi - yi).abs().max()) if xi.numel() else 0
+
+
 def ssm_scan_phase():
     from repro_torch.kernels.ssm_scan import ops, ref
 
@@ -1215,11 +1315,61 @@ def ssm_scan_phase():
               f"call computes a linear recurrence); eager call through the wrapper "
               f"{stream_ms(kernel):.6f} ms", flush=True)
     ms, plain_ms, bound_ms, bound_by = times[(4, 256, 8192, 16)]
-    return {"name": "ssm_scan", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
-            "replaces": "src/repro/kernels/ssm_scan/kernel.py:50",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    unfused = {"name": "ssm_scan", "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+               "replaces": "src/repro/kernels/ssm_scan/kernel.py:50",
+               "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+    # the fused scan at the same cases, the prefill at one launch's length;
+    # held to its plain version at FUSED_ULPS float32 ulps (0: bit-equal)
+    max_err, max_ulps = 0.0, 0
+    for i, (shape, with_h0, span) in enumerate(SCAN_CASES):
+        if shape[1] == 256:
+            shape = (shape[0], FALCON_MAIN["prompt"], *shape[2:])
+        args = fused_inputs(shape, 200 + i, with_h0, span)
+        y, h = ops.selective_scan_fused(*args)
+        y_want, h_want = ref.selective_scan_fused(*args, chunk=256)
+        torch.cuda.synchronize()
+        gap = max(ulps(y, y_want), ulps(h, h_want))
+        err = max(float((y - y_want).abs().max()), float((h - h_want).abs().max()))
+        max_err, max_ulps = max(max_err, err), max(max_ulps, gap)
+        check(gap <= FUSED_ULPS and bool(torch.isfinite(y).all()),
+              f"ssm_scan_fused {shape} h0={with_h0}: {gap} ulps, max abs {err}")
+        print(f"ssm_scan_fused {shape} h0 and d_skip {'given' if with_h0 else 'none'}, "
+              f"exp(dt*a) in [{span[0]}, {span[1]}): max |y, h_last - plain| {err}, {gap} "
+              f"ulps (bit-equal: {gap == 0})", flush=True)
+    shape = (4, FALCON_MAIN["prompt"], 8192, 16)
+    args = fused_inputs(shape, 9, True, (0.5, 0.999))
+    fused = lambda: ops.selective_scan_fused(*args)
+    plain = lambda: ref.selective_scan_fused(*args, chunk=256)
+    unfused_path = lambda: ref.selective_scan_fused(*args, chunk=256, scan=ops.selective_scan)
+    # in turns: fused, unfused path, unfused path, fused
+    f1, u1, u2, f2 = (device_ms(fn, reps=11, inner=4)
+                      for fn in (fused, unfused_path, unfused_path, fused))
+    plain_ms = device_ms(plain, reps=3, inner=1)
+    bound_ms, bound_by = fused_bound_ms(shape, True)
+    ms = statistics.median([f1, f2])
+    print(f"ssm_scan_fused {shape} with h0 and d_skip: device time kernel {f1:.6f} / "
+          f"{f2:.6f} ms, the unfused path (expansion ops + 2 ssm_scan chunks) {u1:.6f} / "
+          f"{u2:.6f} ms ({statistics.median([u1, u2]) / ms:.1f}x), plain {plain_ms:.6f} ms, "
+          f"bound {bound_ms:.6f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of the bound",
+          flush=True)
+    shape = (4, 1, 8192, 16)
+    args = fused_inputs(shape, 10, True, (0.5, 0.999))
+    d_ms = device_ms(lambda: ops.selective_scan_fused(*args))
+    d_unfused = device_ms(lambda: ref.selective_scan_fused(*args, scan=ops.selective_scan))
+    d_bound, d_by = fused_bound_ms(shape, True)
+    print(f"ssm_scan_fused {shape} (decode step): device time kernel {d_ms:.6f} ms, the "
+          f"unfused path {d_unfused:.6f} ms, bound {d_bound:.6f} ms ({d_by}); eager call "
+          f"through the wrapper {stream_ms(lambda: ops.selective_scan_fused(*args)):.6f} ms",
+          flush=True)
+    fused_row = {"name": "ssm_scan_fused", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+                 "replaces": "src/repro/kernels/ssm_scan/kernel.py:50",
+                 "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    return [unfused, fused_row]
 
 
 def falcon_jax_phase():
@@ -1283,7 +1433,11 @@ def falcon_jax_phase():
 
 def falcon_main_path():
     """falcon-mamba-7b at full width and depth: prefill and greedy decode
-    through the ssm_scan kernel; then the same job with the plain scan."""
+    through the fused scan kernel; then the same job on the unfused path
+    (the expansion's eager ops and the unfused kernel per chunk) and with
+    the plain scan."""
+    import functools
+
     from repro_torch import tree
     from repro_torch.configs import get_config
     from repro_torch.kernels.ssm_scan import ops, ref
@@ -1304,48 +1458,78 @@ def falcon_main_path():
         0, cfg.vocab_size, (spec["batch"], spec["prompt"]), dtype=torch.int32, device="cuda",
         generator=torch.Generator("cuda").manual_seed(spec["prompt_seed"]))}
     steps = spec["steps"]
-    greedy_generate(model, params, batch, steps=2)  # warm-up: cuBLAS and allocator state
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    ops.selective_scan.launches = 0  # the main path's run starts here
-    t0 = time.perf_counter()
-    toks = greedy_generate(model, params, batch, steps=steps)
-    torch.cuda.synchronize()
-    total_s = time.perf_counter() - t0
-    launches = ops.selective_scan.launches
     chunks = spec["prompt"] // min(cfg.ssm.chunk, spec["prompt"])
-    expected = cfg.n_layers * chunks + cfg.n_layers * (steps - 1)
-    check(launches == expected, f"falcon: {launches} ssm_scan launches, expected {expected}")
-    peak = torch.cuda.max_memory_allocated()
-    check(tuple(toks.shape) == (spec["batch"], steps) and bool(
-        ((toks >= 0) & (toks < cfg.vocab_size)).all()), f"falcon: tokens {toks.shape}")
 
-    t0 = time.perf_counter()
-    cache, lg = model.prefill(params, batch)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    check(tuple(lg.shape) == (spec["batch"], 1, cfg.vocab_size)
-          and bool(torch.isfinite(lg).all()), "falcon: prefill logits")
-    decode_s = (total_s - prefill_s) / (steps - 1)
-    print(f"falcon-mamba-7b main path: B={spec['batch']}, prompt {spec['prompt']} "
-          f"({chunks} chunks), {steps} greedy tokens: {total_s:.6f} s in all; prefill "
-          f"{1e3 * prefill_s:.3f} ms, decode {1e3 * decode_s:.3f} ms per token (the "
-          f"remainder over {steps - 1} steps), {spec['batch'] * steps / total_s:.1f} "
-          f"generated tokens/s; peak allocated {peak / 2**30:.2f} GiB; ssm_scan launches "
-          f"{launches} = {cfg.n_layers}*{chunks} + {cfg.n_layers}*{steps - 1}", flush=True)
-
-    # the same job with the plain scan swapped in (full width, full depth)
-    real = ops.selective_scan
-    ops.selective_scan = ref.selective_scan
-    try:
-        t0 = time.perf_counter()
-        plain_toks = greedy_generate(model, params, batch, steps=steps)
-        _, plain_lg = model.prefill(params, batch)
+    def serve(label):
+        """greedy_generate of the main path's job, with the launch counts
+        set to 0 just before it and read just after, then a prefill alone;
+        returns (tokens, prefill logits, cache, {metric: value})."""
+        greedy_generate(model, params, batch, steps=2)  # warm-up: cuBLAS and allocator state
         torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
-    finally:
-        ops.selective_scan = real
+        torch.cuda.reset_peak_memory_stats()
+        ops.selective_scan_fused.launches = ops.selective_scan.launches = 0
+        t0 = time.perf_counter()
+        toks = greedy_generate(model, params, batch, steps=steps)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = (ops.selective_scan_fused.launches, ops.selective_scan.launches)
+        peak = torch.cuda.max_memory_allocated()
+        check(tuple(toks.shape) == (spec["batch"], steps) and bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()), f"falcon {label}: tokens {toks.shape}")
+        t0 = time.perf_counter()
+        cache, lg = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        check(tuple(lg.shape) == (spec["batch"], 1, cfg.vocab_size)
+              and bool(torch.isfinite(lg).all()), f"falcon {label}: prefill logits")
+        decode_s = (total_s - prefill_s) / (steps - 1)
+        print(f"falcon-mamba-7b {label}: B={spec['batch']}, prompt {spec['prompt']}, {steps} "
+              f"greedy tokens: {total_s:.6f} s in all; prefill {1e3 * prefill_s:.3f} ms, "
+              f"decode {1e3 * decode_s:.3f} ms per token (the remainder over {steps - 1} "
+              f"steps), {spec['batch'] * steps / total_s:.1f} generated tokens/s; peak "
+              f"allocated {peak / 2**30:.2f} GiB", flush=True)
+        return toks, lg, cache, dict(prefill_s=prefill_s, decode_s=decode_s,
+                                     launches=launches)
+
+    def swapped(scan, run):
+        real = ops.selective_scan_fused
+        ops.selective_scan_fused = scan
+        try:
+            return run()
+        finally:
+            ops.selective_scan_fused = real
+
+    # the main path: one fused launch per layer for the prompt and per decode step
+    toks, lg, cache, main = serve("main path (fused scan)")
+    expected = cfg.n_layers * (1 + steps - 1)
+    check(main["launches"] == (expected, 0),
+          f"falcon: fused/unfused launches {main['launches']}, expected {expected} and 0")
+    print(f"falcon-mamba-7b main path: ssm_scan_fused launches {expected} = "
+          f"{cfg.n_layers}*1 + {cfg.n_layers}*{steps - 1}, unfused launches 0", flush=True)
+
+    # the unfused path: expansion chunk by chunk, the unfused kernel per chunk
+    u_toks, u_lg, _, unfused = swapped(
+        functools.partial(ref.selective_scan_fused, scan=ops.selective_scan),
+        lambda: serve("unfused path (expansion ops + ssm_scan per chunk)"))
+    u_launches = unfused["launches"][1]
+    check(unfused["launches"] == (0, cfg.n_layers * chunks + cfg.n_layers * (steps - 1)),
+          f"falcon unfused path: fused/unfused launches {unfused['launches']}")
+    u_err = float((lg.float() - u_lg.float()).abs().max())
+    check(torch.equal(toks, u_toks), "falcon: greedy tokens differ on the unfused path")
+    check(u_err <= FALCON_TOL, f"falcon: prefill logits off the unfused path's by {u_err}")
+    print(f"falcon-mamba-7b unfused path: ssm_scan launches {u_launches} = "
+          f"{cfg.n_layers}*{chunks} + {cfg.n_layers}*{steps - 1}; tokens equal the fused "
+          f"path's; prefill logits off by at most {u_err} (bit-equal: "
+          f"{bool(torch.equal(lg, u_lg))}); fused / unfused prefill "
+          f"{main['prefill_s'] / unfused['prefill_s']:.3f}, decode "
+          f"{main['decode_s'] / unfused['decode_s']:.3f}", flush=True)
+
+    # the same job with the plain scan (full width, full depth)
+    t0 = time.perf_counter()
+    plain_toks, plain_lg = swapped(ref.selective_scan_fused, lambda: (
+        greedy_generate(model, params, batch, steps=steps), model.prefill(params, batch)[1]))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
     err = float((lg.float() - plain_lg.float()).abs().max())
     check(torch.equal(toks, plain_toks), "falcon: greedy tokens differ with the plain scan")
     check(err <= FALCON_TOL, f"falcon: prefill logits off the plain scan's by {err}")
@@ -1357,12 +1541,12 @@ def falcon_main_path():
     # where the time goes, and no host sync inside a decode step
     profile_run("falcon-mamba-7b prefill", lambda: (model.prefill(params, batch),
                                                     torch.cuda.synchronize()),
-                lambda: 1, "prefill", prefill_s)
+                lambda: 1, "prefill", main["prefill_s"])
     tok = toks[:, -1:].contiguous()
     pos = spec["prompt"] + steps - 1
     profile_run("falcon-mamba-7b decode step", lambda: (
         model.decode_step(params, cache, {"tokens": tok}, pos), torch.cuda.synchronize()),
-        lambda: 1, "step", decode_s)
+        lambda: 1, "step", main["decode_s"])
     model.decode_step(params, cache, {"tokens": tok}, pos)  # warm
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -1375,7 +1559,23 @@ def falcon_main_path():
           flush=True)
     del params, cache
     torch.cuda.empty_cache()
-    return {"ssm_scan": launches}
+    return {"ssm_scan_fused": expected, "ssm_scan": u_launches}
+
+
+def global_loads(name):
+    """The global-load instructions of ``csrc/<name>.cu``'s build, by SASS
+    opcode (``cuobjdump -sass``): where ``slot_scan`` reads the DRAM backing
+    through the read-only data cache, its loads show as LDG.E.CONSTANT."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import build as kbuild
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(kbuild.library_path(name))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    ops = re.findall(r"\b(LDG\.[A-Z0-9.]+)", sass)
+    return {op: ops.count(op) for op in sorted(set(ops))}
 
 
 def main():
@@ -1402,6 +1602,7 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
+    print(f"slot_scan global loads in SASS: {global_loads('slot_scan')}", flush=True)
 
     phase("1 kernels against their plain versions")
     rows = [kernel_phase(), lif_faults_phase(), xbar_phase(), xbar_faults_phase()]
@@ -1424,7 +1625,7 @@ def main():
     launches.update(faults_main_path())
     faults_checks()
     phase("8 falcon-mamba-7b serving through the ssm_scan kernel")
-    rows.append(ssm_scan_phase())
+    rows.extend(ssm_scan_phase())
     falcon_jax_phase()
     launches.update(falcon_main_path())
 

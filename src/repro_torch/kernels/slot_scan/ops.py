@@ -37,9 +37,41 @@ POINTERS = (
 INTS = (
     "quantum", "out_cap", "store_log", "n_cim", "dram_segment", "cpi",
     "scratch_cycles", "cache_hit", "dram_access", "page_switch", "write_read_switch", "imiss", "mmio_post",
-    "dram_row_bits", "line_words", "isets", "dsets", "dram_words",
+    "dram_row_bits", "line_shift", "iset_mask", "dset_mask", "dram_words",
     "scratch_words", "prog_words",
 )
+
+
+def _log2(name, x):
+    if x < 1 or x & (x - 1):
+        raise ValueError(f"slot_scan: {name} must be a power of two, got {x}")
+    return x.bit_length() - 1
+
+
+def pack_ints(cfg, quantum: int, *, out_cap: int, isets: int, dsets: int,
+              dram_words: int, scratch_words: int, prog_words: int) -> dict:
+    """The kernel's integer arguments (``INTS``) for platform ``cfg``: its
+    timing, with the cache geometry as a line shift and set masks, so that
+    no slot divides.  Raises ``ValueError`` on a line size, set count, DRAM
+    backing or program that is not a power of two, or an empty store log."""
+    t = cfg.timing
+    _log2("the DRAM backing's word count", dram_words)
+    _log2("the program's word count", prog_words)
+    if cfg.store_log < 1:
+        raise ValueError(f"slot_scan: store_log must be >= 1, got {cfg.store_log}")
+    return {
+        "quantum": quantum, "out_cap": out_cap, "store_log": cfg.store_log,
+        "n_cim": len(cfg.cim_seg), "dram_segment": cfg.dram_segment, "cpi": t.cpi,
+        "scratch_cycles": t.scratch, "cache_hit": t.cache_hit,
+        "dram_access": t.dram_access, "page_switch": t.page_switch,
+        "write_read_switch": t.write_read_switch, "imiss": t.imiss,
+        "mmio_post": t.mmio_post, "dram_row_bits": t.dram_row_bits,
+        "line_shift": _log2("line_words", t.line_words),
+        "iset_mask": (1 << _log2("the icache's set count", isets)) - 1,
+        "dset_mask": (1 << _log2("the dcache's set count", dsets)) - 1,
+        "dram_words": dram_words, "scratch_words": scratch_words,
+        "prog_words": prog_words,
+    }
 
 
 def _launcher():
@@ -61,26 +93,18 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"slot_scan: {name} must be contiguous")
 
 
-def slot_scan(cfg, quantum: int, st, outbox, t_limit, cim_seg, cim_slot):
-    """One quantum of instruction slots on every segment, then the store log.
-
-    ``st`` is the stacked segment-state tree (S, ...) after this round's
-    inbox, ``t_limit`` (S,) the decoupling bound, ``cim_seg``/``cim_slot``
-    the platform's static CIM wiring as int32 tensors on the state's
-    device.  Appends to ``outbox`` and applies the store log to
-    ``st["dram"]["data"]``, both in place.  Returns ``(st', outbox)``:
-    ``st'`` is a new dict whose CPU-side leaves (time, cpu, icache,
-    dcache, dram, scratch, stats) are the scan's.
-    """
+def _arguments(cfg, quantum, st, outbox, t_limit, cim_seg, cim_slot):
+    """The kernel's tensors (inputs checked, outputs allocated on the state's
+    device) and integers, by name."""
     dev = st["time"].device
-    if dev.type == "cpu":
-        return ref.slot_scan(cfg, quantum, st, outbox, t_limit, cim_seg, cim_slot)
-    if dev.type != "cuda":
-        raise ValueError(f"slot_scan runs on cpu or cuda, not {dev}")
     cpu, ic, dc, dram, stats = st["cpu"], st["icache"], st["dcache"], st["dram"], st["stats"]
     s = st["time"].shape[0]
+    if s > 65535:
+        raise ValueError(f"slot_scan: S must be <= 65535, got {s}")
     cap = outbox["valid"].shape[-1]
-    n_cim = len(cfg.cim_seg)
+    ints = pack_ints(cfg, quantum, out_cap=cap, isets=ic["tags"].shape[-1],
+                     dsets=dc["tags"].shape[-1], dram_words=dram["data"].shape[-1],
+                     scratch_words=st["scratch"].shape[-1], prog_words=st["prog"].shape[-1])
     ins = {
         "time": st["time"], "seg_id": st["seg_id"], "dram_present": st["dram_present"],
         "present": cpu["present"], "halted": cpu["halted"], "waiting": cpu["waiting"],
@@ -106,7 +130,7 @@ def slot_scan(cfg, quantum: int, st, outbox, t_limit, cim_seg, cim_slot):
         else:
             dtype = _I32
         if name in ("cim_seg", "cim_slot"):
-            shape = (n_cim,)
+            shape = (ints["n_cim"],)
         elif name.startswith("ob_") and name != "ob_count":
             shape = (s, cap)
         else:
@@ -116,54 +140,61 @@ def slot_scan(cfg, quantum: int, st, outbox, t_limit, cim_seg, cim_slot):
         "time", "halted", "waiting", "pc", "regs", "instret", "itags", "ihits",
         "imisses", "dtags", "dhits", "dmisses", "last_row", "last_write", "reads",
         "writes", "scratch", "instrs", "mmio_late", "store_peak")}
-    outs["log"] = torch.empty((s, 2, max(cfg.store_log, 1)), dtype=_I32, device=dev)
-    t = cfg.timing
-    ints = {
-        "quantum": quantum, "out_cap": cap, "store_log": cfg.store_log,
-        "n_cim": n_cim, "dram_segment": cfg.dram_segment, "cpi": t.cpi,
-        "scratch_cycles": t.scratch, "cache_hit": t.cache_hit,
-        "dram_access": t.dram_access, "page_switch": t.page_switch,
-        "write_read_switch": t.write_read_switch, "imiss": t.imiss,
-        "mmio_post": t.mmio_post, "dram_row_bits": t.dram_row_bits,
-        "line_words": t.line_words, "isets": ic["tags"].shape[-1],
-        "dsets": dc["tags"].shape[-1], "dram_words": dram["data"].shape[-1],
-        "scratch_words": st["scratch"].shape[-1], "prog_words": st["prog"].shape[-1],
-    }
-    dram_words = ints["dram_words"]
-    if dram_words & (dram_words - 1) or ints["prog_words"] & (ints["prog_words"] - 1):
-        raise ValueError("slot_scan: the DRAM backing and the program must hold "
-                         "a power-of-two number of words")
-    if cfg.store_log < 1 or s > 65535:
-        raise ValueError(f"slot_scan: store_log must be >= 1 and S <= 65535, got "
-                         f"{cfg.store_log} and {s}")
-    tensors = {**ins, **outs}
+    # the store log's addresses and data, then the count of skipped slots
+    outs["log"] = torch.empty((s, 2 * cfg.store_log + 1), dtype=_I32, device=dev)
+    return {**ins, **outs}, ints
+
+
+def _result(st, tensors):
+    """The scan's new state tree from the kernel's outputs."""
+    o = lambda k: tensors[f"o_{k}"]
+    st = dict(st)
+    st["time"] = o("time")
+    st["cpu"] = {**st["cpu"], **{k: o(k) for k in ("halted", "waiting", "pc", "regs",
+                                                   "instret")}}
+    st["icache"] = {"tags": o("itags"), "hits": o("ihits"), "misses": o("imisses")}
+    st["dcache"] = {"tags": o("dtags"), "hits": o("dhits"), "misses": o("dmisses")}
+    st["dram"] = {"data": st["dram"]["data"], "last_row": o("last_row"),
+                  "last_write": o("last_write"), "reads": o("reads"),
+                  "writes": o("writes")}
+    st["scratch"] = o("scratch")
+    st["stats"] = {**st["stats"], "instrs": o("instrs"), "snn_mmio_late": o("mmio_late"),
+                   "store_peak": o("store_peak")}
+    return st
+
+
+def slot_scan(cfg, quantum: int, st, outbox, t_limit, cim_seg, cim_slot):
+    """One quantum of instruction slots on every segment, then the store log.
+
+    ``st`` is the stacked segment-state tree (S, ...) after this round's
+    inbox, ``t_limit`` (S,) the decoupling bound, ``cim_seg``/``cim_slot``
+    the platform's static CIM wiring as int32 tensors on the state's
+    device.  Appends to ``outbox`` and applies the store log to
+    ``st["dram"]["data"]``, both in place.  Returns ``(st', outbox)``:
+    ``st'`` is a new dict whose CPU-side leaves (time, cpu, icache,
+    dcache, dram, scratch, stats) are the scan's.  After a launch,
+    ``slot_scan.skipped`` holds the (S,) int32 count of slots the kernel
+    fast-forwarded, on the card.
+    """
+    dev = st["time"].device
+    if dev.type == "cpu":
+        return ref.slot_scan(cfg, quantum, st, outbox, t_limit, cim_seg, cim_slot)
+    if dev.type != "cuda":
+        raise ValueError(f"slot_scan runs on cpu or cuda, not {dev}")
+    tensors, ints = _arguments(cfg, quantum, st, outbox, t_limit, cim_seg, cim_slot)
     ptrs = (ctypes.c_void_p * len(POINTERS))(*(tensors[k].data_ptr() for k in POINTERS))
     vals = (ctypes.c_int * len(INTS))(*(int(ints[k]) for k in INTS))
     fn = _launcher()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ctypes.addressof(ptrs), len(POINTERS), ctypes.addressof(vals),
-                 len(INTS), s, stream)
+                 len(INTS), st["time"].shape[0], stream)
     if err != 0:
         raise RuntimeError(f"slot_scan kernel launch failed: error {err}")
     slot_scan.launches += 1
-
-    st = dict(st)
-    st["time"] = outs["o_time"]
-    st["cpu"] = {**cpu, **{k: outs[f"o_{k}"] for k in (
-        "halted", "waiting", "pc", "regs", "instret")}}
-    st["icache"] = {"tags": outs["o_itags"], "hits": outs["o_ihits"],
-                    "misses": outs["o_imisses"]}
-    st["dcache"] = {"tags": outs["o_dtags"], "hits": outs["o_dhits"],
-                    "misses": outs["o_dmisses"]}
-    st["dram"] = {"data": dram["data"], "last_row": outs["o_last_row"],
-                  "last_write": outs["o_last_write"], "reads": outs["o_reads"],
-                  "writes": outs["o_writes"]}
-    st["scratch"] = outs["o_scratch"]
-    st["stats"] = {**stats, "instrs": outs["o_instrs"],
-                   "snn_mmio_late": outs["o_mmio_late"],
-                   "store_peak": outs["o_store_peak"]}
-    return st, outbox
+    slot_scan.skipped = tensors["log"][:, -1]
+    return _result(st, tensors), outbox
 
 
 slot_scan.launches = 0
+slot_scan.skipped = None

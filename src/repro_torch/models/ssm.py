@@ -1,14 +1,14 @@
 """State-space blocks: Mamba-1 (counterpart of ``repro/models/ssm.py``).
 
-Prefill runs the JAX package's chunked formulation: for each chunk of
-``min(cfg.ssm.chunk, seq)`` steps the decay ``da = exp(dt * A)`` and drive
-``dbx = dt * x * B`` are expanded to transient (B, chunk, d_inner, N)
-float32 tiles and scanned by ``kernels.ssm_scan.ops.selective_scan``, with
-the state carried from one chunk to the next: one launch per chunk per
-layer, and the (B, S, d_inner, N) tensors never exist at full sequence
-length.  Decode (seq = 1, state given) is the same call from the carried
-state.  On a CUDA tensor the scan is the hand-written kernel; the plain
-version runs only on the CPU.
+The JAX package expands the decay ``da = exp(dt * A)`` and drive
+``dbx = dt * x * B`` to transient (B, chunk, d_inner, N) tiles chunk by
+chunk and scans them.  Here one call of
+``kernels.ssm_scan.ops.selective_scan_fused`` takes the (B, S, d_inner)
+inputs, B, C and A and does both: on a CUDA tensor one launch of the
+hand-written kernel for the whole prompt, with the expansion in registers
+(no tile exists); on the CPU the plain version, which expands chunk by
+chunk as the JAX package does.  Decode (seq = 1, state given) is the same
+call from the carried state.
 
 Mamba-2 (SSD) is not ported yet: ROADMAP module item 13.
 """
@@ -71,30 +71,20 @@ def _causal_conv(x, w, b, state=None):
 
 
 def _mamba1_core(cfg, p, xin, h0, policy):
-    """xin (B,S,din) post-conv activations; h0 (B,din,N) float32. Chunked scan."""
+    """xin (B,S,din) post-conv activations; h0 (B,din,N) float32. One fused scan."""
     s = cfg.ssm
     n = s.d_state
     dtr = s.dt_rank or cfg.d_model // 16
     cdt = policy.compute
-    b, seq, din = xin.shape
+    seq = xin.shape[1]
     chunk = min(s.chunk, seq)
     assert seq % chunk == 0, (seq, chunk)
     xbc = xin.to(cdt) @ p["x_proj"].to(cdt)  # (B,S,dtr+2N)
     dt_in, bmat, cmat = torch.split(xbc.to(_F32), [dtr, n, n], dim=-1)
     dt = F.softplus(dt_in @ p["dt_proj"].to(_F32) + p["dt_bias"])
     a = -torch.exp(p["a_log"])  # (din, N)
-    x32 = xin.to(_F32)
-    h = h0
-    ys = []
-    for lo in range(0, seq, chunk):
-        sl = slice(lo, lo + chunk)
-        dt_c, x_c, b_c = dt[:, sl], x32[:, sl], bmat[:, sl]
-        da_c = (dt_c[..., None] * a).exp_()  # (B,c,din,N) — transient
-        dbx_c = (dt_c * x_c)[..., None] * b_c[:, :, None, :]
-        y_c, h = scan_ops.selective_scan(da_c, dbx_c, cmat[:, sl].contiguous(), h)
-        ys.append(y_c)
-    y = torch.cat(ys, dim=1) + x32 * p["d_skip"]
-    return y, h
+    return scan_ops.selective_scan_fused(dt, xin.to(_F32), bmat, cmat, a, h0,
+                                         p["d_skip"], chunk=chunk)
 
 
 def mamba1_block(cfg, p, x, policy: DTypePolicy, state=None):

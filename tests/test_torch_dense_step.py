@@ -4,7 +4,8 @@ one step from mid-run points of the offload job under both segmentations,
 of the RISC-V job, and of a spiking platform that takes the full step for
 a hand-injected DMA (CPUs halted, LIF ticks), compared leaf by leaf —
 states, outbox and pending — bit for bit.  On a card, the slot-scan kernel equals its plain
-version."""
+version, and fast-forwards slots where a manager CPU polls.  The kernel's
+integer arguments carry the cache geometry as shifts and masks."""
 import dataclasses
 
 import jax
@@ -57,12 +58,14 @@ JOBS = {
     "cim-uniform": (lambda: _dense("uniform", "cim", jwl.Layer("x", "t", 6, 6, 2), 500),
                     500, (2, 4)),
     "cim-load_oriented": (lambda: _dense("load_oriented", "cim",
-                                         jwl.Layer("x", "t", 8, 8, 2), 1000), 1000, (5,)),
+                                         jwl.Layer("x", "t", 8, 8, 2), 1000), 1000, (2, 5)),
     "riscv-uniform": (lambda: _dense("uniform", "riscv", jwl.Layer("x", "t", 4, 4, 2), 500),
                       500, (1,)),
     "snn-fallback": (_fallback, 32, (0, 3)),
 }
 CASES = [(name, r) for name, (_, _, rounds) in JOBS.items() for r in rounds]
+# snapshots where a manager CPU spins on a scratch flag for the whole quantum
+POLLING = {("cim-uniform", 2), ("cim-load_oriented", 2)}
 
 
 def _snapshots(name):
@@ -139,8 +142,54 @@ def test_cuda_kernel_matches_plain(snapshots, name, k):
     for fn in (ops.slot_scan, ref.slot_scan):
         tst, box, tlim, wiring = _scan_inputs(cfg, st, lim, "cuda")
         outs.append(tree.to_numpy(fn(cfg, quantum, tst, box, tlim, *wiring)))
+        if fn is ops.slot_scan:
+            skipped = int(ops.slot_scan.skipped.sum())
     assert ops.slot_scan.launches == before + 1
+    if (name, JOBS[name][2][k]) in POLLING:
+        assert skipped > 0, "the fast-forward skipped no slot of a polling quantum"
     for (path, g), (_, w) in zip(tree.leaves(outs[0][0]), tree.leaves(outs[1][0])):
         np.testing.assert_array_equal(g, w, err_msg=path)
     for (path, g), (_, w) in zip(tree.leaves(outs[0][1]), tree.leaves(outs[1][1])):
         np.testing.assert_array_equal(g, w, err_msg=path)
+
+
+def _platform_cfg():
+    from repro_torch.core import segmentation as sg
+
+    cfg, _, _ = sg.build(sg.uniform(2, 2), programs={0: "halt"},
+                         dram_words=np.zeros(64, np.int32), device="cpu")
+    return cfg
+
+
+SIZES = dict(out_cap=8, isets=512, dsets=1024, dram_words=1 << 20, scratch_words=4096,
+             prog_words=512)
+
+
+def test_pack_ints_gives_shifts_and_masks():
+    """The cache geometry reaches the kernel as a line shift and set masks."""
+    cfg = _platform_cfg()
+    ints = ops.pack_ints(cfg, 10_000, **SIZES)
+    assert tuple(ints) == ops.INTS
+    assert (ints["line_shift"], ints["iset_mask"], ints["dset_mask"]) == (3, 511, 1023)
+    assert 1 << ints["line_shift"] == cfg.timing.line_words
+    assert ints["quantum"] == 10_000 and ints["store_log"] == cfg.store_log
+    t = dataclasses.replace(cfg.timing, line_words=1)
+    ints = ops.pack_ints(dataclasses.replace(cfg, timing=t), 1, **dict(SIZES, isets=1))
+    assert (ints["line_shift"], ints["iset_mask"]) == (0, 0)
+
+
+@pytest.mark.parametrize("field,value", [("line_words", 6), ("line_words", 0),
+                                         ("isets", 384), ("dsets", 1000), ("dsets", 0),
+                                         ("dram_words", 3 << 18), ("prog_words", 500),
+                                         ("store_log", 0)])
+def test_pack_ints_refuses_what_is_not_a_power_of_two(field, value):
+    cfg = _platform_cfg()
+    sizes = dict(SIZES)
+    if field == "line_words":
+        cfg = dataclasses.replace(cfg, timing=dataclasses.replace(cfg.timing, line_words=value))
+    elif field == "store_log":
+        cfg = dataclasses.replace(cfg, store_log=value)
+    else:
+        sizes[field] = value
+    with pytest.raises(ValueError, match="slot_scan"):
+        ops.pack_ints(cfg, 100, **sizes)

@@ -2,7 +2,11 @@
 (run on the CPU here) against the Pallas ``ssm_scan`` in interpret mode and
 against ``repro.kernels.ssm_scan.ref.selective_scan`` with a carried state,
 the wrapper's dispatch and refusals, and on a card the CUDA kernel against
-the plain version.
+the plain version.  The fused scan of a Mamba-1 block (``selective_scan_fused``:
+the ``da``/``dbx`` expansion inside the scan) is held against the JAX
+package's expansion (``chunk_step`` of ``repro/models/ssm.py``) feeding its
+reference scan and the Pallas kernel, and bit for bit against the port's
+unfused plain path.
 
 Tolerance against JAX: rtol = atol = 1e-5, as tests/test_kernels.py holds
 the Pallas kernel to its ref (the plain version sums over N in a fixed
@@ -133,4 +137,121 @@ def test_cuda_kernel_matches_plain(b, s, d, n, with_h0):
     y_want, h_want = ref.selective_scan(da, dbx, c, h0)
     torch.cuda.synchronize()
     assert ops.selective_scan.launches == before + 1
+    assert torch.equal(y, y_want) and torch.equal(h, h_want)
+
+
+def _fused_inputs(b, s, d, n, seed, h0=True, d_skip=True):
+    """dt (positive, as after softplus), x, b and c (slices of one
+    projection, as in the model), a = -exp(a_log), h0 and d_skip."""
+    rng = np.random.default_rng(seed)
+    dt = rng.uniform(0.001, 0.3, (b, s, d)).astype(np.float32)
+    x = rng.normal(0, 1, (b, s, d)).astype(np.float32)
+    proj = rng.normal(0, 1, (b, s, 3 + 2 * n)).astype(np.float32)
+    a = -np.exp(rng.uniform(0, 2, (d, n))).astype(np.float32)
+    return (dt, x, proj[..., 3:3 + n], proj[..., 3 + n:], a,
+            rng.normal(0, 1, (b, d, n)).astype(np.float32) if h0 else None,
+            rng.normal(0, 1, (d,)).astype(np.float32) if d_skip else None)
+
+
+def _jax_fused(dt, x, b, c, a, h0, d_skip):
+    """The JAX package's Mamba-1 expansion (``chunk_step``,
+    repro/models/ssm.py) feeding the Pallas kernel (h0 = 0) or its
+    reference scan, then ``y + x * d_skip``."""
+    dt, x, b, c, a = (jnp.asarray(v) for v in (dt, x, b, c, a))
+    da = jnp.exp(dt[..., None] * a)
+    dbx = (dt * x)[..., None] * b[:, :, None, :]
+    if h0 is None:
+        y, h = jax_ops.ssm_scan(da, dbx, c), None
+    else:
+        y, h = jax_ref.selective_scan(da, dbx, c, jnp.asarray(h0))
+    if d_skip is not None:
+        y = y + x * jnp.asarray(d_skip)
+    return np.asarray(y), None if h is None else np.asarray(h)
+
+
+def _fused_torch(xs):
+    return [None if v is None else torch.from_numpy(np.ascontiguousarray(v)) for v in xs]
+
+
+@pytest.mark.parametrize("b,s,d,n,h0", [(1, 64, 128, 8, False), (2, 64, 128, 16, False),
+                                        (2, 17, 40, 8, True), (2, 1, 40, 16, True),
+                                        (1, 33, 24, 5, True), (3, 1, 8, 8, True)])
+def test_fused_plain_matches_jax_expansion(b, s, d, n, h0):
+    """h0 = 0 against the Pallas kernel in interpret mode, a given h0 (and
+    S = 1, a decode step) against the JAX reference scan."""
+    xs = _fused_inputs(b, s, d, n, seed=b * s + d + n, h0=h0, d_skip=n != 5)
+    y_want, h_want = _jax_fused(*xs)
+    tx = _fused_torch(xs)
+    proj = torch.from_numpy(np.concatenate([xs[2], xs[3]], -1))
+    bm, cm = torch.split(proj, [n, n], dim=-1)  # strided views, as the model passes them
+    y, h = ops.selective_scan_fused(tx[0], tx[1], bm, cm, *tx[4:])
+    assert y.dtype == torch.float32 and tuple(y.shape) == (b, s, d)
+    assert tuple(h.shape) == (b, d, n)
+    np.testing.assert_allclose(y.numpy(), y_want, **TOL)
+    if h_want is not None:
+        np.testing.assert_allclose(h.numpy(), h_want, **TOL)
+
+
+@pytest.mark.parametrize("chunk", [None, 16, 48])
+def test_fused_plain_is_the_unfused_plain_path(chunk):
+    """The plain fused scan is the port's expansion, chunk by chunk, fed to
+    the unfused scan, plus x * d_skip, bit for bit."""
+    dt, x, b, c, a, h0, d_skip = _fused_torch(_fused_inputs(2, 48, 24, 16, seed=11))
+    y, h = ops.selective_scan_fused(dt, x, b, c, a, h0, d_skip, chunk=chunk)
+    step = chunk or 48
+    ys, hh = [], h0
+    for lo in range(0, 48, step):
+        sl = slice(lo, lo + step)
+        da = (dt[:, sl][..., None] * a).exp()
+        dbx = (dt[:, sl] * x[:, sl])[..., None] * b[:, sl, None, :]
+        y_c, hh = ops.selective_scan(da, dbx, c[:, sl].contiguous(), hh)
+        ys.append(y_c)
+    assert torch.equal(y, torch.cat(ys, 1) + x * d_skip) and torch.equal(h, hh)
+
+
+def test_fused_cpu_wrapper_never_launches():
+    before = (ops.selective_scan.launches, ops.selective_scan_fused.launches)
+    ops.selective_scan_fused(*_fused_torch(_fused_inputs(1, 4, 8, 8, seed=12)))
+    assert (ops.selective_scan.launches, ops.selective_scan_fused.launches) == before
+
+
+def _bad_fused():
+    dt, x, b, c, a, h0, d_skip = _fused_torch(_fused_inputs(2, 4, 8, 8, seed=13))
+    ok = dict(dt=dt, x=x, b=b, c=c, a=a, h0=h0, d_skip=d_skip)
+    big = _fused_torch(_fused_inputs(1, 2, 3, 65, seed=14))
+    return {
+        "dt-float64": dict(ok, dt=dt.double()),
+        "dt-two-dims": dict(ok, dt=dt[0]),
+        "x-shape": dict(ok, x=x[:, :3]),
+        "x-not-contiguous": dict(ok, x=x.transpose(0, 1).contiguous().transpose(0, 1)),
+        "b-shape": dict(ok, b=b[..., :4]),
+        "c-dtype": dict(ok, c=c.half()),
+        "a-shape": dict(ok, a=a[:4]),
+        "h0-shape": dict(ok, h0=h0[:1]),
+        "d_skip-shape": dict(ok, d_skip=d_skip[:3]),
+        "empty-seq": dict(ok, dt=dt[:, :0], x=x[:, :0], b=b[:, :0], c=c[:, :0]),
+        "n-over-64": dict(zip(ok, big)),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_bad_fused()))
+def test_fused_bad_inputs_raise(case):
+    with pytest.raises(ValueError, match="selective_scan_fused"):
+        ops.selective_scan_fused(**_bad_fused()[case])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,d,n,h0", [(4, 512, 8192, 16, True), (4, 1, 8192, 16, True),
+                                        (2, 64, 256, 16, False), (1, 17, 136, 8, True),
+                                        (1, 5, 33, 5, True), (2, 9, 130, 64, True)])
+def test_cuda_fused_kernel_matches_plain(b, s, d, n, h0):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    xs = [None if v is None else v.cuda()
+          for v in _fused_torch(_fused_inputs(b, s, d, n, seed=b + s + d + n, h0=h0))]
+    before = ops.selective_scan_fused.launches
+    y, h = ops.selective_scan_fused(*xs)
+    y_want, h_want = ref.selective_scan_fused(*xs, chunk=256)
+    torch.cuda.synchronize()
+    assert ops.selective_scan_fused.launches == before + 1
     assert torch.equal(y, y_want) and torch.equal(h, h_want)
