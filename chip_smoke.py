@@ -18,14 +18,22 @@ and fails (non-zero exit, no result line) unless every phase holds:
      variants with masks drawn by ``faults.unit_masks`` at high rates, each
      fault input alone, and neutral masks against the clean kernel), with
      their times, the plain versions' times, their bounds and a library
-     yardstick at the main paths' shapes;
+     yardstick at the main paths' shapes; then the fused quantum-boundary
+     kernels ``snn_tick`` (the LIF tick with its fire gate and counters) and
+     ``finish_ops`` (the dense completion with its done gate), clean and
+     faulted, bit-equal to their plain versions at the tests' mixed states
+     (every gate branch, 1, 2 and 4 segments), at fullxbar's shape with all,
+     some and no units firing and at Googlenet-conv1's with 0, 1 and 4 units
+     done, with their times there, and the launch floor (one elementwise op
+     in the same harness);
   2. ``fig5snn`` (128x96x64x10, T=24): 2045 spikes in 28 rounds under three
-     placements and both backends, the oracle's output counts, one kernel
-     launch per round (per segment on ``sequential``), and a CPU rerun
+     placements and both backends, the oracle's output counts, one fused
+     tick launch per round (per segment on ``sequential``), and a CPU rerun
      whose final state trees equal the card's leaf for leaf;
   3. ``fullxbar`` (eight full 256x256 crossbars, T=24): 24502 spikes in 34
      rounds under three placements — the spiking path at full width, with
-     the ``lif_step`` launch counts read from this run — then its profile;
+     the ``snn_tick`` launch counts read from this run and none of the
+     unfused ``lif_step`` — then its profile;
   4. one round of ``fullxbar`` under ``torch.cuda.set_sync_debug_mode("error")``;
   5. dense: two small jobs (an offload, remote DRAM reads and writes)
      whose card and CPU final trees are equal, and the store-log and
@@ -40,9 +48,9 @@ and fails (non-zero exit, no result line) unless every phase holds:
      offload, plus load-oriented, RISC-V and mixed runs of Googlenet-conv1,
      and Googlenet-conv1 on ``sequential``) reproduces the reference's
      rounds, simulated cycles, instructions per segment, CIM OPs and
-     ``O == A @ B``, with the ``crossbar_vmm`` and ``slot_scan`` launch
-     counts read from this run; then its profile and one round under
-     sync-debug "error";
+     ``O == A @ B``, with the ``finish_ops`` and ``slot_scan`` launch
+     counts read from this run and none of the unfused ``crossbar_vmm``;
+     then its profile and one round under sync-debug "error";
   7. faults: fullxbar under crossbar, neuron, transport, mild and combined
      faults (the combined one under two placements) and under the drop
      policy, the small megaloop job under transport faults and its
@@ -50,9 +58,9 @@ and fails (non-zero exit, no result line) unless every phase holds:
      faults, each reproducing the reference's rounds, spikes, dropped /
      duped / lost counts and fidelities (dense: rounds, cycles,
      instructions, OPs and the faulted ``O``'s sums and hash), with every
-     faulted tick and dense completion launched through the fault kernels;
-     then card against CPU trees for one small job per family and a small
-     faulted offload, the wall per round with and without transport
+     faulted tick and dense completion launched through the fused fault
+     kernels; then card against CPU trees for one small job per family and
+     a small faulted offload, the wall per round with and without transport
      faults, and one faulted round under sync-debug "error";
   8. falcon-mamba-7b serving: ``ssm_scan`` (unfused) and
      ``ssm_scan_fused`` (the Mamba-1 expansion inside the scan) against
@@ -69,7 +77,9 @@ and fails (non-zero exit, no result line) unless every phase holds:
      and a decode step, and one decode step under sync-debug "error".
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-holds the kernels' numbers as JSON.  Imports nothing of JAX.
+holds the kernels' numbers as JSON, each kernel's launches those of the
+main path's runs (0 for the unfused ``lif_step``, ``crossbar_vmm`` and
+``ssm_scan``, which no main path runs).  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -100,6 +110,7 @@ STRATEGIES = ("uniform", "load_oriented", "auto")
 FIG5SNN = dict(sizes=(128, 96, 64, 10), spikes=2045, rounds=28, in_cap=None)
 FULLXBAR = dict(sizes=(256,) * 9, spikes=24502, rounds=34, in_cap=8192)
 KERNELS = ["lif_step", "lif_step_faults", "crossbar_vmm", "crossbar_vmm_faults",
+           "snn_tick", "snn_tick_faults", "finish_ops", "finish_ops_faults",
            "slot_scan", "ssm_scan", "ssm_scan_fused"]
 SOURCES = ["lif_step", "crossbar_vmm", "slot_scan", "ssm_scan"]  # kernels/csrc/<name>.cu
 
@@ -557,6 +568,298 @@ def xbar_faults_phase():
 
 
 # ---------------------------------------------------------------------------
+# phase 1b: the fused quantum-boundary kernels (snn_tick, finish_ops)
+
+# (segments, slots): fullxbar's uniform placement and Googlenet-conv1's
+# uniform offload; the states name how many units fire or are done
+TICK_SHAPE, FINISH_SHAPE = (4, 2), (2, 2)
+TICK_STATES = {"all": 8, "some": 3, "none": 0}
+FINISH_STATES = {"0": 0, "1": 1, "4": 4}
+TICK_FAULTS = ("f_and", "f_xor", "f_dead", "f_dth")
+
+
+def cims_state(shape):
+    """A zero cims state of ``vp/cim.cim_state``'s layout, (S, n, ...), on the card."""
+    from repro_torch.vp import cim
+
+    s, n = shape
+    return {k: v.unsqueeze(0).repeat(s, *(1,) * v.dim()).cuda()
+            for k, v in cim.cim_state(n).items()}
+
+
+def tick_state(n_fire, seed):
+    """fullxbar's units mid-run: full 256x256 crossbars, the first ``n_fire``
+    units due to tick, the others one period early; spike counts, membranes
+    and refractory counters drawn from a seed."""
+    from repro_torch.vp import isa
+
+    s, n = TICK_SHAPE
+    g = np.random.default_rng(seed)
+    c = cims_state(TICK_SHAPE)
+    draw = lambda lo, hi, shape, dt=np.int32: torch.from_numpy(
+        g.integers(lo, hi, shape).astype(dt)).cuda()
+    c["present"][:] = True
+    c["mode"][:] = isa.CIM_MODE_SPIKE
+    c["tick_period"][:] = 32
+    c["rows"][:] = 256
+    c["thresh"][:] = draw(20, 80, (s, n))
+    c["leak"][:] = draw(0, 4, (s, n))
+    c["refrac_period"][:] = 2
+    c["weights"] = draw(-8, 8, (s, n, 256, 256), np.int8)
+    c["in_buf"] = draw(0, 4, (s, n, 256))
+    c["v"] = draw(0, 60, (s, n, 256))
+    c["refrac"] = draw(0, 3, (s, n, 256))
+    c["spike_counts"] = draw(0, 20, (s, n, 256))
+    c["spikes_total"] = c["spike_counts"].sum(-1, dtype=torch.int32)
+    c["ticks"][:] = 5
+    due = torch.arange(s * n, device="cuda").reshape(s, n) < n_fire
+    c["next_tick"] = torch.where(due, 160, 192).to(torch.int32)
+    t_gate = torch.full((s,), 192, dtype=torch.int32, device="cuda")
+    return c, t_gate
+
+
+def finish_state(n_done, seed):
+    """Googlenet-conv1's units at a quantum boundary: the first ``n_done``
+    units' OPs end by ``t_end``, the others later; weights and inputs drawn
+    from a seed at the offload's ranges."""
+    from repro_torch.vp import isa
+
+    s, n = FINISH_SHAPE
+    g = np.random.default_rng(seed)
+    c = cims_state(FINISH_SHAPE)
+    draw = lambda lo, hi, shape, dt=np.int32: torch.from_numpy(
+        g.integers(lo, hi, shape).astype(dt)).cuda()
+    c["present"][:] = True
+    c["state"][:] = isa.CIM_ST_OP
+    c["weights"] = draw(-128, 128, (s, n, 256, 256), np.int8)
+    c["in_buf"] = draw(-128, 128, (s, n, 256))
+    c["out_buf"] = draw(-30000, 30000, (s, n, 256))
+    c["in_count"][:] = 256
+    c["ops"][:] = 3
+    due = torch.arange(s * n, device="cuda").reshape(s, n) < n_done
+    c["busy_until"] = torch.where(due, 9990, 10010).to(torch.int32)
+    t_end = torch.full((s,), 10000, dtype=torch.int32, device="cuda")
+    return c, t_end
+
+
+def with_faults(cims, seed, given=None):
+    """``cims`` with the fault inputs of ``fault_inputs`` (HIGH_FAULTS),
+    reshaped to (S, n, ...); ``given`` names one input, None all four."""
+    s, n = cims["present"].shape
+    m = fault_inputs((s * n, 256, 256), seed)
+    m = {"f_and": m["f_and"], "f_xor": m["f_xor"], "f_dead": m["dead"], "f_dth": m["dth"]}
+    return {**cims, **{k: v.reshape(s, n, *v.shape[1:]) for k, v in m.items()
+                       if given in (None, k)}}
+
+
+def tree_err(got, want):
+    """Largest difference over a step's returned tensors (cims' fields and
+    the rest), after checking them equal."""
+    err = 0
+    for g, w in zip(got, want):
+        for a, b in (zip(g.values(), w.values()) if isinstance(g, dict) else [(g, w)]):
+            err = max(err, int((a.long() - b.long()).abs().max()) if a.numel() else 0)
+    return err
+
+
+def tick_bound_ms(cims, fire):
+    """Least time for one fused tick: every unit's scalars (41 bytes), its
+    spikes, membranes, refractory counters and spike counts read once; the
+    weights (and fault inputs) of the units that fire only; the seven fields,
+    fired_rows and fire written once; 2*R*C int ops per firing unit."""
+    u = fire.numel()
+    n_fire = int(fire.sum())
+    per_fire = 256 * 256 + sum(cims[f][0, 0].numel() * cims[f].element_size()
+                               for f in TICK_FAULTS if f in cims)
+    nbytes = (u * (41 + 4 * 256 * 4) + 4 * cims["present"].shape[0] + n_fire * per_fire
+              + u * (4 * 256 * 4 + 12 + 256 + 1))
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = 2 * n_fire * 256 * 256 / PEAK_INT8_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def finish_bound_ms(cims, done):
+    """Least time for one fused completion: every unit's FSM scalars (21
+    bytes); the weights (and masks) and inputs of the done units, the old
+    outputs of the others; every unit's outputs, FSM fields and ``done``
+    written once; 2*R*C int ops per done unit."""
+    u = done.numel()
+    n_done = int(done.sum())
+    masks = sum(1 for f in ("f_and", "f_xor") if f in cims)
+    nbytes = (u * 21 + 4 * cims["present"].shape[0] + n_done * ((1 + masks) * 256 * 256 + 4 * 256)
+              + (u - n_done) * 4 * 256 + u * (4 * 256 + 16 + 1))
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = 2 * n_done * 256 * 256 / PEAK_INT8_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def launch_floor_ms():
+    """Device time of one elementwise torch op on an (8,) int32 tensor in
+    the same CUDA-graph harness: how far a launch-bound kernel can fall."""
+    x = torch.arange(8, dtype=torch.int32, device="cuda")
+    return device_ms(lambda: torch.add(x, 1))
+
+
+def mixed_state(kind, s, seed):
+    """A state of ``tests/test_torch_cim_fused.py`` (same draws), on the card,
+    with every gate branch: for the tick (``kind`` "tick") units that fire,
+    are absent, in dense mode, without a period, not due or at their tick
+    limit, rows in {1, 17, 200, 256} and spike counts past the fan-in clip;
+    for the completion units done, not yet due, absent or in another FSM
+    state.  Two slots per segment, ``s`` segments.  Returns (cims, t)."""
+    from repro_torch.vp import cim, isa
+
+    rng = np.random.default_rng(seed)
+    c = {k: np.repeat(v.numpy()[None], s, 0) for k, v in cim.cim_state(2).items()}
+    sh = (s, 2)
+    if kind == "tick":
+        c["present"][:] = rng.random(sh) < 0.85
+        c["mode"][:] = np.where(rng.random(sh) < 0.85, isa.CIM_MODE_SPIKE, isa.CIM_MODE_DENSE)
+        c["tick_period"][:] = rng.choice([0, 8, 16], sh, p=[0.1, 0.45, 0.45])
+        c["next_tick"][:] = rng.integers(0, 64, sh)
+        c["tick_limit"][:] = rng.choice([0, 3, 5], sh)
+        c["ticks"][:] = rng.integers(0, 6, sh)
+        c["rows"][:] = rng.choice([256, 200, 17, 1], sh)
+        c["thresh"][:] = rng.integers(1, 80, sh)
+        c["leak"][:] = rng.integers(0, 6, sh)
+        c["refrac_period"][:] = rng.integers(0, 4, sh)
+        c["weights"][:] = rng.integers(-8, 8, c["weights"].shape)
+        c["in_buf"][:] = rng.integers(0, 5, c["in_buf"].shape)
+        c["in_buf"][..., :4] = rng.integers(-2000, 2000, (s, 2, 4))
+        c["v"][:] = rng.integers(0, 60, c["v"].shape)
+        c["refrac"][:] = rng.integers(0, 3, c["refrac"].shape)
+        c["spike_counts"][:] = rng.integers(0, 100, c["spike_counts"].shape)
+        c["spikes_total"][:] = rng.integers(0, 1000, sh)
+        t = rng.integers(0, 96, s).astype(np.int32)
+        # unit (0, 0) fires; unit (0, 1) would, but has reached its tick limit
+        for slot, (ticks, limit) in enumerate(((0, 0), (3, 3))):
+            for f, x in (("present", True), ("mode", isa.CIM_MODE_SPIKE), ("tick_period", 8),
+                         ("next_tick", 0), ("ticks", ticks), ("tick_limit", limit)):
+                c[f][0, slot] = x
+        c["rows"][0, 0] = 200
+        t[0] = max(t[0], 8)
+    else:
+        c["present"][:] = rng.random(sh) < 0.8
+        c["state"][:] = rng.integers(0, 4, sh)
+        c["busy_until"][:] = rng.integers(0, 200, sh)
+        c["op_done_at"][:] = rng.integers(-1, 200, sh)
+        c["ops"][:] = rng.integers(0, 10, sh)
+        c["in_count"][:] = rng.integers(0, 256, sh)
+        c["weights"][:] = rng.integers(-128, 128, c["weights"].shape)
+        c["in_buf"][:] = rng.integers(-300, 300, c["in_buf"].shape)
+        c["out_buf"][:] = rng.integers(-1000, 1000, c["out_buf"].shape)
+        t = rng.integers(0, 200, s).astype(np.int32)
+        # unit (0, 0) is done; unit (0, 1) runs its OP past the quantum's end
+        for slot, busy in enumerate((0, int(t[0]) + 1)):
+            c["present"][0, slot], c["state"][0, slot] = True, isa.CIM_ST_OP
+            c["busy_until"][0, slot] = busy
+    return ({k: torch.from_numpy(v).cuda() for k, v in c.items()},
+            torch.from_numpy(t).cuda())
+
+
+def fused_check(label, wrap, plain, c, t):
+    """The fused kernel against its plain version on one state: every
+    returned tensor equal, the input state unchanged.  Returns the
+    kernel's output and the largest difference (0)."""
+    kept = {f: x.clone() for f, x in c.items()}
+    got, want = wrap(c, t), plain(c, t)
+    torch.cuda.synchronize()
+    err = tree_err(got, want)
+    check(all(torch.equal(a, b) for a, b in zip(got[1:], want[1:]))
+          and all(torch.equal(got[0][f], want[0][f]) for f in want[0]),
+          f"{label}: differs from its plain version")
+    check(all(torch.equal(c[f], x) for f, x in kept.items()),
+          f"{label}: the input state changed")
+    return got, err
+
+
+def fused_phase(kind):
+    """The fused tick (``kind`` "tick") or completion ("finish") against its
+    plain version: at the tests' mixed states (every gate branch, S in {1,
+    2, 4}) and at the main path's shapes and states, clean and under every
+    fault input alone and all together; neutral fault inputs against the
+    clean kernel; then each main-path state's device time, the plain
+    version's and the bound.  Returns the clean and faulted rows."""
+    from repro_torch.kernels.crossbar_vmm import ops as xops, ref as xref
+    from repro_torch.kernels.lif_step import ops as lops, ref as lref
+
+    if kind == "tick":  # the returned tuple's gate: fire (tick) or done (finish)
+        gate_at, make, states, wrap, plain = 2, tick_state, TICK_STATES, lops.snn_tick, lref.snn_tick
+        alone, bound, name, shape = TICK_FAULTS, tick_bound_ms, "snn_tick", (8, 256, 256)
+    else:
+        gate_at, make, states = 1, finish_state, FINISH_STATES
+        wrap, plain = xops.finish_ops, xref.finish_ops
+        alone, bound, name, shape = ("f_and", "f_xor"), finish_bound_ms, "finish_ops", (4, 256, 256)
+    rows = {}
+    for faulted in (False, True):
+        label = f"{name}_faults" if faulted else name
+        max_err, times = 0, {}
+        for s in (1, 2, 4):  # the tests' states: every gate branch
+            cims, t = mixed_state(kind, s, (10 if kind == "tick" else 20) + s)
+            variants = ({f: with_faults(cims, s, f) for f in (None, *alone)} if faulted
+                        else {"clean": cims})
+            for given, c in variants.items():
+                got, err = fused_check(f"{label} mixed S={s} {given or 'all'}", wrap, plain, c, t)
+                max_err = max(max_err, err)
+                gate = got[gate_at]
+                check(bool(gate.any()) and not bool(gate.all()),
+                      f"{label} mixed S={s}: the gate should take both branches")
+        print(f"{label}: bit-equal to its plain version at the tests' mixed states, S in "
+              f"(1, 2, 4)" + (", under every fault input alone and all together"
+                              if faulted else ""), flush=True)
+        for k, (state, count) in enumerate(states.items()):
+            cims, t = make(count, 40 + k)
+            variants = {"clean": cims}
+            if faulted:
+                variants = {"all": with_faults(cims, 50 + k)}
+                variants.update({f: with_faults(cims, 50 + k, f) for f in alone})
+            for given, c in variants.items():
+                got, err = fused_check(f"{label} {state} {given}", wrap, plain, c, t)
+                max_err = max(max_err, err)
+                check(int(got[gate_at].sum()) == count,
+                      f"{label} {state}: {count} units should fire / be done")
+            if faulted:
+                neutral = dict(cims, f_and=torch.full_like(cims["weights"], -1),
+                               f_xor=torch.zeros_like(cims["weights"]))
+                if kind == "tick":
+                    neutral.update(f_dead=torch.zeros_like(cims["v"], dtype=torch.bool),
+                                   f_dth=torch.zeros_like(cims["v"]))
+                a, b = wrap(neutral, t), wrap(cims, t)
+                check(tree_err(a[1:], b[1:]) == 0 and all(
+                    torch.equal(a[0][f], b[0][f]) for f in b[0]),
+                    f"{label} {state}: neutral inputs differ from the clean kernel")
+                c = variants["all"]
+            else:
+                c = cims
+            fused_fn = lambda: wrap(c, t)
+            ms = device_ms(fused_fn)
+            plain_ms = device_ms(lambda: plain(c, t), reps=5, inner=4)
+            bound_ms, bound_by = bound(c, wrap(c, t)[gate_at])
+            times[state] = (ms, plain_ms, bound_ms, bound_by)
+            print(f"{label} {shape} {state} units {'firing' if kind == 'tick' else 'done'}: "
+                  f"device time kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
+                  f"{bound_ms:.6f} ms ({bound_by}); eager call through the wrapper "
+                  f"{stream_ms(fused_fn):.6f} ms", flush=True)
+        print(f"{label}: bit-equal to its plain version at every main-path state"
+              + (", under every fault input alone and all together; neutral inputs = "
+                 "the clean kernel" if faulted else ""), flush=True)
+        ms, plain_ms, bound_ms, bound_by = times["all" if kind == "tick" else "4"]
+        rows[label] = {"name": label, "route": "cuda",
+                       "source": "src/repro_torch/kernels/csrc/" + (
+                           "lif_step.cu" if kind == "tick" else "crossbar_vmm.cu"),
+                       "replaces": (("src/repro/kernels/lif_step/kernel.py:55" if faulted
+                                     else "src/repro/kernels/lif_step/kernel.py:85")
+                                    if kind == "tick" else
+                                    ("src/repro/kernels/crossbar_vmm/kernel.py:35" if faulted
+                                     else "src/repro/kernels/crossbar_vmm/kernel.py:64")),
+                       "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       # no single PyTorch call computes a gated quantum-boundary step
+                       "library_ms": None}
+    return [rows[name], rows[f"{name}_faults"]]
+
+
+# ---------------------------------------------------------------------------
 # phases 2-4: the spiking path
 
 
@@ -577,18 +880,18 @@ def run_job(name, spec, job, strategy, backend="vmap", device=None):
     """Build, run and check one job; returns (controller, meta, seconds)."""
     from repro_torch import snn
     from repro_torch.core.controller import Controller
-    from repro_torch.kernels.lif_step.ops import lif_step_units
+    from repro_torch.kernels.lif_step.ops import snn_tick
 
     cfg, states, pending, meta = build(job, strategy, spec["in_cap"], device)
     ctl = Controller(cfg, states, pending, backend=backend, quantum=QUANTUM,
                      device=device)
-    before = lif_step_units.launches
+    before = snn_tick.launches
     t0 = time.perf_counter()
     ctl.run(max_rounds=MAX_ROUNDS, check_every=CHECK_EVERY)
     secs = time.perf_counter() - t0
     st = ctl.result_states()
     spikes = snn.total_spikes(st)
-    launches = lif_step_units.launches - before
+    launches = snn_tick.launches - before
     per_round = 0 if ctl.device.type == "cpu" else (
         cfg.n_segments if backend == "sequential" else 1)
     print(f"{name} {strategy}/{backend} on {ctl.device.type}: segments "
@@ -644,19 +947,23 @@ def fig5snn_phase():
 
 def fullxbar_phase():
     from repro_torch import snn
-    from repro_torch.kernels.lif_step.ops import lif_step_units
+    from repro_torch.kernels.lif_step.ops import lif_step_units, snn_tick
 
     spec = FULLXBAR
     job = snn.snn_inference_job(spec["sizes"], t_steps=24, rate=0.5, seed=2)
     check(job.expected_total == spec["spikes"], "fullxbar oracle total")
-    lif_step_units.launches = 0  # the main path's run starts here
+    snn_tick.launches = lif_step_units.launches = 0  # the main path's run starts here
     rounds, secs = 0, {}
     for strategy in STRATEGIES:
         ctl, _, secs[strategy] = run_job("fullxbar", spec, job, strategy)
         rounds += ctl.rounds_run
-    launches = lif_step_units.launches
+    launches = snn_tick.launches
     check(launches > 0 and launches == rounds, f"fullxbar: {launches} launches, {rounds} rounds")
-    return {"lif_step": launches}, job, secs["uniform"]
+    check(lif_step_units.launches == 0,
+          f"fullxbar: {lif_step_units.launches} launches of the unfused lif_step")
+    print(f"fullxbar main path: snn_tick launches {launches} for {rounds} rounds, unfused "
+          "lif_step launches 0", flush=True)
+    return {"snn_tick": launches, "lif_step": lif_step_units.launches}, job, secs["uniform"]
 
 
 def profile_run(name, run, units, unit, unprofiled_s):
@@ -996,24 +1303,24 @@ def scan_phase():
 def run_dense(target):
     """Build, run and check one Table III target; returns (controller, seconds)."""
     from repro_torch.core.controller import Controller
-    from repro_torch.kernels.crossbar_vmm.ops import crossbar_vmm_batch
+    from repro_torch.kernels.crossbar_vmm.ops import finish_ops
     from repro_torch.kernels.slot_scan.ops import slot_scan
 
     name, strategy, mode, backend, rounds, sim_time, instrs, n_ops = target
     layer = dense_layer(name)
     cfg, states, pending, job = build_dense(layer, strategy, mode, DENSE_QUANTUM)
     ctl = Controller(cfg, states, pending, backend=backend, quantum=DENSE_QUANTUM)
-    before = crossbar_vmm_batch.launches, slot_scan.launches
+    before = finish_ops.launches, slot_scan.launches
     t0 = time.perf_counter()
     ctl.run(max_rounds=2000, check_every=CHECK_EVERY)
     secs = time.perf_counter() - t0
-    launches = (crossbar_vmm_batch.launches - before[0], slot_scan.launches - before[1])
+    launches = (finish_ops.launches - before[0], slot_scan.launches - before[1])
     st = ctl.result_states()
     got = (ctl.rounds_run, int(st["time"].max()), st["stats"]["instrs"].tolist(),
            int(st["cims"]["ops"].sum()))
     label = f"{name} {strategy}/{mode}/{backend}"
     print(f"{label}: rounds {got[0]}, sim cycles {got[1]}, instrs {got[2]}, CIM ops "
-          f"{got[3]}, launches crossbar_vmm {launches[0]} slot_scan {launches[1]}, "
+          f"{got[3]}, launches finish_ops {launches[0]} slot_scan {launches[1]}, "
           f"{secs:.6f} s, {secs / got[0] * 1e6:.1f} us/round, "
           f"{sum(got[2]) / secs:.1f} simulated instructions/s", flush=True)
     check(got == (rounds, sim_time, instrs, n_ops), f"{label}: {got}, want "
@@ -1026,17 +1333,23 @@ def run_dense(target):
 
 
 def dense_phase():
-    from repro_torch.kernels.crossbar_vmm.ops import crossbar_vmm_batch
+    from repro_torch.kernels.crossbar_vmm.ops import crossbar_vmm_batch, finish_ops
     from repro_torch.kernels.slot_scan.ops import slot_scan
 
-    crossbar_vmm_batch.launches = slot_scan.launches = 0  # the dense path's run starts here
+    # the dense path's run starts here
+    finish_ops.launches = crossbar_vmm_batch.launches = slot_scan.launches = 0
     secs, expected = {}, 0
     for target in DENSE_TARGETS:
         ctl, secs[target[:4]] = run_dense(target)
         expected += ctl.rounds_run * (ctl.cfg.n_segments if target[3] == "sequential" else 1)
-    launches = {"crossbar_vmm": crossbar_vmm_batch.launches, "slot_scan": slot_scan.launches}
-    check(launches == {"crossbar_vmm": expected, "slot_scan": expected},
+    launches = {"finish_ops": finish_ops.launches, "slot_scan": slot_scan.launches}
+    check(launches == {"finish_ops": expected, "slot_scan": expected},
           f"dense path: launches {launches}, want {expected} each")
+    check(crossbar_vmm_batch.launches == 0,
+          f"dense path: {crossbar_vmm_batch.launches} launches of the unfused crossbar_vmm")
+    print(f"dense main path: finish_ops and slot_scan launches {expected} each, unfused "
+          "crossbar_vmm launches 0", flush=True)
+    launches["crossbar_vmm"] = crossbar_vmm_batch.launches
     g1 = ("Googlenet-conv1", "uniform", "cim")
     print(f"Googlenet-conv1 uniform/cim: sequential / vmap wall = "
           f"{secs[g1 + ('sequential',)] / secs[g1 + ('vmap',)]:.3f}", flush=True)
@@ -1075,21 +1388,48 @@ def faulted_run(label, job, strategy, kw, caps, target, n_segments=4, device=Non
     return ctl, secs
 
 
-def faults_main_path():
-    """The fault path's runs, each against the reference's numbers; the
-    launch counts are set to 0 before and read after.  Returns the counts
-    {"lif_step_faults": n, "crossbar_vmm_faults": n}."""
-    from repro_torch import snn
+def dense_faulted_run(label):
+    """Googlenet-conv1's uniform offload under crossbar faults, checked
+    against the reference's rounds, cycles, instructions, OPs and faulted
+    ``O``.  Returns (controller, seconds)."""
     from repro_torch import faults
     from repro_torch.core.controller import Controller
-    from repro_torch.kernels.crossbar_vmm.ops import crossbar_vmm_batch
-    from repro_torch.kernels.lif_step.ops import lif_step_units
+
+    layer = dense_layer("Googlenet-conv1")
+    cfg, states, pending, job = build_dense(layer, "uniform", "cim", DENSE_QUANTUM,
+                                            faults=faults.FaultConfig(**XBAR_FAULTS))
+    ctl = Controller(cfg, states, pending, quantum=DENSE_QUANTUM)
+    t0 = time.perf_counter()
+    ctl.run(max_rounds=2000, check_every=CHECK_EVERY)
+    secs = time.perf_counter() - t0
+    st = ctl.result_states()
+    got = (ctl.rounds_run, int(st["time"].max()), st["stats"]["instrs"].tolist(),
+           int(st["cims"]["ops"].sum()))
+    o = dense_o(st, job, layer)
+    got_o = (int((o != job["expected"]).sum()), int(o.astype(np.int64).sum()),
+             int(np.abs(o.astype(np.int64)).sum()),
+             hashlib.sha256(o.astype(np.int32).tobytes()).hexdigest()[:16])
+    print(f"{label}: rounds {got[0]}, sim cycles "
+          f"{got[1]}, instrs {got[2]}, CIM ops {got[3]}; O {o.shape}: {got_o[0]} entries "
+          f"off A @ B, sum {got_o[1]}, |.| sum {got_o[2]}, sha256 {got_o[3]}; {secs:.6f} s, "
+          f"{secs / got[0] * 1e6:.1f} us/round", flush=True)
+    check(got == DENSE_FAULT_TARGET, f"{label}: {got}, want {DENSE_FAULT_TARGET}")
+    check(got_o == DENSE_FAULT_O, f"{label} O: {got_o}, want {DENSE_FAULT_O}")
+    return ctl, secs
+
+
+def faults_main_path():
+    """The fault path's runs, each against the reference's numbers; the
+    launch counts are set to 0 before and read after.  Returns the fault
+    variants' counts: the fused kernels' and the unfused ones' (0)."""
+    from repro_torch import snn
+    from repro_torch.kernels.crossbar_vmm.ops import crossbar_vmm_batch, finish_ops
+    from repro_torch.kernels.lif_step.ops import lif_step_units, snn_tick
 
     fullxbar = snn.snn_inference_job(FULLXBAR["sizes"], t_steps=24, rate=0.5, seed=2)
     mega = snn.snn_inference_job(MEGA["sizes"], t_steps=MEGA["t_steps"], rate=0.2, seed=2)
-    for f in ("launches", "fault_launches"):
-        setattr(lif_step_units, f, 0)
-        setattr(crossbar_vmm_batch, f, 0)
+    for fn in (snn_tick, finish_ops, lif_step_units, crossbar_vmm_batch):
+        fn.launches = fn.fault_launches = 0
     rounds, fault_rounds = 0, 0  # all spiking rounds; those with structural faults
     for label, kw, strategy, caps, target in FULLXBAR_FAULTS:
         ctl, _ = faulted_run(f"fullxbar {label}", fullxbar, strategy, kw,
@@ -1108,39 +1448,24 @@ def faults_main_path():
     rounds += sum(r["rounds"] for r in sweep)
 
     # dense completion under crossbar faults: Googlenet-conv1's offload
-    layer = dense_layer("Googlenet-conv1")
-    cfg, states, pending, job = build_dense(layer, "uniform", "cim", DENSE_QUANTUM,
-                                            faults=faults.FaultConfig(**XBAR_FAULTS))
-    ctl = Controller(cfg, states, pending, quantum=DENSE_QUANTUM)
-    t0 = time.perf_counter()
-    ctl.run(max_rounds=2000, check_every=CHECK_EVERY)
-    secs = time.perf_counter() - t0
-    st = ctl.result_states()
-    got = (ctl.rounds_run, int(st["time"].max()), st["stats"]["instrs"].tolist(),
-           int(st["cims"]["ops"].sum()))
-    o = dense_o(st, job, layer)
-    got_o = (int((o != job["expected"]).sum()), int(o.astype(np.int64).sum()),
-             int(np.abs(o.astype(np.int64)).sum()),
-             hashlib.sha256(o.astype(np.int32).tobytes()).hexdigest()[:16])
-    print(f"Googlenet-conv1 uniform/cim under crossbar faults: rounds {got[0]}, sim cycles "
-          f"{got[1]}, instrs {got[2]}, CIM ops {got[3]}; O {o.shape}: {got_o[0]} entries "
-          f"off A @ B, sum {got_o[1]}, |.| sum {got_o[2]}, sha256 {got_o[3]}; {secs:.6f} s, "
-          f"{secs / got[0] * 1e6:.1f} us/round", flush=True)
-    check(got == DENSE_FAULT_TARGET, f"faulted offload: {got}, want {DENSE_FAULT_TARGET}")
-    check(got_o == DENSE_FAULT_O, f"faulted offload O: {got_o}, want {DENSE_FAULT_O}")
+    ctl, _ = dense_faulted_run("Googlenet-conv1 uniform/cim under crossbar faults")
 
-    # lif_step_units / crossbar_vmm_batch count both variants' launches
-    launches = {"lif_step_units": lif_step_units.launches,
-                "lif_step_faults": lif_step_units.fault_launches,
-                "crossbar_vmm_batch": crossbar_vmm_batch.launches,
-                "crossbar_vmm_faults": crossbar_vmm_batch.fault_launches}
-    want = {"lif_step_units": rounds, "lif_step_faults": fault_rounds,
-            "crossbar_vmm_batch": ctl.rounds_run, "crossbar_vmm_faults": ctl.rounds_run}
+    # snn_tick / finish_ops count both variants' launches; the unfused
+    # kernels launch no time on this path
+    launches = {"snn_tick": snn_tick.launches, "snn_tick_faults": snn_tick.fault_launches,
+                "finish_ops": finish_ops.launches,
+                "finish_ops_faults": finish_ops.fault_launches,
+                "unfused": lif_step_units.launches + crossbar_vmm_batch.launches}
+    want = {"snn_tick": rounds, "snn_tick_faults": fault_rounds,
+            "finish_ops": ctl.rounds_run, "finish_ops_faults": ctl.rounds_run, "unfused": 0}
     print(f"fault path launches {launches}; spiking rounds {rounds}, of them with "
           f"crossbar or neuron faults {fault_rounds}; dense rounds {ctl.rounds_run}",
           flush=True)
     check(launches == want, f"fault path: launches {launches}, want {want}")
-    return {k: launches[k] for k in ("lif_step_faults", "crossbar_vmm_faults")}
+    return {"snn_tick_faults": launches["snn_tick_faults"],
+            "finish_ops_faults": launches["finish_ops_faults"],
+            "lif_step_faults": lif_step_units.fault_launches,
+            "crossbar_vmm_faults": crossbar_vmm_batch.fault_launches}
 
 
 def faults_checks():
@@ -1559,7 +1884,8 @@ def falcon_main_path():
           flush=True)
     del params, cache
     torch.cuda.empty_cache()
-    return {"ssm_scan_fused": expected, "ssm_scan": u_launches}
+    # the kernels line counts the main path's launches: the unfused scan's 0
+    return {"ssm_scan_fused": main["launches"][0], "ssm_scan": main["launches"][1]}
 
 
 def global_loads(name):
@@ -1606,6 +1932,10 @@ def main():
 
     phase("1 kernels against their plain versions")
     rows = [kernel_phase(), lif_faults_phase(), xbar_phase(), xbar_faults_phase()]
+    rows += fused_phase("tick") + fused_phase("finish")
+    floor_ms = launch_floor_ms()
+    print(f"launch floor: one elementwise torch op on an (8,) int32 tensor, device time "
+          f"{floor_ms:.6f} ms in the same CUDA-graph harness ({card})", flush=True)
     phase("2 fig5snn")
     fig5snn_phase()
     phase("3 fullxbar (the spiking path at full width)")

@@ -64,6 +64,7 @@ class Controller:
         self.states = tree.tree_map(lambda x: x.to(self.device, copy=True), self.states)
         self.pending = tree.tree_map(lambda x: x.to(self.device, copy=True), self.pending)
         self._finished = False  # a run() observed clean termination
+        self._closed = False  # close() was called
         # the CPU-free step is only valid while nothing but AER spikes can
         # circulate: a hand-injected MMIO/DMA message in the initial inbox
         # needs the full step (one host check at construction)
@@ -101,7 +102,16 @@ class Controller:
         tl = torch.where(self._eye, _BIG, times.unsqueeze(1) + self.lat)
         return tl.min(dim=0).values
 
+    def _require_open(self):
+        if self._closed:
+            raise RuntimeError(
+                "Controller is closed: close() released its host resources "
+                "(the threads backend's worker pool); build a new Controller "
+                "to run again"
+            )
+
     def round(self):
+        self._require_open()
         if self.backend == "vmap":
             lim = self._limits(self.states["time"])
             self.states, outboxes, pending = self._step(self.states, self.pending, lim)
@@ -168,8 +178,11 @@ class Controller:
         return self
 
     def close(self):
-        """Nothing to release on these backends; kept for the reference's
-        interface.  Reading results stays valid."""
+        """Idempotent.  These backends hold no host resources, but a closed
+        controller refuses to ``run``/``round`` with the reference's error.
+        Reading results (``result_states``/``sim_time``/``done``) stays
+        valid."""
+        self._closed = True
 
     def run(self, max_rounds: int = 10_000, check_every: int = 4,
             fused: bool | None = None):
@@ -179,11 +192,12 @@ class Controller:
         this call started, as in the reference on every dispatch path, so
         results, ``rounds_run`` and overflow errors equal the reference's.
         """
+        t0 = _time.perf_counter()
+        self._require_open()
         if fused:
             raise NotImplementedError(
                 "fused device-resident dispatch is queued in ROADMAP.md "
                 "(CUDA-graph round loop, module item 5a)")
-        t0 = _time.perf_counter()
         if self._finished:
             # termination is final: a second run() on a finished controller
             # must not burn rounds

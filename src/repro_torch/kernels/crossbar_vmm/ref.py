@@ -15,10 +15,16 @@ Semantics (paper Fig. 1b/1c, CIM-Unit calculator):
 All arithmetic is int32.  The contraction is an int32 elementwise product
 summed in int32: an int32 ``matmul`` runs on the CPU but not on CUDA, and
 this version has to run on both.
+
+``finish_ops`` is the quantum-boundary completion of ``vp/cim.finish_ops``
+around the batched VMM: the eager ``done`` gate, one VMM over every unit,
+then the selects.  It is the plain version of the fused completion kernel.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.vp import isa
 
 _I32 = torch.int32
 
@@ -72,3 +78,38 @@ def crossbar_vmm(weights, x, in_res: int = 8, out_res: int = 8,
 def crossbar_matmul(weights, x, in_res: int = 8, out_res: int = 8):
     """Tiled matrix version: weights (R, C) int8, x (C, N) int32 -> (R, N)."""
     return crossbar_vmm_batch(weights.unsqueeze(0), x.t(), in_res, out_res).t()
+
+
+# the fields of a cims state the completion writes
+FINISH_OUTPUTS = ("out_buf", "state", "op_done_at", "ops", "in_count")
+
+
+def finish_ops(cims, t_end):
+    """Quantum-boundary completion: every unit whose OP finishes by ``t_end``
+    (S,) int32 computes its VMM at the Table II resolution (8-bit in and
+    out) and returns to IDLE.  cims fields are ``(S, n, ...)``; the VMM runs
+    every unit, and ``done`` selects which results land.
+    The crossbar fault masks ``f_and``/``f_xor`` are read from ``cims``
+    where present.
+
+    Returns (cims', done bool (S, n)), ``cims'`` a new dict whose
+    ``FINISH_OUTPUTS`` are new tensors."""
+    done = (
+        cims["present"]
+        & (cims["state"] == isa.CIM_ST_OP)
+        & (cims["busy_until"] <= t_end.unsqueeze(-1))
+    )
+    lead = done.shape  # (S, n)
+    w = cims["weights"]
+    units = lambda f: None if f not in cims else cims[f].reshape(-1, *w.shape[-2:])
+    outs = crossbar_vmm_batch(units("weights"), cims["in_buf"].reshape(-1, w.shape[-1]),
+                              8, 8, units("f_and"), units("f_xor")).reshape(*lead, -1)
+    cims = dict(cims)
+    cims["out_buf"] = torch.where(done.unsqueeze(-1), outs, cims["out_buf"])
+    # outputs ship by DMA in the same boundary step, so OUT completes at
+    # once and the FSM returns to IDLE (OUT cycles are inside busy_until)
+    cims["state"] = torch.where(done, isa.CIM_ST_IDLE, cims["state"])
+    cims["op_done_at"] = torch.where(done, cims["busy_until"], cims["op_done_at"])
+    cims["ops"] = cims["ops"] + done.to(_I32)
+    cims["in_count"] = torch.where(done, 0, cims["in_count"])
+    return cims, done

@@ -7,8 +7,12 @@ version (``ref.py``); a CUDA tensor launches the hand-written kernel
 fallback.  With any fault input (``f_and``, ``f_xor``, ``dead``, ``dth``) the
 kernel's fault variant runs, each absent input passed as null (neutral).
 ``lif_step_units.launches`` counts kernel launches of both variants and
-``lif_step_units.fault_launches`` those of the fault variant, so a run can
-show that its ticks went through the kernel.
+``lif_step_units.fault_launches`` those of the fault variant.
+
+``snn_tick`` is the whole quantum-boundary tick of ``vp/cim.snn_tick`` (the
+fire gate, the step, the selects and counters) in one launch of the same
+source's fused kernel, with its own ``launches`` and ``fault_launches``, so
+a run can show that its ticks went through it.
 """
 from __future__ import annotations
 
@@ -16,12 +20,15 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, check_inputs, unit_rows
 from repro_torch.kernels.lif_step import ref
+from repro_torch.vp import isa
 
 _I32 = torch.int32
 _SHMEM_LIMIT = 48 * 1024  # static shared-memory launch limit, bytes
+XBAR = 256  # the fused tick's largest crossbar (a cluster of 8 blocks a unit)
 _fns = {}
+_tick_fns = {}
 
 
 def _launcher(faults: bool):
@@ -98,3 +105,87 @@ def lif_step_units(weights, spikes, v, refrac, thresh, leak, refrac_period,
 
 lif_step_units.launches = 0
 lif_step_units.fault_launches = 0
+
+
+# the fused tick's pointer array, in the order of lif_step.cu's TickArgs:
+# cims fields per unit, t_gate, per-unit rows and columns, then the outputs
+TICK_UNIT = ("present", "mode", "tick_period", "next_tick", "tick_limit", "ticks", "rows",
+             "thresh", "leak", "refrac_period", "spikes_total")
+TICK_ROWS = ("weights", "in_buf", "v", "refrac", "spike_counts")
+TICK_POINTERS = (TICK_UNIT + ("t_gate",) + TICK_ROWS + ("extra",) + ref.TICK_FAULTS
+                 + tuple(f + "_out" for f in ref.TICK_OUTPUTS) + ("fired_rows", "fire"))
+
+
+def _tick_launcher(faults: bool):
+    if faults not in _tick_fns:
+        lib = build.load("lif_step")
+        fn = lib.snn_tick_faults_launch if faults else lib.snn_tick_launch
+        fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 4
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _tick_fns[faults] = fn
+    return _tick_fns[faults]
+
+
+def _tick_arguments(cims, t_gate, extra):
+    """Checks the fused tick's inputs against the weights' device and
+    allocates its outputs.  Returns (pointer array in ``TICK_POINTERS``
+    order, the C entry's int arguments, whether a fault input is given, the
+    result tuple the outputs fill)."""
+    w = cims["weights"]
+    s, n, r, c = w.shape
+    dev = w.device
+    if r > XBAR or c > XBAR or s * n > 65535:
+        raise ValueError(f"snn_tick: shape (U={s * n}, R={r}, C={c}) exceeds the kernel's "
+                         f"launch limits (R, C <= {XBAR}, U <= 65535)")
+    in_buf, in_s0, in_s1 = unit_rows(cims["in_buf"])
+    tensors = {**{f: cims[f] for f in TICK_UNIT + TICK_ROWS}, "in_buf": in_buf,
+               "t_gate": t_gate, "extra": extra, **{f: cims.get(f) for f in ref.TICK_FAULTS}}
+    unit, rows, cells = (s, n), (s, n, r), (s, n, r, c)
+    kinds = {**{f: (_I32, unit) for f in TICK_UNIT}, "present": (torch.bool, unit),
+             "t_gate": (_I32, (s,)), "weights": (torch.int8, cells), "in_buf": (_I32, (s, n, c)),
+             "v": (_I32, rows), "refrac": (_I32, rows), "spike_counts": (_I32, rows),
+             "extra": (_I32, rows), "f_and": (torch.int8, cells), "f_xor": (torch.int8, cells),
+             "f_dead": (torch.bool, rows), "f_dth": (_I32, rows)}
+    check_inputs("snn_tick", dev, [(f, tensors[f], *kinds[f]) for f in kinds],
+                 strided=("in_buf",))
+    new = {f: torch.empty(cims[f].shape, dtype=_I32, device=dev) for f in ref.TICK_OUTPUTS}
+    fired_rows = torch.empty(rows, dtype=torch.bool, device=dev)
+    fire = torch.empty(unit, dtype=torch.bool, device=dev)
+    tensors.update({f + "_out": x for f, x in new.items()}, fired_rows=fired_rows, fire=fire)
+    ptrs = (ctypes.c_void_p * len(TICK_POINTERS))(
+        *(None if tensors[f] is None else tensors[f].data_ptr() for f in TICK_POINTERS))
+    faulted = any(tensors[f] is not None for f in ref.TICK_FAULTS)
+    return (ptrs, (s * n, n, r, c, in_s0, in_s1, isa.CIM_MODE_SPIKE), faulted,
+            ({**cims, **new}, fired_rows, fire, cims["next_tick"]))
+
+
+def snn_tick(cims, t_gate, extra=None):
+    """The quantum-boundary LIF tick of every unit: cims fields ``(S, n,
+    ...)`` as ``vp/cim.cim_state`` lays them out, stacked over S segments,
+    ``t_gate`` (S,) int32; ``extra`` (S, n, R) int32 charge or None; the
+    fault inputs ``f_and``/``f_xor`` (S, n, R, C) int8, ``f_dead`` (S, n, R)
+    bool and ``f_dth`` (S, n, R) int32 are read from ``cims`` where present
+    (then the fault variant runs).  Returns (cims', fired_rows bool (S, n,
+    R), fire bool (S, n), tick_time (S, n)) as ``ref.snn_tick`` does; every
+    field the tick writes is a new tensor, the input state stays valid."""
+    dev = cims["weights"].device
+    if dev.type == "cpu":
+        return ref.snn_tick(cims, t_gate, extra)
+    if dev.type != "cuda":
+        raise ValueError(f"snn_tick runs on cpu or cuda, not {dev}")
+    ptrs, ints, faulted, result = _tick_arguments(cims, t_gate, extra)
+    if ints[0] == 0:
+        return result
+    fn = _tick_launcher(faulted)
+    with torch.cuda.device(dev):
+        err = fn(ptrs, *ints, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"snn_tick kernel launch failed: CUDA error {err}")
+    snn_tick.launches += 1
+    snn_tick.fault_launches += int(faulted)
+    return result
+
+
+snn_tick.launches = 0
+snn_tick.fault_launches = 0

@@ -21,9 +21,9 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels.crossbar_vmm.ops import crossbar_vmm_batch
+from repro_torch.kernels.crossbar_vmm import ops as xbar_ops
 from repro_torch.kernels.crossbar_vmm import ref as xbar_ref
-from repro_torch.kernels.lif_step.ops import lif_step_units
+from repro_torch.kernels.lif_step import ops as lif_ops
 from repro_torch.vp import isa
 
 XBAR = 256  # crossbar dimension (Table II: 256x256)
@@ -151,35 +151,17 @@ def finish_ops(cims, t_end, use_kernel: bool = False):
     ``t_end`` (S,) computes its VMM and returns to IDLE.  Returns (cims,
     done (S, n)).
 
-    Every unit of every segment goes through ONE ``crossbar_vmm_batch``
-    call — the CUDA kernel on the card, the plain version on the CPU
-    (``use_kernel`` is kept so ``VPConfig`` matches the reference; the
-    tensor's device decides) — and ``done`` selects which results land, so
+    Every unit of every segment goes through ONE call of the fused
+    completion (``kernels/crossbar_vmm/ops.finish_ops``) — the CUDA kernel
+    on the card, its plain version on the CPU (``use_kernel`` is kept so
+    ``VPConfig`` matches the reference; the tensor's device decides) — so
     the host never reads ``done``.  The platform runs the Table II
     configuration (8-bit I/O), as the reference does.  The crossbar fault
     masks ``f_and``/``f_xor`` go into the same call when the state has them
     (a build with crossbar faults).
     """
     del use_kernel
-    done = (
-        cims["present"]
-        & (cims["state"] == isa.CIM_ST_OP)
-        & (cims["busy_until"] <= t_end.unsqueeze(-1))
-    )
-    lead = done.shape  # (S, n)
-    units = lambda f: None if f not in cims else cims[f].reshape(-1, XBAR, XBAR)
-    outs = crossbar_vmm_batch(
-        units("weights"), cims["in_buf"].reshape(-1, XBAR), 8, 8,
-        units("f_and"), units("f_xor")).reshape(*lead, XBAR)
-    cims = dict(cims)
-    cims["out_buf"] = torch.where(done.unsqueeze(-1), outs, cims["out_buf"])
-    # outputs ship by DMA in the same boundary step, so OUT completes at
-    # once and the FSM returns to IDLE (OUT cycles are inside busy_until)
-    cims["state"] = torch.where(done, isa.CIM_ST_IDLE, cims["state"])
-    cims["op_done_at"] = torch.where(done, cims["busy_until"], cims["op_done_at"])
-    cims["ops"] = cims["ops"] + done.to(_I32)
-    cims["in_count"] = torch.where(done, 0, cims["in_count"])
-    return cims, done
+    return xbar_ops.finish_ops(cims, t_end)
 
 
 def snn_tick(cims, t_gate, use_kernel: bool = False, grouped: bool = False):
@@ -190,10 +172,10 @@ def snn_tick(cims, t_gate, use_kernel: bool = False, grouped: bool = False):
     A unit fires tick T = ``next_tick`` once ``t_gate >= T + tick_period``
     (the one-period guard of the reference, which keeps every segmentation
     bit-identical).  Every unit of every segment goes through ONE call of
-    the fused step — the CUDA kernel on the card, the plain version on the
-    CPU (``use_kernel`` is kept so ``VPConfig`` matches the reference field
-    for field; the tensor's device decides) — and ``fire`` selects which
-    results land.  The fault inputs (``f_and``, ``f_xor``, ``f_dead``,
+    the fused tick (``kernels/lif_step/ops.snn_tick``) — the CUDA kernel on
+    the card, its plain version on the CPU (``use_kernel`` is kept so
+    ``VPConfig`` matches the reference field for field; the tensor's device
+    decides).  The fault inputs (``f_and``, ``f_xor``, ``f_dead``,
     ``f_dth``) go into the same call when the state has them.
 
     Returns (cims', fired_rows bool (S, n, XBAR), fire bool (S, n),
@@ -204,32 +186,4 @@ def snn_tick(cims, t_gate, use_kernel: bool = False, grouped: bool = False):
         raise NotImplementedError(
             "multi-crossbar column groups (the grouped LIF tick) come with "
             "ROADMAP module item 7")
-    fire = (
-        cims["present"]
-        & (cims["mode"] == isa.CIM_MODE_SPIKE)
-        & (cims["tick_period"] > 0)
-        & (t_gate.unsqueeze(-1) >= cims["next_tick"] + cims["tick_period"])
-        & ((cims["tick_limit"] == 0) | (cims["ticks"] < cims["tick_limit"]))
-    )
-    lead = cims["present"].shape  # (S, n)
-    flat = lambda x: x.reshape(-1, *x.shape[len(lead):]).contiguous()
-    v2, refrac2, fired_i = (
-        x.reshape(*lead, -1) for x in lif_step_units(
-            flat(cims["weights"]), flat(cims["in_buf"]), flat(cims["v"]),
-            flat(cims["refrac"]), flat(cims["thresh"]), flat(cims["leak"]),
-            flat(cims["refrac_period"]), None,
-            *(flat(cims[f]) if f in cims else None
-              for f in ("f_and", "f_xor", "f_dead", "f_dth"))))
-    rows_idx = torch.arange(XBAR, dtype=_I32, device=fire.device)
-    fire_r = fire.unsqueeze(-1)
-    fired_rows = fire_r & (fired_i != 0) & (rows_idx < cims["rows"].unsqueeze(-1))
-    cims = dict(cims)
-    cims["v"] = torch.where(fire_r, v2, cims["v"])
-    cims["refrac"] = torch.where(fire_r, refrac2, cims["refrac"])
-    cims["in_buf"] = torch.where(fire_r, 0, cims["in_buf"])
-    tick_time = cims["next_tick"]
-    cims["next_tick"] = cims["next_tick"] + torch.where(fire, cims["tick_period"], 0)
-    cims["spike_counts"] = cims["spike_counts"] + fired_rows.to(_I32)
-    cims["spikes_total"] = cims["spikes_total"] + fired_rows.sum(-1, dtype=_I32)
-    cims["ticks"] = cims["ticks"] + fire.to(_I32)
-    return cims, fired_rows, fire, tick_time
+    return lif_ops.snn_tick(cims, t_gate)
