@@ -7,12 +7,15 @@ spiking job built by ``snn.build_snn`` on a CPU-free platform, the paper's
 dense VMM offload on live RISC-V CPUs built by
 ``segmentation.build(programs=...)``, and both under seeded fault
 injection (``faults=FaultConfig(...)``), each run to completion by
-``Controller.run``; and falcon-mamba-7b served by ``greedy_generate`` —
+``Controller.run`` through its captured round loop; and falcon-mamba-7b
+served by ``greedy_generate`` —
 and fails (non-zero exit, no result line) unless every phase holds:
 
   0. environment: the card's name and power limit, the kernels built from
-     the sources in this checkout (one nvcc per source, all at once), and
-     the global-load opcodes of ``slot_scan``'s SASS;
+     the sources in this checkout (one nvcc per source, all at once), the
+     global-load opcodes of ``slot_scan``'s SASS, the dispatch graph's IF
+     and WHILE nodes on tiny bodies, and fullxbar's captured dispatch (its
+     capture seconds and node census);
   1. ``lif_step`` and ``crossbar_vmm``, and their fault variants, equal
      their plain PyTorch versions bit for bit on the card (the fault
      variants with masks drawn by ``faults.unit_masks`` at high rates, each
@@ -32,8 +35,7 @@ and fails (non-zero exit, no result line) unless every phase holds:
      whose final state trees equal the card's leaf for leaf;
   3. ``fullxbar`` (eight full 256x256 crossbars, T=24): 24502 spikes in 34
      rounds under three placements — the spiking path at full width, with
-     the ``snn_tick`` launch counts read from this run and none of the
-     unfused ``lif_step`` — then its profile;
+     the ``snn_tick`` launches and none of the unfused ``lif_step``;
   4. one round of ``fullxbar`` under ``torch.cuda.set_sync_debug_mode("error")``;
   5. dense: two small jobs (an offload, remote DRAM reads and writes)
      whose card and CPU final trees are equal, and the store-log and
@@ -48,9 +50,9 @@ and fails (non-zero exit, no result line) unless every phase holds:
      offload, plus load-oriented, RISC-V and mixed runs of Googlenet-conv1,
      and Googlenet-conv1 on ``sequential``) reproduces the reference's
      rounds, simulated cycles, instructions per segment, CIM OPs and
-     ``O == A @ B``, with the ``finish_ops`` and ``slot_scan`` launch
-     counts read from this run and none of the unfused ``crossbar_vmm``;
-     then its profile and one round under sync-debug "error";
+     ``O == A @ B``, with the ``finish_ops`` and ``slot_scan`` launches and
+     none of the unfused ``crossbar_vmm``; then one round under sync-debug
+     "error";
   7. faults: fullxbar under crossbar, neuron, transport, mild and combined
      faults (the combined one under two placements) and under the drop
      policy, the small megaloop job under transport faults and its
@@ -62,6 +64,17 @@ and fails (non-zero exit, no result line) unless every phase holds:
      kernels; then card against CPU trees for one small job per family and
      a small faulted offload, the wall per round with and without transport
      faults, and one faulted round under sync-debug "error";
+  7b. the fused dispatch (``Controller.run``'s default on ``vmap``, which
+     every ``vmap`` run above takes, captured before its clock starts): the
+     captured round loop against the per-round path (``fused=False``) on
+     fig5snn, fullxbar, Googlenet-conv1, fullxbar under all fault families
+     and under the drop policy, and over the reference's (check_every, k)
+     grid on two small jobs, trees leaf-equal; a whole fused run under
+     sync-debug "error" with only the one fetch per dispatch let through;
+     fig5snn in a 256-round dispatch no slower than in a 28-round one (the
+     rounds past the stop are skipped on the card); fused against
+     per-round wall per round in turns on fullxbar and Googlenet-conv1,
+     with profiles;
   8. falcon-mamba-7b serving: ``ssm_scan`` (unfused) and
      ``ssm_scan_fused`` (the Mamba-1 expansion inside the scan) against
      their plain versions on the card (a prefill chunk, or the whole
@@ -76,6 +89,11 @@ and fails (non-zero exit, no result line) unless every phase holds:
      chunk, 1088 launches) and with the plain scan, profiles of a prefill
      and a decode step, and one decode step under sync-debug "error".
 
+A VP main path's kernel launches (phases 2, 3, 6 and 7) are counted on
+the card: the fused tick, the fused completion and the slot scan each add
+one to a device counter when they run (``kernels.card_counts``), since the
+captured dispatch replays them without calling their wrappers, whose
+counters count only the launches issued from the host.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' numbers as JSON, each kernel's launches those of the
 main path's runs (0 for the unfused ``lif_step``, ``crossbar_vmm`` and
@@ -112,7 +130,8 @@ FULLXBAR = dict(sizes=(256,) * 9, spikes=24502, rounds=34, in_cap=8192)
 KERNELS = ["lif_step", "lif_step_faults", "crossbar_vmm", "crossbar_vmm_faults",
            "snn_tick", "snn_tick_faults", "finish_ops", "finish_ops_faults",
            "slot_scan", "ssm_scan", "ssm_scan_fused"]
-SOURCES = ["lif_step", "crossbar_vmm", "slot_scan", "ssm_scan"]  # kernels/csrc/<name>.cu
+SOURCES = ["lif_step", "crossbar_vmm", "slot_scan", "ssm_scan",  # kernels/csrc/<name>.cu
+           "dispatch_graph"]
 
 # the dense targets: Table III layers at their published sizes, channel
 # latency = quantum = 10,000, check_every=2, as the reference's benchmark
@@ -131,6 +150,17 @@ DENSE_TARGETS = [
     ("Googlenet-conv1", "uniform", "riscv", "vmap", 436, 4360000, [3199618, 0], 0),
     ("Googlenet-conv1", "uniform", "mixed", "vmap", 188, 1880000, [1371778, 56093], 7),
 ]
+# the fused dispatch's (check_every, rounds_per_dispatch) grid on the small
+# jobs (the reference's tests/test_megaloop.py)
+FUSED_GRID = [(1, 1), (2, 3), (3, 64), (4, 2), (1, 256)]
+# the kernels line's rows that a main path's run counts: the fused tick, the
+# fused completion and the slot scan count their own runs on the card
+# (kernel, variant), the unfused step and VMM are counted by their wrappers
+CARD_COUNTED = {"snn_tick": ("snn_tick", 0), "snn_tick_faults": ("snn_tick", 1),
+                "finish_ops": ("finish_ops", 0), "finish_ops_faults": ("finish_ops", 1),
+                "slot_scan": ("slot_scan", 0)}
+COUNTED = tuple(CARD_COUNTED) + ("lif_step", "lif_step_faults", "crossbar_vmm",
+                                 "crossbar_vmm_faults")
 SCAN_SLOTS = 500  # slots of each kernel-vs-plain scan
 # (layer, strategy, mode, rounds run before the scan's state is taken)
 SCAN_STATES = [("Googlenet-conv1", "uniform", "cim", 2),
@@ -294,6 +324,44 @@ def stream_ms(fn, reps=21, inner=20):
     for _ in range(3):
         fn()
     return _median_window_ms(lambda: [fn() for _ in range(inner)], reps, inner)
+
+
+def ready(ctl):
+    """Capture a card controller's fused dispatch before its run is timed
+    (``run`` would capture at its first dispatch); returns the capture's
+    seconds, or None where the run takes no captured dispatch."""
+    if ctl.device.type == "cuda" and ctl.backend == "vmap":
+        return ctl.capture()
+    return None
+
+
+def capture_note(seconds):
+    return "" if seconds is None else f", captured in {seconds:.3f} s before the run"
+
+
+def counted(run):
+    """``run()`` with the VP kernels' launches counted from 0: the fused
+    tick, the fused completion and the slot scan by the card (each kernel
+    adds one to its count when it runs, a captured graph's replays
+    included), the unfused step and VMM by their wrappers (every launch of
+    theirs, eager or captured, passes there).  Returns (counts by the
+    kernels line's names, the run's seconds)."""
+    from repro_torch import kernels
+    from repro_torch.kernels.crossbar_vmm.ops import crossbar_vmm_batch
+    from repro_torch.kernels.lif_step.ops import lif_step_units
+
+    kernels.read_card_counts(reset=True)
+    for fn in (lif_step_units, crossbar_vmm_batch):
+        fn.launches = fn.fault_launches = 0
+    t0 = time.perf_counter()
+    run()
+    secs = time.perf_counter() - t0
+    card = kernels.read_card_counts()
+    counts = {row: card.get(k, (0, 0))[i] for row, (k, i) in CARD_COUNTED.items()}
+    for row, fn in (("lif_step", lif_step_units), ("crossbar_vmm", crossbar_vmm_batch)):
+        counts[row] = fn.launches - fn.fault_launches
+        counts[row + "_faults"] = fn.fault_launches
+    return counts, secs
 
 
 # ---------------------------------------------------------------------------
@@ -876,37 +944,46 @@ def build(job, strategy, in_cap, device, n_segments=4, **kw):
                          in_cap=in_cap, device=device, **kw)
 
 
-def run_job(name, spec, job, strategy, backend="vmap", device=None):
-    """Build, run and check one job; returns (controller, meta, seconds)."""
+def run_job(name, spec, job, strategy, backend="vmap", device=None, count=True):
+    """Build, run and check one job, its kernel launches counted
+    (``count=False``: a timing run, not counted); returns (controller,
+    meta, seconds, counts or None)."""
     from repro_torch import snn
     from repro_torch.core.controller import Controller
-    from repro_torch.kernels.lif_step.ops import snn_tick
 
     cfg, states, pending, meta = build(job, strategy, spec["in_cap"], device)
     ctl = Controller(cfg, states, pending, backend=backend, quantum=QUANTUM,
                      device=device)
-    before = snn_tick.launches
-    t0 = time.perf_counter()
-    ctl.run(max_rounds=MAX_ROUNDS, check_every=CHECK_EVERY)
-    secs = time.perf_counter() - t0
+    cap = ready(ctl)
+    run = lambda: ctl.run(max_rounds=MAX_ROUNDS, check_every=CHECK_EVERY)
+    if count:
+        counts, secs = counted(run)
+    else:
+        counts, t0 = None, time.perf_counter()
+        run()
+        secs = time.perf_counter() - t0
     st = ctl.result_states()
     spikes = snn.total_spikes(st)
-    launches = snn_tick.launches - before
+    launches = "not counted" if counts is None else counts["snn_tick"]
     per_round = 0 if ctl.device.type == "cpu" else (
         cfg.n_segments if backend == "sequential" else 1)
     print(f"{name} {strategy}/{backend} on {ctl.device.type}: segments "
           f"{cfg.n_segments} x slots {cfg.n_cim_slots}, spikes {spikes}, rounds "
-          f"{ctl.rounds_run}, kernel launches {launches}, {secs:.6f} s, "
+          f"{ctl.rounds_run}, snn_tick launches {launches}, {secs:.6f} s, "
           f"{ctl.rounds_run / secs:.3f} rounds/s, {spikes / secs:.1f} spikes/s, "
-          f"{secs / ctl.rounds_run * 1e6:.1f} us/round", flush=True)
+          f"{secs / ctl.rounds_run * 1e6:.1f} us/round, {ctl.dispatches} dispatches"
+          f"{capture_note(cap)}", flush=True)
     check(spikes == spec["spikes"], f"{name} {strategy}: {spikes} spikes, want {spec['spikes']}")
     check(ctl.rounds_run == spec["rounds"],
           f"{name} {strategy}: {ctl.rounds_run} rounds, want {spec['rounds']}")
     check(np.array_equal(snn.output_spike_counts(st, meta), job.expected_counts),
           f"{name} {strategy}: output counts differ from the oracle")
-    check(launches == per_round * ctl.rounds_run,
-          f"{name} {strategy}/{backend}: {launches} launches for {ctl.rounds_run} rounds")
-    return ctl, meta, secs
+    if counts is not None:
+        want = dict.fromkeys(COUNTED, 0)
+        want["snn_tick"] = per_round * ctl.rounds_run
+        check(counts == want, f"{name} {strategy}/{backend}: launches {counts} for "
+              f"{ctl.rounds_run} rounds, want {want}")
+    return ctl, meta, secs, counts
 
 
 def final_trees(ctl):
@@ -935,7 +1012,7 @@ def fig5snn_phase():
     check(job.expected_total == spec["spikes"], "fig5snn oracle total")
     run_job("fig5snn (warm-up)", spec, job, "uniform")  # first CUDA work: untimed
     for strategy in STRATEGIES:
-        ctl, _, _ = run_job("fig5snn", spec, job, strategy)
+        ctl = run_job("fig5snn", spec, job, strategy)[0]
         if strategy == "uniform":
             card = final_trees(ctl)
     run_job("fig5snn", spec, job, "uniform", backend="sequential")
@@ -946,32 +1023,34 @@ def fig5snn_phase():
 
 
 def fullxbar_phase():
+    """The spiking main path; its launches are its runs' counts, summed
+    (each starts at 0)."""
     from repro_torch import snn
-    from repro_torch.kernels.lif_step.ops import lif_step_units, snn_tick
 
     spec = FULLXBAR
     job = snn.snn_inference_job(spec["sizes"], t_steps=24, rate=0.5, seed=2)
     check(job.expected_total == spec["spikes"], "fullxbar oracle total")
-    snn_tick.launches = lif_step_units.launches = 0  # the main path's run starts here
-    rounds, secs = 0, {}
+    rounds, launches = 0, dict.fromkeys(COUNTED, 0)
     for strategy in STRATEGIES:
-        ctl, _, secs[strategy] = run_job("fullxbar", spec, job, strategy)
+        ctl, _, _, counts = run_job("fullxbar", spec, job, strategy)
         rounds += ctl.rounds_run
-    launches = snn_tick.launches
-    check(launches > 0 and launches == rounds, f"fullxbar: {launches} launches, {rounds} rounds")
-    check(lif_step_units.launches == 0,
-          f"fullxbar: {lif_step_units.launches} launches of the unfused lif_step")
-    print(f"fullxbar main path: snn_tick launches {launches} for {rounds} rounds, unfused "
-          "lif_step launches 0", flush=True)
-    return {"snn_tick": launches, "lif_step": lif_step_units.launches}, job, secs["uniform"]
+        launches = {k: n + counts[k] for k, n in launches.items()}
+    check(launches["snn_tick"] > 0 and launches["snn_tick"] == rounds,
+          f"fullxbar: {launches['snn_tick']} launches, {rounds} rounds")
+    check(launches["lif_step"] == 0,
+          f"fullxbar: {launches['lif_step']} launches of the unfused lif_step")
+    print(f"fullxbar main path: snn_tick launches {launches['snn_tick']} for "
+          f"{rounds} rounds, unfused lif_step launches 0", flush=True)
+    return {"snn_tick": launches["snn_tick"], "lif_step": launches["lif_step"]}, job
 
 
-def profile_run(name, run, units, unit, unprofiled_s):
+def profile_run(name, run, units, unit, unprofiled_s, top=8):
     """Where a run's time goes: device kernel time against the wall time,
     and the kernels by device time (torch.profiler).  ``run()`` ends in a
     host sync and returns after ``units()`` ``unit``s of work.  The
     profiler's own host cost inflates its wall time, so the busy share is
-    also given against the same run unprofiled."""
+    also given against the same run unprofiled.  ``top``: how many kernels
+    to list by device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -993,15 +1072,20 @@ def profile_run(name, run, units, unit, unprofiled_s):
           f"{1e6 * busy / n:.2f} us each); busy {100 * busy / wall:.2f}% of the "
           f"profiled wall {wall:.6f} s, {100 * busy / unprofiled_s:.2f}% of the "
           f"unprofiled wall {unprofiled_s:.6f} s", flush=True)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:100]}",
               flush=True)
 
 
-def profile_phase(name, make_ctl, unprofiled_s):
+def profile_phase(name, make_ctl, unprofiled_s, fused=None):
+    """Profile one run, a fused one captured before the profile starts.  A
+    captured dispatch's kernels are counted and timed but not listed: the
+    trace names them wrongly (its slot scan under a torch copy kernel)."""
     ctl = make_ctl()
-    profile_run(name, lambda: ctl.run(max_rounds=MAX_ROUNDS, check_every=CHECK_EVERY),
-                lambda: ctl.rounds_run, "round", unprofiled_s)
+    captured = fused is not False and ready(ctl) is not None
+    run = lambda: ctl.run(max_rounds=MAX_ROUNDS, check_every=CHECK_EVERY, fused=fused)
+    profile_run(name, run, lambda: ctl.rounds_run, "round", unprofiled_s,
+                top=0 if captured else 8)
 
 
 def sync_free_phase(name, make_ctl):
@@ -1301,20 +1385,17 @@ def scan_phase():
 
 
 def run_dense(target):
-    """Build, run and check one Table III target; returns (controller, seconds)."""
+    """Build, run and check one Table III target, its launches counted;
+    returns (controller, seconds, counts)."""
     from repro_torch.core.controller import Controller
-    from repro_torch.kernels.crossbar_vmm.ops import finish_ops
-    from repro_torch.kernels.slot_scan.ops import slot_scan
 
     name, strategy, mode, backend, rounds, sim_time, instrs, n_ops = target
     layer = dense_layer(name)
     cfg, states, pending, job = build_dense(layer, strategy, mode, DENSE_QUANTUM)
     ctl = Controller(cfg, states, pending, backend=backend, quantum=DENSE_QUANTUM)
-    before = finish_ops.launches, slot_scan.launches
-    t0 = time.perf_counter()
-    ctl.run(max_rounds=2000, check_every=CHECK_EVERY)
-    secs = time.perf_counter() - t0
-    launches = (finish_ops.launches - before[0], slot_scan.launches - before[1])
+    cap = ready(ctl)
+    counts, secs = counted(lambda: ctl.run(max_rounds=2000, check_every=CHECK_EVERY))
+    launches = (counts["finish_ops"], counts["slot_scan"])
     st = ctl.result_states()
     got = (ctl.rounds_run, int(st["time"].max()), st["stats"]["instrs"].tolist(),
            int(st["cims"]["ops"].sum()))
@@ -1322,48 +1403,47 @@ def run_dense(target):
     print(f"{label}: rounds {got[0]}, sim cycles {got[1]}, instrs {got[2]}, CIM ops "
           f"{got[3]}, launches finish_ops {launches[0]} slot_scan {launches[1]}, "
           f"{secs:.6f} s, {secs / got[0] * 1e6:.1f} us/round, "
-          f"{sum(got[2]) / secs:.1f} simulated instructions/s", flush=True)
+          f"{sum(got[2]) / secs:.1f} simulated instructions/s, {ctl.dispatches} "
+          f"dispatches{capture_note(cap)}", flush=True)
     check(got == (rounds, sim_time, instrs, n_ops), f"{label}: {got}, want "
           f"{(rounds, sim_time, instrs, n_ops)}")
     check(np.array_equal(dense_o(st, job, layer), job["expected"]), f"{label}: O != A @ B")
     per_round = cfg.n_segments if backend == "sequential" else 1
-    check(launches == (per_round * got[0],) * 2,
-          f"{label}: launches {launches} for {got[0]} rounds")
-    return ctl, secs
+    want = dict.fromkeys(COUNTED, 0)
+    want["finish_ops"] = want["slot_scan"] = per_round * got[0]
+    check(counts == want, f"{label}: launches {counts} for {got[0]} rounds, want {want}")
+    return ctl, secs, counts
 
 
 def dense_phase():
-    from repro_torch.kernels.crossbar_vmm.ops import crossbar_vmm_batch, finish_ops
-    from repro_torch.kernels.slot_scan.ops import slot_scan
-
-    # the dense path's run starts here
-    finish_ops.launches = crossbar_vmm_batch.launches = slot_scan.launches = 0
-    secs, expected = {}, 0
+    """The dense main path; its launches are its runs' counts, summed (each
+    starts at 0)."""
+    secs, expected, launches = {}, 0, dict.fromkeys(COUNTED, 0)
     for target in DENSE_TARGETS:
-        ctl, secs[target[:4]] = run_dense(target)
+        ctl, secs[target[:4]], counts = run_dense(target)
         expected += ctl.rounds_run * (ctl.cfg.n_segments if target[3] == "sequential" else 1)
-    launches = {"finish_ops": finish_ops.launches, "slot_scan": slot_scan.launches}
-    check(launches == {"finish_ops": expected, "slot_scan": expected},
-          f"dense path: launches {launches}, want {expected} each")
-    check(crossbar_vmm_batch.launches == 0,
-          f"dense path: {crossbar_vmm_batch.launches} launches of the unfused crossbar_vmm")
-    print(f"dense main path: finish_ops and slot_scan launches {expected} each, unfused "
-          "crossbar_vmm launches 0", flush=True)
-    launches["crossbar_vmm"] = crossbar_vmm_batch.launches
+        launches = {k: n + counts[k] for k, n in launches.items()}
+    launches = {k: launches[k] for k in ("finish_ops", "slot_scan", "crossbar_vmm")}
+    check(launches == {"finish_ops": expected, "slot_scan": expected, "crossbar_vmm": 0},
+          f"dense path: launches {launches}, want {expected} each and no unfused crossbar_vmm")
+    print(f"dense main path: finish_ops and slot_scan launches {expected} each, "
+          "unfused crossbar_vmm launches 0", flush=True)
     g1 = ("Googlenet-conv1", "uniform", "cim")
     print(f"Googlenet-conv1 uniform/cim: sequential / vmap wall = "
           f"{secs[g1 + ('sequential',)] / secs[g1 + ('vmap',)]:.3f}", flush=True)
-    return launches, secs[g1 + ("vmap",)]
+    return launches
 
 
 # ---------------------------------------------------------------------------
 # phase 7: fault injection
 
 
-def faulted_run(label, job, strategy, kw, caps, target, n_segments=4, device=None):
+def faulted_run(label, job, strategy, kw, caps, target, n_segments=4, device=None,
+                count=True):
     """Build one spiking job under ``FaultConfig(**kw)``, run it and check
     it against ``target`` = (rounds, spikes, dropped, duped, outbox lost,
-    inbox lost, fidelity).  Returns (controller, seconds)."""
+    inbox lost, fidelity).  Returns (controller, seconds, the run's launch
+    counts or None when ``count`` is off)."""
     from repro_torch import faults, snn
     from repro_torch.core.controller import Controller
 
@@ -1372,9 +1452,14 @@ def faulted_run(label, job, strategy, kw, caps, target, n_segments=4, device=Non
     cfg, states, pending, meta = build(job, strategy, in_cap, device, n_segments,
                                        faults=faults.FaultConfig(**kw), **caps)
     ctl = Controller(cfg, states, pending, quantum=QUANTUM, device=device)
-    t0 = time.perf_counter()
-    ctl.run(max_rounds=MAX_ROUNDS, check_every=CHECK_EVERY)
-    secs = time.perf_counter() - t0
+    cap = ready(ctl)
+    run = lambda: ctl.run(max_rounds=MAX_ROUNDS, check_every=CHECK_EVERY)
+    if count:
+        counts, secs = counted(run)
+    else:
+        counts, t0 = None, time.perf_counter()
+        run()
+        secs = time.perf_counter() - t0
     st, stats = ctl.result_states(), ctl.result_states()["stats"]
     count = lambda f: int(stats[f].sum()) if f in stats else 0
     got = (ctl.rounds_run, snn.total_spikes(st), count("spikes_dropped"),
@@ -1383,15 +1468,15 @@ def faulted_run(label, job, strategy, kw, caps, target, n_segments=4, device=Non
            faults.fidelity(snn.output_spike_counts(st, meta), job.expected_counts))
     print(f"{label} {strategy}: rounds {got[0]}, spikes {got[1]}, dropped {got[2]}, "
           f"duped {got[3]}, lost outbox {got[4]} inbox {got[5]}, fidelity {got[6]!r}, "
-          f"{secs:.6f} s, {secs / got[0] * 1e6:.1f} us/round", flush=True)
+          f"{secs:.6f} s, {secs / got[0] * 1e6:.1f} us/round{capture_note(cap)}", flush=True)
     check(got == tuple(target), f"{label} {strategy}: {got}, want {tuple(target)}")
-    return ctl, secs
+    return ctl, secs, counts
 
 
 def dense_faulted_run(label):
     """Googlenet-conv1's uniform offload under crossbar faults, checked
     against the reference's rounds, cycles, instructions, OPs and faulted
-    ``O``.  Returns (controller, seconds)."""
+    ``O``.  Returns (controller, seconds, the run's launch counts)."""
     from repro_torch import faults
     from repro_torch.core.controller import Controller
 
@@ -1399,9 +1484,8 @@ def dense_faulted_run(label):
     cfg, states, pending, job = build_dense(layer, "uniform", "cim", DENSE_QUANTUM,
                                             faults=faults.FaultConfig(**XBAR_FAULTS))
     ctl = Controller(cfg, states, pending, quantum=DENSE_QUANTUM)
-    t0 = time.perf_counter()
-    ctl.run(max_rounds=2000, check_every=CHECK_EVERY)
-    secs = time.perf_counter() - t0
+    cap = ready(ctl)
+    counts, secs = counted(lambda: ctl.run(max_rounds=2000, check_every=CHECK_EVERY))
     st = ctl.result_states()
     got = (ctl.rounds_run, int(st["time"].max()), st["stats"]["instrs"].tolist(),
            int(st["cims"]["ops"].sum()))
@@ -1412,60 +1496,66 @@ def dense_faulted_run(label):
     print(f"{label}: rounds {got[0]}, sim cycles "
           f"{got[1]}, instrs {got[2]}, CIM ops {got[3]}; O {o.shape}: {got_o[0]} entries "
           f"off A @ B, sum {got_o[1]}, |.| sum {got_o[2]}, sha256 {got_o[3]}; {secs:.6f} s, "
-          f"{secs / got[0] * 1e6:.1f} us/round", flush=True)
+          f"{secs / got[0] * 1e6:.1f} us/round{capture_note(cap)}", flush=True)
     check(got == DENSE_FAULT_TARGET, f"{label}: {got}, want {DENSE_FAULT_TARGET}")
     check(got_o == DENSE_FAULT_O, f"{label} O: {got_o}, want {DENSE_FAULT_O}")
-    return ctl, secs
+    return ctl, secs, counts
 
 
 def faults_main_path():
     """The fault path's runs, each against the reference's numbers; the
-    launch counts are set to 0 before and read after.  Returns the fault
-    variants' counts: the fused kernels' and the unfused ones' (0)."""
+    launches are the runs' counts, summed (each starts at 0).
+    Returns the fault variants' counts: the fused kernels' and the unfused
+    ones' (0)."""
     from repro_torch import snn
-    from repro_torch.kernels.crossbar_vmm.ops import crossbar_vmm_batch, finish_ops
-    from repro_torch.kernels.lif_step.ops import lif_step_units, snn_tick
 
     fullxbar = snn.snn_inference_job(FULLXBAR["sizes"], t_steps=24, rate=0.5, seed=2)
     mega = snn.snn_inference_job(MEGA["sizes"], t_steps=MEGA["t_steps"], rate=0.2, seed=2)
-    for fn in (snn_tick, finish_ops, lif_step_units, crossbar_vmm_batch):
-        fn.launches = fn.fault_launches = 0
+    launches = dict.fromkeys(COUNTED, 0)
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] += n
+
     rounds, fault_rounds = 0, 0  # all spiking rounds; those with structural faults
     for label, kw, strategy, caps, target in FULLXBAR_FAULTS:
-        ctl, _ = faulted_run(f"fullxbar {label}", fullxbar, strategy, kw,
-                             {"in_cap": FULLXBAR["in_cap"], **caps}, target)
+        ctl, _, counts = faulted_run(f"fullxbar {label}", fullxbar, strategy, kw,
+                                     {"in_cap": FULLXBAR["in_cap"], **caps}, target)
+        add(counts)
         cfg = ctl.cfg.faults
         rounds += ctl.rounds_run
         fault_rounds += ctl.rounds_run * (cfg.has_xbar_faults or cfg.has_neuron_faults)
-    ctl, _ = faulted_run("megaloop transport", mega, "uniform", MEGA_FAULTS, MEGA["caps"],
-                         MEGA_TARGET, n_segments=2)
+    ctl, _, counts = faulted_run("megaloop transport", mega, "uniform", MEGA_FAULTS,
+                                 MEGA["caps"], MEGA_TARGET, n_segments=2)
+    add(counts)
     rounds += ctl.rounds_run
-    sweep = snn.degradation_sweep(mega, SWEEP_RATES, fault_kind="transport", seed=7,
-                                  **MEGA["caps"])
+    # the sweep builds and captures its controllers inside its count: each
+    # capture's warm-up round on a throwaway copy launches the tick too
+    sweep = []
+    counts, _ = counted(lambda: sweep.extend(snn.degradation_sweep(
+        mega, SWEEP_RATES, fault_kind="transport", seed=7, **MEGA["caps"])))
+    add(counts)
     got = [(r["rounds"], r["fidelity"]) for r in sweep]
-    print(f"megaloop degradation_sweep {SWEEP_RATES}: (rounds, fidelity) {got}", flush=True)
+    print(f"megaloop degradation_sweep {SWEEP_RATES}: (rounds, fidelity) {got}; snn_tick "
+          f"launches {counts['snn_tick']}", flush=True)
     check(got == SWEEP_TARGET, f"degradation_sweep: {got}, want {SWEEP_TARGET}")
-    rounds += sum(r["rounds"] for r in sweep)
+    rounds += sum(r["rounds"] for r in sweep) + len(SWEEP_RATES)
 
     # dense completion under crossbar faults: Googlenet-conv1's offload
-    ctl, _ = dense_faulted_run("Googlenet-conv1 uniform/cim under crossbar faults")
+    ctl, _, counts = dense_faulted_run("Googlenet-conv1 uniform/cim under crossbar faults")
+    add(counts)
 
-    # snn_tick / finish_ops count both variants' launches; the unfused
-    # kernels launch no time on this path
-    launches = {"snn_tick": snn_tick.launches, "snn_tick_faults": snn_tick.fault_launches,
-                "finish_ops": finish_ops.launches,
-                "finish_ops_faults": finish_ops.fault_launches,
-                "unfused": lif_step_units.launches + crossbar_vmm_batch.launches}
-    want = {"snn_tick": rounds, "snn_tick_faults": fault_rounds,
-            "finish_ops": ctl.rounds_run, "finish_ops_faults": ctl.rounds_run, "unfused": 0}
-    print(f"fault path launches {launches}; spiking rounds {rounds}, of them with "
-          f"crossbar or neuron faults {fault_rounds}; dense rounds {ctl.rounds_run}",
-          flush=True)
+    # the fused kernels' clean and fault variants; the unfused kernels
+    # launch no time on this path
+    want = dict.fromkeys(COUNTED, 0)
+    want.update(snn_tick=rounds - fault_rounds, snn_tick_faults=fault_rounds,
+                finish_ops_faults=ctl.rounds_run, slot_scan=ctl.rounds_run)
+    print(f"fault path launches {launches}; spiking rounds {rounds} (the "
+          f"sweep's {len(SWEEP_RATES)} warm-up rounds among them), of them with crossbar or "
+          f"neuron faults {fault_rounds}; dense rounds {ctl.rounds_run}", flush=True)
     check(launches == want, f"fault path: launches {launches}, want {want}")
-    return {"snn_tick_faults": launches["snn_tick_faults"],
-            "finish_ops_faults": launches["finish_ops_faults"],
-            "lif_step_faults": lif_step_units.fault_launches,
-            "crossbar_vmm_faults": crossbar_vmm_batch.fault_launches}
+    return {k: launches[k] for k in ("snn_tick_faults", "finish_ops_faults",
+                                     "lif_step_faults", "crossbar_vmm_faults")}
 
 
 def faults_checks():
@@ -1507,11 +1597,12 @@ def faults_checks():
     walls = {"off": [], "on": []}
     for mode in ("off", "on", "on", "off"):
         if mode == "on":
-            _, secs = faulted_run("fullxbar transport (timed)", job, "uniform", transport[1],
-                                  {"in_cap": FULLXBAR["in_cap"]}, transport[4])
+            secs = faulted_run("fullxbar transport (timed)", job, "uniform", transport[1],
+                               {"in_cap": FULLXBAR["in_cap"]}, transport[4], count=False)[1]
             walls["on"].append(secs / transport[4][0])
         else:
-            _, _, secs = run_job("fullxbar faults=None (timed)", FULLXBAR, job, "uniform")
+            secs = run_job("fullxbar faults=None (timed)", FULLXBAR, job, "uniform",
+                           count=False)[2]
             walls["off"].append(secs / FULLXBAR["rounds"])
     off, on = statistics.mean(walls["off"]), statistics.mean(walls["on"])
     print(f"fullxbar uniform wall per round: faults=None {off * 1e6:.1f} us "
@@ -1537,6 +1628,240 @@ def dense_controller():
     cfg, states, pending, _ = build_dense(dense_layer("Googlenet-conv1"), "uniform", "cim",
                                           DENSE_QUANTUM)
     return Controller(cfg, states, pending, quantum=DENSE_QUANTUM)
+
+
+# ---------------------------------------------------------------------------
+# phases 0 and 7b: the fused dispatch, a CUDA-graph-captured round loop
+
+
+def if_node_probe():
+    """The dispatch graph's conditional nodes (``kernels/dispatch_graph``)
+    on two tiny captured bodies: the round adds, clones (an allocation in
+    the graph's pool and a device copy), copies and sets ``running`` to x <
+    3; the check adds 10.  One replay of the WHILE node under each pair of
+    predicates (``running`` at the start, the check's ``at``) must give the
+    host's answers."""
+    from repro_torch.kernels.dispatch_graph import DispatchGraph
+
+    x = torch.zeros(4, dtype=torch.int32, device="cuda")
+    y = torch.zeros(4, dtype=torch.int32, device="cuda")
+    running, at = (torch.zeros((), dtype=torch.bool, device="cuda") for _ in range(2))
+    bodies = (lambda: (x.add_(1), y.copy_(x.clone()), running.copy_(x[0] < 3)),
+              lambda: y.add_(10))
+    graphs = []
+    for body in bodies:
+        body()  # warm-up
+        graphs.append(torch.cuda.CUDAGraph(keep_graph=True))
+        with torch.cuda.graph(graphs[-1]):
+            body()
+    graph, got = DispatchGraph(*graphs, running, at), {}
+    for p, q in ((True, True), (True, False), (False, True), (False, False)):
+        x.zero_()
+        y.zero_()
+        running.fill_(p)
+        at.fill_(q)
+        graph.replay()
+        got[(p, q)] = (int(x[0]), int(y[0]))
+    want = {(True, True): (3, 13), (True, False): (3, 3), (False, True): (0, 0),
+            (False, False): (0, 0)}
+    check(got == want, f"conditional-node replays: {got}, want {want}")
+    print(f"dispatch graph: the WHILE node and the IF node replay right under every "
+          f"predicate ({got}); census {graph.census}", flush=True)
+
+
+def graph_phase(job):
+    """Phase 0's record of the captured dispatch: fullxbar's uniform
+    controller captured, its dispatch graph's node census (the WHILE and IF
+    nodes among them) and the capture's seconds."""
+    if_node_probe()
+    ctl = fullxbar_controller(job)
+    secs = ctl.capture()
+    census = ctl._graph.census
+    print(f"fullxbar uniform dispatch graph: warm-up, capture and upload {secs:.3f} s; "
+          f"census {census}", flush=True)
+    check(census["nodes"] > 0 and census["round"]["kernels"] > 0
+          and census["conditionals"] == 2, f"fullxbar dispatch graph: census {census}")
+
+
+def fused_vs_per_round(name, make, max_rounds):
+    """One job fused (the default) and per-round, from the same build:
+    equal rounds and trees leaf for leaf.  Returns the fused controller."""
+    runs = {}
+    for fused in (True, False):
+        ctl = make()
+        cap = ready(ctl) if fused else None
+        t0 = time.perf_counter()
+        ctl.run(max_rounds=max_rounds, check_every=CHECK_EVERY, fused=fused)
+        runs[fused] = (ctl, time.perf_counter() - t0, cap)
+    (f, fs, cap), (r, rs, _) = runs[True], runs[False]
+    check(f.rounds_run == r.rounds_run and f._graph is not None and r.dispatches == 0,
+          f"{name}: fused {f.rounds_run} rounds, per-round {r.rounds_run}")
+    n, _ = equal_trees(f"{name}, fused vs per-round", final_trees(f), final_trees(r))
+    print(f"{name}: fused and per-round trees equal on all {n} leaves after {f.rounds_run} "
+          f"rounds ({f.dispatches} dispatches, {f.dispatch_syncs} fetches; fused "
+          f"{fs:.6f} s{capture_note(cap)}, per-round {rs:.6f} s)", flush=True)
+    return f
+
+
+def fused_grid():
+    """The reference's grid of check cadences and dispatch sizes on the two
+    small jobs: the captured dispatch equals the per-round path in rounds
+    and trees, with ceil(rounds / k) dispatches."""
+    from repro_torch import snn
+    from repro_torch.core import segmentation as sg
+    from repro_torch.core.controller import Controller
+    from repro_torch.vp import workloads as wl
+
+    layer = wl.Layer("mega", "t", 8, 8, 4)
+    cim = wl.cim_workload(layer, mgr_segments=[0, 1], cim_ids_per_mgr={0: (0, 1), 1: (2, 3)})
+    small = snn.snn_inference_job((16, 12, 8), t_steps=6, rate=0.6, seed=5)
+    jobs = {
+        "cim 8x8x4 uniform": (lambda: sg.build(
+            sg.uniform(2, 2), programs=cim["programs"], dram_words=cim["dram"],
+            crossbars=cim["crossbars"], scratch_init=cim["scratch"], channel_latency=500), 500),
+        "snn 16x12x8": (lambda: snn.build_snn(
+            small.layers, snn.segmentation_for(2, "uniform", n_segments=2),
+            small.raster)[:3], 32),
+    }
+    for name, (make, quantum) in jobs.items():
+        per_round = {}
+        for check_every, k in FUSED_GRID:
+            if check_every not in per_round:
+                ctl = Controller(*make(), quantum=quantum)
+                ctl.run(max_rounds=MAX_ROUNDS, check_every=check_every, fused=False)
+                per_round[check_every] = final_trees(ctl), ctl.rounds_run
+            ctl = Controller(*make(), quantum=quantum)
+            ctl.run(max_rounds=MAX_ROUNDS, check_every=check_every, rounds_per_dispatch=k)
+            want, rounds = per_round[check_every]
+            check(ctl.rounds_run == rounds and ctl.dispatches == -(-rounds // k),
+                  f"{name} check_every={check_every} k={k}: {ctl.rounds_run} rounds in "
+                  f"{ctl.dispatches} dispatches, per-round {rounds}")
+            equal_trees(f"{name} check_every={check_every} k={k}", final_trees(ctl), want)
+        print(f"{name}: captured dispatch equals per-round over (check_every, k) "
+              f"{FUSED_GRID}", flush=True)
+
+
+def fused_sync_free(name, make, k):
+    """One whole fused run() of dispatches of ``k`` rounds under
+    sync-debug "error", with only the dispatch fetch let through: one sync
+    per dispatch."""
+    from repro_torch.core import controller as ctl_mod
+
+    ctl = make()
+    ctl.capture()
+    torch.cuda.synchronize()
+    real, fetches = ctl_mod._HOST_FETCH, []
+
+    def fetch(x):
+        fetches.append(1)
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return real(x)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    ctl_mod._HOST_FETCH = fetch
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ctl.run(max_rounds=MAX_ROUNDS, check_every=CHECK_EVERY, rounds_per_dispatch=k)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        ctl_mod._HOST_FETCH = real
+    check(ctl._finished and len(fetches) == ctl.dispatch_syncs == ctl.dispatches > 1,
+          f"{name}: {len(fetches)} fetches, {ctl.dispatch_syncs} syncs, "
+          f"{ctl.dispatches} dispatches")
+    print(f"{name}: a whole fused run() of {ctl.rounds_run} rounds under "
+          f"set_sync_debug_mode('error'), {ctl.dispatches} dispatches of {k} rounds, one "
+          "host fetch each and no other sync", flush=True)
+
+
+def dispatch_past_stop(fig5):
+    """fig5snn (28 rounds) in one dispatch of 256 rounds against one of 28,
+    in turns, each on a fresh captured controller: the WHILE node stops on
+    the card at ``done``, so the 228 rounds past the stop cost nothing (run
+    and discarded, they would add ~130 ms to ~17 ms)."""
+    from repro_torch.core.controller import Controller
+
+    walls = {28: [], 256: []}
+    for k in (28, 256, 28, 256):
+        ctl = Controller(*build(fig5, "uniform", None, None)[:3], quantum=QUANTUM)
+        ctl.capture()
+        t0 = time.perf_counter()
+        ctl.run(max_rounds=MAX_ROUNDS, check_every=CHECK_EVERY, rounds_per_dispatch=k)
+        walls[k].append(time.perf_counter() - t0)
+        check(ctl.rounds_run == FIG5SNN["rounds"] and ctl.dispatches == 1,
+              f"fig5snn k={k}: {ctl.rounds_run} rounds, {ctl.dispatches} dispatches")
+    short, long = statistics.mean(walls[28]), statistics.mean(walls[256])
+    print(f"fig5snn in one dispatch of 256 rounds {[round(w, 6) for w in walls[256]]} s "
+          f"against 28 {[round(w, 6) for w in walls[28]]} s: {(long - short) * 1e6:.1f} us "
+          "more", flush=True)
+    check(long < 1.25 * short, f"fig5snn: a 256-round dispatch took {long:.6f} s against "
+          f"{short:.6f} s for 28 rounds: the rounds past the stop are not free")
+
+
+def fused_timing(name, make, rounds, card):
+    """Fused against per-round in turns (per-round, fused, fused, per-round,
+    per-round, fused), each run on a fresh controller, the fused ones
+    captured before the clock starts: the wall per round, and the device
+    span per round (CUDA events around the run: the time from the stream's
+    first op of the run to its last, idle gaps included); then one profile
+    of each."""
+    walls, spans, caps = {True: [], False: []}, {True: [], False: []}, []
+    for fused in (False, True, True, False, False, True):
+        ctl = make()
+        if fused:
+            caps.append(ctl.capture())
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        ctl.run(max_rounds=MAX_ROUNDS, check_every=CHECK_EVERY, fused=fused)
+        end.record()
+        walls[fused].append((time.perf_counter() - t0) / ctl.rounds_run)
+        end.synchronize()
+        spans[fused].append(start.elapsed_time(end) * 1e3 / ctl.rounds_run)
+        check(ctl.rounds_run == rounds, f"{name}: {ctl.rounds_run} rounds, want {rounds}")
+    us = {f: [round(w * 1e6, 1) for w in ws] for f, ws in walls.items()}
+    fused, per_round = statistics.mean(walls[True]), statistics.mean(walls[False])
+    print(f"{name} wall per round ({card}): fused {fused * 1e6:.1f} us {us[True]}, "
+          f"per-round {per_round * 1e6:.1f} us {us[False]}, per-round / fused "
+          f"{per_round / fused:.3f}; device span per round fused "
+          f"{[round(x, 1) for x in spans[True]]} us, per-round "
+          f"{[round(x, 1) for x in spans[False]]} us; captures "
+          f"{[round(c, 3) for c in caps]} s", flush=True)
+    profile_phase(f"{name} fused", make, fused * rounds, fused=True)
+    profile_phase(f"{name} per-round", make, per_round * rounds, fused=False)
+
+
+def fused_dispatch_phase(card):
+    """The captured round loop against the per-round path on the main
+    paths' jobs and the reference's grid, a whole run under sync-debug
+    "error", the rounds past the stop, and the timing in turns."""
+    from repro_torch import faults, snn
+    from repro_torch.core.controller import Controller
+
+    fig5 = snn.snn_inference_job(FIG5SNN["sizes"], t_steps=24, rate=0.5, seed=2)
+    fx = snn.snn_inference_job(FULLXBAR["sizes"], t_steps=24, rate=0.5, seed=2)
+
+    def faulted(kw, **caps):
+        return lambda: Controller(*build(fx, "uniform", FULLXBAR["in_cap"], None,
+                                         faults=faults.FaultConfig(**kw), **caps)[:3],
+                                  quantum=QUANTUM)
+
+    drop = next(t for t in FULLXBAR_FAULTS if t[0] == "drop")
+    jobs = [("fig5snn uniform", lambda: Controller(*build(fig5, "uniform", None, None)[:3],
+                                                   quantum=QUANTUM), MAX_ROUNDS),
+            ("fullxbar uniform", lambda: fullxbar_controller(fx), MAX_ROUNDS),
+            ("Googlenet-conv1 uniform/cim", dense_controller, 2000),
+            ("fullxbar uniform under all fault families", faulted(ALL_FAULTS), MAX_ROUNDS),
+            ("fullxbar uniform, drop policy", faulted(drop[1], **drop[3]), MAX_ROUNDS)]
+    for name, make, max_rounds in jobs:
+        fused_vs_per_round(name, make, max_rounds)
+    fused_grid()
+    fused_sync_free("fullxbar uniform", lambda: fullxbar_controller(fx), 8)
+    fused_sync_free("Googlenet-conv1 uniform/cim", dense_controller, 3)
+    dispatch_past_stop(fig5)
+    fused_timing("fullxbar uniform", lambda: fullxbar_controller(fx), FULLXBAR["rounds"], card)
+    fused_timing("Googlenet-conv1 uniform/cim", dense_controller, DENSE_TARGETS[0][4], card)
 
 
 # ---------------------------------------------------------------------------
@@ -1929,6 +2254,16 @@ def main():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
     print(f"slot_scan global loads in SASS: {global_loads('slot_scan')}", flush=True)
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import snn
+
+    # start the profiler once before any dispatch graph is built: in this
+    # script's runs, the profile of a WHILE graph built before its first
+    # start held the kernels of the first iteration of each launch only
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
+    graph_phase(snn.snn_inference_job(FULLXBAR["sizes"], t_steps=24, rate=0.5, seed=2))
 
     phase("1 kernels against their plain versions")
     rows = [kernel_phase(), lif_faults_phase(), xbar_phase(), xbar_faults_phase()]
@@ -1939,21 +2274,20 @@ def main():
     phase("2 fig5snn")
     fig5snn_phase()
     phase("3 fullxbar (the spiking path at full width)")
-    launches, job, uniform_s = fullxbar_phase()
-    profile_phase("fullxbar uniform", lambda: fullxbar_controller(job), uniform_s)
+    launches, job = fullxbar_phase()
     phase("4 no host sync inside a spiking round")
     sync_free_phase("fullxbar", lambda: fullxbar_controller(job))
     phase("5 dense: card against CPU, slot_scan against its plain version")
     dense_cpu_phase()
     rows.append(scan_phase())
     phase("6 dense main path: the Table III targets")
-    dense_launches, g1_s = dense_phase()
-    launches.update(dense_launches)
-    profile_phase("Googlenet-conv1 uniform/cim", dense_controller, g1_s)
+    launches.update(dense_phase())
     sync_free_phase("Googlenet-conv1 uniform/cim", dense_controller)
     phase("7 faults: the fault path against the reference's numbers")
     launches.update(faults_main_path())
     faults_checks()
+    phase("7b fused dispatch: the captured round loop against the per-round path")
+    fused_dispatch_phase(card)
     phase("8 falcon-mamba-7b serving through the ssm_scan kernel")
     rows.extend(ssm_scan_phase())
     falcon_jax_phase()

@@ -217,7 +217,7 @@ def fidelity(counts, expected) -> float:
 def degradation_sweep(job, rates, *, fault_kind="transport", seed=0,
                       strategy="uniform", n_segments=2, n_units=None,
                       backend="vmap", quantum=32, max_rounds=2000,
-                      check_every=2, fused=None, on_overflow="raise",
+                      check_every=2, fused=True, on_overflow="raise",
                       base=None, device=None, **build_kw):
     """Accuracy-vs-fault-rate curve for an SNN job: for each rate, build
     the platform with a ``FaultConfig`` scaled to that rate, run it to
@@ -226,10 +226,8 @@ def degradation_sweep(job, rates, *, fault_kind="transport", seed=0,
     (p_spike_drop), "crossbar" (p_stuck0) or "neuron" (p_dead); ``base``
     seeds every other field.
 
-    The reference's signature, except that ``fused`` defaults to None and
-    is passed to ``Controller.run``: the port has no fused dispatch yet
-    (ROADMAP module item 5a), and per-round runs give the fused results.
-    ``device`` (default: the GPU) is where each run happens.
+    The reference's signature, plus ``device`` (default: the GPU), where
+    each run happens.
 
     Returns one dict per rate: ``{"rate", "fidelity", "total_spikes",
     "rounds", "counts"}``.

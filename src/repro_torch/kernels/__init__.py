@@ -1,6 +1,40 @@
 """The port's hand-written kernels: CUDA sources in ``csrc/``, each with a
 plain PyTorch version (``<name>/ref.py``) and a wrapper (``<name>/ops.py``).
 Below, what the wrappers of the fused quantum-boundary kernels share."""
+import torch
+
+# kernel name -> {device index: int32 (2,) launch counts on that card}
+_CARD_COUNTS = {}
+
+
+def card_counts(name, device):
+    """The launch counts of kernel ``name`` on the card ``device``: an int32
+    tensor [clean, fault variant] that the kernel itself adds one to when it
+    runs (block 0, thread 0), so a captured graph's replays count as the
+    launches they are; a wrapper's ``.launches`` counts only the launches it
+    issues from the host.  Made at the kernel's first launch on the card,
+    which must not be inside a capture (the graph would replay its reset)."""
+    counts = _CARD_COUNTS.setdefault(name, {})
+    if device.index not in counts:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{name}: launch the kernel once before capturing it")
+        counts[device.index] = torch.zeros(2, dtype=torch.int32, device=device)
+    return counts[device.index]
+
+
+def read_card_counts(reset=False):
+    """{kernel name: (clean, fault variant)} launches counted on the card
+    (summed over cards; one host read each); with ``reset``, the counts
+    are set to 0 after the read."""
+    out = {}
+    for name, counts in _CARD_COUNTS.items():
+        total = [0, 0]
+        for x in counts.values():
+            total = [a + b for a, b in zip(total, x.tolist())]
+            if reset:
+                x.zero_()
+        out[name] = tuple(total)
+    return out
 
 
 def unit_rows(x):

@@ -13,8 +13,10 @@ the fault variant.
 ``finish_ops`` is the whole quantum-boundary completion of
 ``vp/cim.finish_ops`` (the ``done`` gate, the VMM, the selects) in one
 launch of the same source's fused kernel, with its own ``launches`` and
-``fault_launches``, so a run can show that its dense completions went
-through it.
+``fault_launches`` (the launches issued from the host); the kernel also
+counts its runs on the card (``kernels.card_counts("finish_ops",
+device)``), so a run whose rounds replay a captured graph can show that its
+dense completions went through it.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, check_inputs, unit_rows
+from repro_torch.kernels import build, card_counts, check_inputs, unit_rows
 from repro_torch.kernels.crossbar_vmm import ref
 from repro_torch.vp import isa
 
@@ -135,7 +137,7 @@ crossbar_vmm_batch.fault_launches = 0
 # FinishArgs: cims fields per unit, t_end, per-unit arrays, then the outputs
 FINISH_UNIT = ("present", "state", "busy_until", "op_done_at", "ops", "in_count")
 FINISH_POINTERS = (FINISH_UNIT + ("t_end", "weights", "f_and", "f_xor", "in_buf", "out_buf")
-                   + tuple(f + "_out" for f in ref.FINISH_OUTPUTS) + ("done",))
+                   + tuple(f + "_out" for f in ref.FINISH_OUTPUTS) + ("done", "launches"))
 
 
 def _finish_launcher(faults: bool):
@@ -172,7 +174,8 @@ def _finish_arguments(cims, t_end):
                  strided=("in_buf",))
     new = {f: torch.empty(cims[f].shape, dtype=_I32, device=dev) for f in ref.FINISH_OUTPUTS}
     done = torch.empty(unit, dtype=torch.bool, device=dev)
-    tensors.update({f + "_out": x for f, x in new.items()}, done=done)
+    tensors.update({f + "_out": x for f, x in new.items()}, done=done,
+                   launches=card_counts("finish_ops", dev))
     ptrs = (ctypes.c_void_p * len(FINISH_POINTERS))(
         *(None if tensors[f] is None else tensors[f].data_ptr() for f in FINISH_POINTERS))
     faulted = tensors["f_and"] is not None or tensors["f_xor"] is not None

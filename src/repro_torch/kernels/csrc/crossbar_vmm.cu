@@ -173,6 +173,7 @@ struct FinishArgs {
   const int32_t *in_buf, *out_buf;
   int32_t *out_buf_out, *state_out, *op_done_out, *ops_out, *in_count_out;
   uint8_t* done;
+  int32_t* launches;  // [clean, kFaults] launch counts on the card, or null
 };
 
 FinishArgs finish_args(const void* const* p) {
@@ -190,6 +191,7 @@ FinishArgs finish_args(const void* const* p) {
                       &a.in_count_out};
   for (int k = 0; k < 5; ++k) *outs[k] = (int32_t*)p[12 + k];
   a.done = (uint8_t*)p[17];
+  a.launches = (int32_t*)p[18];
   return a;
 }
 
@@ -209,6 +211,7 @@ __global__ void finish_ops_kernel(FinishArgs a, int n_slots, int R, int C, long 
                                   int out_res) {
   __shared__ int32_t xs[kXbar];  // the clipped input vector
   const int u = blockIdx.y, t = threadIdx.x;
+  if (a.launches != nullptr && blockIdx.x == 0 && u == 0 && t == 0) atomicAdd(a.launches + kFaults, 1);
   const int row0 = blockIdx.x * kWarpsPerBlock;
   const size_t ur = (size_t)u * R;
   const int32_t* x = a.in_buf + (u / n_slots) * in_s0 + (u % n_slots) * in_s1;
@@ -306,8 +309,9 @@ extern "C" int crossbar_vmm_faults_launch(const void* w, const void* f_and,
                       out_res, stream);
 }
 
-// The fused quantum-boundary completion: ``p`` holds 18 pointers in
-// FinishArgs' order (null for an absent mask).  U = S * n_slots units, unit
+// The fused quantum-boundary completion: ``p`` holds 19 pointers in
+// FinishArgs' order (null for an absent mask; the last, the launch counts,
+// which block (0, 0) adds one to, null when not counted).  U = S * n_slots units, unit
 // u of segment u / n_slots; C <= 256 (the block stages C inputs in its 256
 // threads).  in_buf may be strided over its two leading axes: unit u's C
 // inputs start at in_buf + (u / n_slots) * in_s0 + (u % n_slots) * in_s1

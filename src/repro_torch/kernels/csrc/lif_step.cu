@@ -234,6 +234,7 @@ struct TickArgs {
   const int32_t* dth;
   int32_t *v_out, *r_out, *in_out, *counts_out, *total_out, *ticks_out, *next_out;
   uint8_t *fired_rows, *fire;
+  int32_t* launches;  // [clean, kFaults] launch counts on the card, or null
 };
 
 TickArgs tick_args(const void* const* p) {
@@ -258,6 +259,7 @@ TickArgs tick_args(const void* const* p) {
   for (int k = 0; k < 7; ++k) *outs[k] = (int32_t*)p[22 + k];
   a.fired_rows = (uint8_t*)p[29];
   a.fire = (uint8_t*)p[30];
+  a.launches = (int32_t*)p[31];
   return a;
 }
 
@@ -288,6 +290,7 @@ __global__ void __cluster_dims__(kTickBlocks, 1, 1) __launch_bounds__(kTickThrea
   __shared__ unsigned block_fired;
   cg::cluster_group cluster = cg::this_cluster();
   const int u = blockIdx.y, t = threadIdx.x;
+  if (a.launches != nullptr && blockIdx.x == 0 && u == 0 && t == 0) atomicAdd(a.launches + kFaults, 1);
   const int row = (int)cluster.block_rank() * kRowsPerBlock + t;  // thread t < 32's row and column
   const bool has_row = t < kRowsPerBlock && row < R, has_col = t < kRowsPerBlock && row < C;
   const size_t ur = (size_t)u * R, uc = (size_t)u * C;
@@ -464,8 +467,9 @@ extern "C" int lif_step_faults_launch(
                       stream);
 }
 
-// The fused quantum-boundary tick: ``p`` holds 31 pointers in TickArgs'
-// order (null for an absent extra or fault input).  U = S * n_slots units,
+// The fused quantum-boundary tick: ``p`` holds 32 pointers in TickArgs'
+// order (null for an absent extra or fault input; the last, the launch
+// counts, which block (0, 0) adds one to, null when not counted).  U = S * n_slots units,
 // one cluster of 8 blocks each (U <= 65535); unit u belongs to segment
 // u / n_slots.  R, C <= 256.
 // in_buf may be strided over its two leading axes: unit u's C spike counts

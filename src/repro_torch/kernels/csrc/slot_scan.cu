@@ -78,6 +78,8 @@ enum Ptr {
   // scratch: (S, 2 * store_log + 1), the store log's addresses and data,
   // then the count of fast-forwarded slots
   P_LOG,
+  // the launch counts on the card, which block 0 adds one to (or null)
+  P_LAUNCHES,
   N_PTRS
 };
 
@@ -450,6 +452,7 @@ __device__ void run_segment(const Params& P, int s, int32_t* scratch,
 __global__ void slot_scan_kernel(const Params P) {
   extern __shared__ uint4 sh[];
   const int s = blockIdx.x;
+  if (P.p[P_LAUNCHES] != nullptr && s == 0 && threadIdx.x == 0) atomicAdd(ptr<int32_t>(P, P_LAUNCHES), 1);
   const int sw = P.n[I_SCRATCH_WORDS], pw = P.n[I_PROG_WORDS];
   const int isets = P.n[I_ISET_MASK] + 1, dsets = P.n[I_DSET_MASK] + 1;
   uint4* table = sh;

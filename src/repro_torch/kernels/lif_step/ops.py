@@ -11,8 +11,10 @@ kernel's fault variant runs, each absent input passed as null (neutral).
 
 ``snn_tick`` is the whole quantum-boundary tick of ``vp/cim.snn_tick`` (the
 fire gate, the step, the selects and counters) in one launch of the same
-source's fused kernel, with its own ``launches`` and ``fault_launches``, so
-a run can show that its ticks went through it.
+source's fused kernel, with its own ``launches`` and ``fault_launches``
+(the launches issued from the host); the kernel also counts its runs on
+the card (``kernels.card_counts("snn_tick", device)``), so a run whose
+rounds replay a captured graph can show that its ticks went through it.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, check_inputs, unit_rows
+from repro_torch.kernels import build, card_counts, check_inputs, unit_rows
 from repro_torch.kernels.lif_step import ref
 from repro_torch.vp import isa
 
@@ -113,7 +115,7 @@ TICK_UNIT = ("present", "mode", "tick_period", "next_tick", "tick_limit", "ticks
              "thresh", "leak", "refrac_period", "spikes_total")
 TICK_ROWS = ("weights", "in_buf", "v", "refrac", "spike_counts")
 TICK_POINTERS = (TICK_UNIT + ("t_gate",) + TICK_ROWS + ("extra",) + ref.TICK_FAULTS
-                 + tuple(f + "_out" for f in ref.TICK_OUTPUTS) + ("fired_rows", "fire"))
+                 + tuple(f + "_out" for f in ref.TICK_OUTPUTS) + ("fired_rows", "fire", "launches"))
 
 
 def _tick_launcher(faults: bool):
@@ -152,7 +154,8 @@ def _tick_arguments(cims, t_gate, extra):
     new = {f: torch.empty(cims[f].shape, dtype=_I32, device=dev) for f in ref.TICK_OUTPUTS}
     fired_rows = torch.empty(rows, dtype=torch.bool, device=dev)
     fire = torch.empty(unit, dtype=torch.bool, device=dev)
-    tensors.update({f + "_out": x for f, x in new.items()}, fired_rows=fired_rows, fire=fire)
+    tensors.update({f + "_out": x for f, x in new.items()}, fired_rows=fired_rows, fire=fire,
+                   launches=card_counts("snn_tick", dev))
     ptrs = (ctypes.c_void_p * len(TICK_POINTERS))(
         *(None if tensors[f] is None else tensors[f].data_ptr() for f in TICK_POINTERS))
     faulted = any(tensors[f] is not None for f in ref.TICK_FAULTS)

@@ -4,8 +4,10 @@ every segment, then the in-order DRAM store log.
 ``slot_scan`` takes the plain version's signature (``ref.py``).  A CPU
 state runs the plain per-slot loop; a CUDA state launches the hand-written
 kernel ``kernels/csrc/slot_scan.cu`` on the current stream, or raises —
-there is no fallback.  ``slot_scan.launches`` counts kernel launches, so a
-run can show that its slots went through the kernel.
+there is no fallback.  ``slot_scan.launches`` counts the launches issued
+from the host; the kernel also counts its runs on the card
+(``kernels.card_counts("slot_scan", device)``), so a run whose rounds
+replay a captured graph can show that its slots went through the kernel.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, card_counts
 from repro_torch.kernels.slot_scan import ref
 
 _I32 = torch.int32
@@ -32,7 +34,7 @@ POINTERS = (
     "o_ihits", "o_imisses", "o_dtags", "o_dhits", "o_dmisses", "o_last_row",
     "o_last_write", "o_reads", "o_writes", "o_scratch", "o_instrs",
     "o_mmio_late", "o_store_peak",
-    "log",
+    "log", "launches",
 )
 INTS = (
     "quantum", "out_cap", "store_log", "n_cim", "dram_segment", "cpi",
@@ -182,6 +184,7 @@ def slot_scan(cfg, quantum: int, st, outbox, t_limit, cim_seg, cim_slot):
     if dev.type != "cuda":
         raise ValueError(f"slot_scan runs on cpu or cuda, not {dev}")
     tensors, ints = _arguments(cfg, quantum, st, outbox, t_limit, cim_seg, cim_slot)
+    tensors["launches"] = card_counts("slot_scan", dev)
     ptrs = (ctypes.c_void_p * len(POINTERS))(*(tensors[k].data_ptr() for k in POINTERS))
     vals = (ctypes.c_int * len(INTS))(*(int(ints[k]) for k in INTS))
     fn = _launcher()

@@ -11,9 +11,11 @@ the step with live RISC-V CPUs (``has_cpu=True``: the MMIO/DMA inbox, the
 instruction-slot scan and dense CIM completion).  A spiking platform
 takes the step with CPUs only as the fallback for a hand-injected MMIO/DMA
 message, with every CPU halted: hybrid jobs (live CPUs beside ticking
-units, the spike-count readback) come with ROADMAP module item 8.  A round contains no host sync — no ``.item()``,
-``nonzero`` or boolean-mask indexing — so it can later be captured as a
-CUDA graph.
+units, the spike-count readback) come with ROADMAP module item 8.  A
+round contains no host sync and no host-to-device copy — no ``.item()``,
+``nonzero`` or boolean-mask indexing — so the fused dispatch captures it
+as a CUDA graph (``core/controller.py``); the CIM wiring tables are copied
+to the device at a round's first call, which the capture's warm-up makes.
 """
 from __future__ import annotations
 

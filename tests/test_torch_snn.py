@@ -155,21 +155,17 @@ def _outside_the_slice():
         "threads": lambda: ctl(backend="threads"),
         "shard_map": lambda: ctl(backend="shard_map"),
         "obs": lambda: ctl(obs=object()),
-        "fused": lambda: ctl().run(fused=True),
         # live CPUs beside spike-mode units: a hybrid job (ROADMAP item 8)
         "programs": lambda: sg.build(descs, programs={0: "halt"},
                                      cim_init=spike_units, device="cpu"),
-        # faults are ported; what stays refused is fused dispatch in the
-        # sweep that drives them (ROADMAP item 5a)
-        "faults": lambda: snn.degradation_sweep(job, (0.1,), fused=True, device="cpu"),
         "traffic": lambda: snn.auto_segmentation_for(job.layers, traffic=np.eye(2)),
         "counts_request": lambda: hybrid(ch.MSG_W_CIM, isa.CIM_REG_COUNTS, False),
         "live_cpu": lambda: hybrid(ch.MSG_W_SCRATCH, 7, True),
     }
 
 
-@pytest.mark.parametrize("option", ["threads", "shard_map", "obs", "fused", "programs",
-                                    "faults", "traffic", "counts_request", "live_cpu"])
+@pytest.mark.parametrize("option", ["threads", "shard_map", "obs", "programs", "traffic",
+                                    "counts_request", "live_cpu"])
 def test_options_outside_the_slice_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _outside_the_slice()[option]()
