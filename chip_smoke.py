@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's paths through the hand-written CUDA kernels — a
-spiking job built by ``snn.build_snn`` on a CPU-free platform, the paper's
+Drives the port's paths through the hand-written CUDA kernels — spiking
+jobs built by ``snn.build_snn`` on CPU-free platforms (feed-forward, wide
+with column groups, recurrent, placed by traffic), the paper's
 dense VMM offload on live RISC-V CPUs built by
 ``segmentation.build(programs=...)``, and both under seeded fault
 injection (``faults=FaultConfig(...)``), each run to completion by
@@ -28,7 +29,12 @@ and fails (non-zero exit, no result line) unless every phase holds:
      (every gate branch, 1, 2 and 4 segments), at fullxbar's shape with all,
      some and no units firing and at Googlenet-conv1's with 0, 1 and 4 units
      done, with their times there, and the launch floor (one elementwise op
-     in the same harness);
+     in the same harness); the grouped tick of wide layers' column groups
+     (``snn_tick(grouped=True)``) and its fault variant bit-equal to the
+     plain grouped tick at full-width tiles (two segments, each a 3-wide
+     group beside a single unit: all, the group alone and none firing, timed
+     there), at the wide job's own units and at the mixed states with
+     ``owner_slot`` drawn over every branch;
   2. ``fig5snn`` (128x96x64x10, T=24): 2045 spikes in 28 rounds under three
      placements and both backends, the oracle's output counts, one fused
      tick launch per round (per segment on ``sequential``), and a CPU rerun
@@ -75,6 +81,21 @@ and fails (non-zero exit, no result line) unless every phase holds:
      rounds past the stop are skipped on the card); fused against
      per-round wall per round in turns on fullxbar and Googlenet-conv1,
      with profiles;
+  9. (run before 8) wide and recurrent networks at the sizes of
+     ``benchmarks/bench_snn.py``'s scenarios: the wide job (128x600x64, T=10:
+     a 3-tile column group beside three row stripes on 6 units) gives 2806
+     spikes and the oracle's counts in 14 rounds under the naive placement
+     and under the traffic-aware one that ``measure_traffic`` of the naive
+     run and ``auto_segmentation_for(traffic=...)`` make (2 segments), on
+     ``vmap`` and ``sequential`` with equal trees, fused equal to per-round,
+     with its wall per round, spikes/s, the sequential/vmap ratio and a
+     profile; under each fault family of phase 7 it reproduces the
+     reference's counts and fidelities with card and CPU trees equal; the
+     recurrent job (96x80x24, T=16) gives 681 spikes over 24 ticks in 22
+     rounds under uniform, load-oriented and auto placement (4, 4 and 2
+     segments) on both backends, and the skip job its oracle's 246; every
+     grouped round launches the grouped tick once (once per segment on
+     ``sequential``), counted on the card;
   8. falcon-mamba-7b serving: ``ssm_scan`` (unfused) and
      ``ssm_scan_fused`` (the Mamba-1 expansion inside the scan) against
      their plain versions on the card (a prefill chunk, or the whole
@@ -89,7 +110,7 @@ and fails (non-zero exit, no result line) unless every phase holds:
      chunk, 1088 launches) and with the plain scan, profiles of a prefill
      and a decode step, and one decode step under sync-debug "error".
 
-A VP main path's kernel launches (phases 2, 3, 6 and 7) are counted on
+A VP main path's kernel launches (phases 2, 3, 6, 7 and 9) are counted on
 the card: the fused tick, the fused completion and the slot scan each add
 one to a device counter when they run (``kernels.card_counts``), since the
 captured dispatch replays them without calling their wrappers, whose
@@ -128,8 +149,8 @@ STRATEGIES = ("uniform", "load_oriented", "auto")
 FIG5SNN = dict(sizes=(128, 96, 64, 10), spikes=2045, rounds=28, in_cap=None)
 FULLXBAR = dict(sizes=(256,) * 9, spikes=24502, rounds=34, in_cap=8192)
 KERNELS = ["lif_step", "lif_step_faults", "crossbar_vmm", "crossbar_vmm_faults",
-           "snn_tick", "snn_tick_faults", "finish_ops", "finish_ops_faults",
-           "slot_scan", "ssm_scan", "ssm_scan_fused"]
+           "snn_tick", "snn_tick_faults", "snn_tick_grouped", "snn_tick_grouped_faults",
+           "finish_ops", "finish_ops_faults", "slot_scan", "ssm_scan", "ssm_scan_fused"]
 SOURCES = ["lif_step", "crossbar_vmm", "slot_scan", "ssm_scan",  # kernels/csrc/<name>.cu
            "dispatch_graph"]
 
@@ -157,6 +178,8 @@ FUSED_GRID = [(1, 1), (2, 3), (3, 64), (4, 2), (1, 256)]
 # fused completion and the slot scan count their own runs on the card
 # (kernel, variant), the unfused step and VMM are counted by their wrappers
 CARD_COUNTED = {"snn_tick": ("snn_tick", 0), "snn_tick_faults": ("snn_tick", 1),
+                "snn_tick_grouped": ("snn_tick_grouped", 0),
+                "snn_tick_grouped_faults": ("snn_tick_grouped", 1),
                 "finish_ops": ("finish_ops", 0), "finish_ops_faults": ("finish_ops", 1),
                 "slot_scan": ("slot_scan", 0)}
 COUNTED = tuple(CARD_COUNTED) + ("lif_step", "lif_step_faults", "crossbar_vmm",
@@ -224,6 +247,26 @@ HIGH_FAULTS = dict(seed=3, p_stuck0=0.3, p_stuck1=0.2, p_bitflip=0.3, p_dead=0.3
                    p_thresh_drift=0.5)
 FAULT_INPUTS = ("f_and", "f_xor", "dead", "dth")
 
+# phase 9: the wide and recurrent scenarios of benchmarks/bench_snn.py at
+# their sizes (BENCH_pr9.json's counts), and the skip job; the JAX package's
+# numbers (per-round vmap dispatch, quantum 32, check_every=2)
+WIDE = dict(sizes=(128, 600, 64), t_steps=10, rate=0.4, seed=4, spikes=2806, units=6,
+            rounds=14, naive_segments=4, traffic_segments=2)
+# (label, FaultConfig kwargs) -> (rounds, spikes, dropped, duped, outbox
+# lost, inbox lost, fidelity) on the naive placement
+WIDE_FAULTS = [
+    ("crossbar", XBAR_FAULTS, (14, 2222, 0, 0, 0, 0, 0.6312056737588653)),
+    ("neuron", dict(seed=7, p_dead=0.2, p_thresh_drift=0.3),
+     (14, 2222, 0, 0, 0, 0, 0.6418439716312057)),
+    ("transport", dict(seed=7, p_spike_drop=0.1, p_spike_dup=0.05),
+     (14, 2637, 375, 189, 0, 0, 0.9184397163120568)),
+    ("mild", FULLXBAR_FAULTS[3][1], (14, 2666, 83, 38, 0, 0, 0.9113475177304965)),
+    ("all", ALL_FAULTS, (14, 1903, 329, 142, 0, 0, 0.4929078014184397)),
+]
+RECURRENT = dict(sizes=(96, 80, 24), t_steps=16, rate=0.5, seed=3, spikes=681, n_ticks=24,
+                 rounds=22, segments={"uniform": 4, "load_oriented": 4, "auto": 2})
+SKIP = dict(spikes=246, rounds=12)
+
 # phase 8: falcon-mamba-7b serving.  The scan's kernel-vs-plain cases:
 # (B, S, D, N), with h0, da drawn in [lo, hi)
 SCAN_CASES = [((4, 256, 8192, 16), False, (0.5, 0.999)),  # main-path prefill chunk
@@ -285,8 +328,11 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def _median_window_ms(run, reps, inner):
@@ -925,6 +971,177 @@ def fused_phase(kind):
                        # no single PyTorch call computes a gated quantum-boundary step
                        "library_ms": None}
     return [rows[name], rows[f"{name}_faults"]]
+
+
+# ---------------------------------------------------------------------------
+# phase 1b, grouped: the tick of wide layers' column groups
+
+GROUP_SHAPE = (2, 4)  # per segment: a 3-wide column group (owner at slot 0) and one unit
+GROUP_STATES = {"all": (True, True), "group": (True, False), "none": (False, False)}
+
+
+def group_state(state, seed):
+    """Full-width tiles in ``GROUP_SHAPE``: each segment's slots 1 and 2
+    forward their charge to slot 0 (``owner_slot``, rows 0), slot 3 is a
+    unit of its own; ``state`` names whether the group and the single unit
+    are due to tick.  Weights, spikes and membranes drawn from a seed."""
+    from repro_torch.vp import isa
+
+    group_fires, single_fires = GROUP_STATES[state]
+    s, n = GROUP_SHAPE
+    g = np.random.default_rng(seed)
+    c = cims_state(GROUP_SHAPE)
+    draw = lambda lo, hi, shape, dt=np.int32: torch.from_numpy(
+        g.integers(lo, hi, shape).astype(dt)).cuda()
+    c["present"][:] = True
+    c["mode"][:] = isa.CIM_MODE_SPIKE
+    c["tick_period"][:] = 32
+    c["owner_slot"][:] = torch.tensor([0, 0, 0, 3], dtype=torch.int32)
+    c["rows"][:] = torch.tensor([256, 0, 0, 256], dtype=torch.int32)
+    c["thresh"] = draw(100, 400, (s, n))
+    c["leak"] = draw(0, 4, (s, n))
+    c["refrac_period"][:] = 2
+    c["weights"] = draw(-8, 8, (s, n, 256, 256), np.int8)
+    c["in_buf"] = draw(0, 4, (s, n, 256))
+    c["v"] = draw(0, 60, (s, n, 256))
+    c["refrac"] = draw(0, 3, (s, n, 256))
+    c["spike_counts"] = draw(0, 20, (s, n, 256))
+    c["spikes_total"] = c["spike_counts"].sum(-1, dtype=torch.int32)
+    c["ticks"][:] = 5
+    due = torch.tensor([group_fires] * 3 + [single_fires], device="cuda").expand(s, n)
+    c["next_tick"] = torch.where(due, 160, 192).to(torch.int32)
+    return c, torch.full((s,), 192, dtype=torch.int32, device="cuda")
+
+
+def wide_tick_state(seed):
+    """The wide job's own units (``WIDE``, naive placement) as ``build_snn``
+    lays them out, every unit due to tick, spikes and membranes drawn from
+    a seed: a stripe beside the 3-tile column group whose owner has 64 rows."""
+    from repro_torch import snn
+
+    job = wide_job()
+    descs = snn.segmentation_for(job.layers, "uniform", n_segments=4)
+    c = snn.build_snn(job.layers, descs, job.raster, device="cuda")[1]["cims"]
+    g = np.random.default_rng(seed)
+    draw = lambda lo, hi, shape: torch.from_numpy(g.integers(lo, hi, shape).astype(np.int32)).cuda()
+    c = dict(c, in_buf=draw(0, 4, c["in_buf"].shape), v=draw(0, 60, c["v"].shape))
+    # every present unit is past its first tick's guard
+    return c, torch.full((c["present"].shape[0],), 1 << 30, dtype=torch.int32, device="cuda")
+
+
+def grouped_bound_ms(cims, fire):
+    """Least time for one grouped tick: ``tick_bound_ms``'s state bytes and
+    ``owner_slot``, the weights (and fault inputs) of the contractions this
+    state needs (a firing owner's and its firing contributors', each read
+    once; a contributor with no rows adds nothing of its own), 2*R*C int ops
+    per contraction."""
+    s, n = fire.shape
+    own, fw, rows = cims["owner_slot"].cpu().numpy(), fire.cpu().numpy(), cims["rows"].cpu().numpy()
+    contrib = own != np.arange(n)
+    needed = fw & ~(contrib & (rows <= 0))  # units that contract their own tile
+    reads = int(needed.sum())
+    target = np.where(own < 0, own + n, own)
+    for seg in range(s):
+        for m in range(n):
+            o = target[seg, m]
+            if contrib[seg, m] and fw[seg, m] and 0 <= o < n and fw[seg, o]:
+                reads += 1  # the owner contracts contributor m's tile
+                needed[seg, m] = True
+    u = s * n
+    per_tile = 256 * 256 + sum(cims[f][0, 0].numel() * cims[f].element_size()
+                               for f in TICK_FAULTS if f in cims)
+    nbytes = (u * (45 + 4 * 256 * 4) + 4 * s + int(needed.sum()) * per_tile
+              + u * (4 * 256 * 4 + 12 + 256 + 1))
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = 2 * reads * 256 * 256 / PEAK_INT8_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def grouped_phase():
+    """The grouped tick (``snn_tick(grouped=True)``) and its fault variant
+    against the plain grouped tick: at ``GROUP_SHAPE``'s full-width states
+    (the group and the single unit firing, the group alone, none), at the
+    wide job's own units, and at the tests' mixed-gate states with
+    ``owner_slot`` drawn over every branch (a contributor, an owner out of
+    range, a negative slot); under every fault input alone and all
+    together, and neutral inputs against the clean kernel; then the
+    full-width states' device times, the plain version's and the bound.
+    Returns the clean and faulted rows."""
+    from repro_torch.kernels.lif_step import ops as lops, ref as lref
+
+    wrap = lambda c, t: lops.snn_tick(c, t, grouped=True)
+    plain = lambda c, t: lref.snn_tick(c, t, grouped=True)
+    rows = {}
+    for faulted in (False, True):
+        label = "snn_tick_grouped" + ("_faults" if faulted else "")
+        max_err, times = 0, {}
+
+        def variants(cims, seed):
+            if not faulted:
+                return {"clean": cims}
+            out = {"all": with_faults(cims, seed)}
+            out.update({f: with_faults(cims, seed, f) for f in TICK_FAULTS})
+            return out
+
+        for s in (1, 2, 4):  # the tests' states, every gate and owner branch
+            cims, t = mixed_state("tick", s, 60 + s)
+            g = np.random.default_rng(70 + s)
+            cims["owner_slot"] = torch.from_numpy(
+                g.integers(-3, 3, (s, 2)).astype(np.int32)).cuda()
+            for given, c in variants(cims, s).items():
+                max_err = max(max_err, fused_check(f"{label} mixed S={s} {given}", wrap, plain,
+                                                   c, t)[1])
+        cims, t = wide_tick_state(80)
+        for given, c in variants(cims, 81).items():
+            got, err = fused_check(f"{label} wide job's units {given}", wrap, plain, c, t)
+            max_err = max(max_err, err)
+            check(bool(got[2][cims["present"]].all()), f"{label} wide job: every unit fires")
+        print(f"{label}: bit-equal to its plain version at the tests' mixed states (S in (1, "
+              f"2, 4), owner_slot drawn in [-3, 3)) and at the wide job's units"
+              + (", under every fault input alone and all together" if faulted else ""),
+              flush=True)
+        for k, state in enumerate(GROUP_STATES):
+            cims, t = group_state(state, 90 + k)
+            vs = variants(cims, 95 + k)
+            for given, c in vs.items():
+                got, err = fused_check(f"{label} {state} {given}", wrap, plain, c, t)
+                max_err = max(max_err, err)
+                want = torch.tensor([GROUP_STATES[state][0]] * 3 + [GROUP_STATES[state][1]],
+                                    device="cuda").expand(GROUP_SHAPE)
+                check(torch.equal(got[2], want), f"{label} {state}: the wrong units fire")
+                check(not bool(got[0]["v"][:, 1:3].any()), f"{label} {state}: contributors' v")
+            if faulted:
+                neutral = dict(cims, f_and=torch.full_like(cims["weights"], -1),
+                               f_xor=torch.zeros_like(cims["weights"]),
+                               f_dead=torch.zeros_like(cims["v"], dtype=torch.bool),
+                               f_dth=torch.zeros_like(cims["v"]))
+                a, b = wrap(neutral, t), wrap(cims, t)
+                check(tree_err(a[1:], b[1:]) == 0 and all(
+                    torch.equal(a[0][f], b[0][f]) for f in b[0]),
+                    f"{label} {state}: neutral inputs differ from the clean kernel")
+            c = vs["all" if faulted else "clean"]
+            fn = lambda: wrap(c, t)
+            ms = device_ms(fn)
+            plain_ms = device_ms(lambda: plain(c, t), reps=5, inner=4)
+            bound_ms, bound_by = grouped_bound_ms(c, wrap(c, t)[2])
+            times[state] = (ms, plain_ms, bound_ms, bound_by)
+            print(f"{label} (S, n) = {GROUP_SHAPE} x 256x256, {state} firing: device time "
+                  f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound {bound_ms:.6f} ms "
+                  f"({bound_by}); eager call through the wrapper {stream_ms(fn):.6f} ms",
+                  flush=True)
+        print(f"{label}: bit-equal to its plain version at every full-width state"
+              + (", under every fault input alone and all together; neutral inputs = the "
+                 "clean kernel" if faulted else ""), flush=True)
+        ms, plain_ms, bound_ms, bound_by = times["all"]
+        rows[label] = {"name": label, "route": "cuda",
+                       "source": "src/repro_torch/kernels/csrc/lif_step.cu",
+                       "replaces": ("src/repro/kernels/lif_step/kernel.py:55" if faulted
+                                    else "src/repro/kernels/lif_step/kernel.py:85"),
+                       "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       # no single PyTorch call computes a gated, grouped tick
+                       "library_ms": None}
+    return [rows["snn_tick_grouped"], rows["snn_tick_grouped_faults"]]
 
 
 # ---------------------------------------------------------------------------
@@ -2213,6 +2430,215 @@ def falcon_main_path():
     return {"ssm_scan_fused": main["launches"][0], "ssm_scan": main["launches"][1]}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: wide and recurrent networks
+
+
+def wide_job():
+    from repro_torch import snn
+
+    w = WIDE
+    return snn.snn_inference_job(w["sizes"], t_steps=w["t_steps"], rate=w["rate"],
+                                 seed=w["seed"])
+
+
+def placed_run(name, job, descs, placement=None, backend="vmap", device=None, fc=None,
+               count=True):
+    """Build ``job`` (its edges and tick horizon) on ``descs`` with
+    ``placement``, under ``fc`` (a FaultConfig) or none, and run it to
+    completion; a fault-free run must give the oracle's spikes and output
+    counts, and a counted one one tick launch per round (per segment on
+    ``sequential``) of the variant its platform takes: the grouped tick where
+    a column group is wired, the fault variant under crossbar or neuron
+    faults.  Returns (controller, meta, seconds, counts or None)."""
+    from repro_torch import snn
+    from repro_torch.core.controller import Controller
+
+    cfg, states, pending, meta = snn.build_snn(
+        job.layers, descs, job.raster, edges=job.edges, n_ticks=job.n_ticks,
+        placement=placement, device=device, faults=fc)
+    ctl = Controller(cfg, states, pending, backend=backend, quantum=QUANTUM, device=device)
+    cap = ready(ctl)
+    run = lambda: ctl.run(max_rounds=MAX_ROUNDS, check_every=CHECK_EVERY)
+    if count:
+        counts, secs = counted(run)
+    else:
+        counts, t0 = None, time.perf_counter()
+        run()
+        secs = time.perf_counter() - t0
+    st = ctl.result_states()
+    spikes = snn.total_spikes(st)
+    tick = "snn_tick_grouped" if cfg.snn_grouped else "snn_tick"
+    if fc is not None and (fc.has_xbar_faults or fc.has_neuron_faults):
+        tick += "_faults"
+    print(f"{name}/{backend} on {ctl.device.type}: segments {cfg.n_segments} x slots "
+          f"{cfg.n_cim_slots}, spikes {spikes}, rounds {ctl.rounds_run}, {tick} launches "
+          f"{'not counted' if counts is None else counts[tick]}, {secs:.6f} s, "
+          f"{secs / ctl.rounds_run * 1e6:.1f} us/round, {spikes / secs:.1f} spikes/s, "
+          f"{ctl.dispatches} dispatches{capture_note(cap)}", flush=True)
+    if fc is None:
+        check(spikes == job.expected_total, f"{name}/{backend}: {spikes} spikes, want "
+              f"{job.expected_total}")
+        check(np.array_equal(snn.output_spike_counts(st, meta), job.expected_counts),
+              f"{name}/{backend}: output counts differ from the oracle")
+    if counts is not None:
+        want = dict.fromkeys(COUNTED, 0)
+        per_round = 0 if ctl.device.type == "cpu" else (
+            cfg.n_segments if backend == "sequential" else 1)
+        want[tick] = per_round * ctl.rounds_run
+        check(counts == want, f"{name}/{backend}: launches {counts}, want {want}")
+    return ctl, meta, secs, counts
+
+
+def group_ticks(ctl, meta):
+    """The ticks of the wide job's column-group owner: the rounds in which
+    its group fired."""
+    info = next(g for g in meta["groups"] if g["group"].width > 1)
+    seg, slot = info["units"][0]
+    return int(ctl.result_states()["cims"]["ticks"][seg, slot])
+
+
+def wide_recurrent_phase():
+    """The wide job (a 3-tile column group and three row stripes) under the
+    naive placement and the traffic-aware one made from the naive run's
+    measured traffic, on both backends, with its times; the wide job under
+    each fault family on the card and on the host CPU; the recurrent job
+    under three placements and the skip job against their oracles.
+    Returns the grouped tick's launches on this main path."""
+    from repro_torch import faults, snn
+    from repro_torch.core.controller import Controller
+
+    launches = dict.fromkeys(COUNTED, 0)
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] += n
+
+    job = wide_job()
+    units = snn.n_units_for(job.layers)
+    check(job.expected_total == WIDE["spikes"] and units == WIDE["units"],
+          f"wide oracle: {job.expected_total} spikes on {units} units")
+    naive = snn.segmentation_for(job.layers, "uniform", n_segments=4)
+    placements = {"naive": (naive, None)}
+    ctls, group_rounds, grouped_rounds = {}, 0, 0
+    for name in ("naive", "traffic_aware"):
+        descs, placement = placements[name]
+        for backend in ("vmap", "sequential"):
+            ctl, meta, _, counts = placed_run(f"wide {name}", job, descs, placement, backend)
+            add(counts)
+            check(ctl.cfg.snn_grouped and ctl.rounds_run == WIDE["rounds"],
+                  f"wide {name}/{backend}: {ctl.rounds_run} rounds, want {WIDE['rounds']}")
+            ctls[name, backend] = ctl
+            grouped_rounds += ctl.rounds_run
+            group_rounds += group_ticks(ctl, meta)
+        n, _ = equal_trees(f"wide {name}, vmap vs sequential", final_trees(ctls[name, "vmap"]),
+                           final_trees(ctls[name, "sequential"]))
+        print(f"wide {name}: vmap and sequential final trees equal on all {n} leaves", flush=True)
+        if name == "naive":
+            # the naive run is the profiling pass: its measured traffic places the groups
+            rates, traffic = snn.measure_traffic(ctls[name, "vmap"].result_states(), meta)
+            placements["traffic_aware"] = snn.auto_segmentation_for(
+                job.layers, n_segments=4, slots_per_seg=4, traffic=traffic)
+            check(len(placements["traffic_aware"][0]) == WIDE["traffic_segments"],
+                  f"wide: traffic-aware placement on {len(placements['traffic_aware'][0])} "
+                  f"segments, want {WIDE['traffic_segments']}")
+            print(f"wide: measured rates {rates.tolist()}; traffic-aware placement "
+                  f"{[int(p) for p in placements['traffic_aware'][1]]} on "
+                  f"{[d.n_cims for d in placements['traffic_aware'][0]]} slots", flush=True)
+    check(ctls["naive", "vmap"].cfg.n_segments == WIDE["naive_segments"],
+          "wide: naive placement's segments")
+    fused_vs_per_round("wide naive", lambda: Controller(
+        *snn.build_snn(job.layers, naive, job.raster)[:3], quantum=QUANTUM), MAX_ROUNDS)
+
+    # times: one more run of each, uncounted, all in this call
+    walls = {}
+    for name in ("naive", "traffic_aware"):
+        for backend in ("vmap", "sequential"):
+            ctl, _, secs, _ = placed_run(f"wide {name} (timed)", job, *placements[name],
+                                         backend, count=False)
+            walls[name, backend] = (secs, ctl.rounds_run)
+    profile_phase("wide naive/vmap", lambda: Controller(
+        *snn.build_snn(job.layers, naive, job.raster)[:3], quantum=QUANTUM),
+        walls["naive", "vmap"][0])
+    sps = {k: WIDE["spikes"] / secs for k, (secs, _) in walls.items()}
+    for name in ("naive", "traffic_aware"):
+        (v, r), (q, _) = walls[name, "vmap"], walls[name, "sequential"]
+        print(f"wide {name}: {r} rounds; vmap {v / r * 1e6:.1f} us/round, "
+              f"{sps[name, 'vmap']:.1f} spikes/s; sequential {q / r * 1e6:.1f} us/round, "
+              f"{sps[name, 'sequential']:.1f} spikes/s; sequential/vmap wall {q / v:.3f}",
+              flush=True)
+    print(f"wide traffic-aware against naive spikes/s: vmap "
+          f"{sps['traffic_aware', 'vmap'] / sps['naive', 'vmap']:.3f}, sequential "
+          f"{sps['traffic_aware', 'sequential'] / sps['naive', 'sequential']:.3f}", flush=True)
+
+    # the wide job under each fault family: the reference's numbers, card = CPU
+    for label, kw, target in WIDE_FAULTS:
+        fc = faults.FaultConfig(**kw)
+        trees = {}
+        for device in ("cuda", "cpu"):
+            ctl, meta, _, counts = placed_run(f"wide naive under {label} faults", job, naive,
+                                              device=device, fc=fc, count=device == "cuda")
+            st, stats = ctl.result_states(), ctl.result_states()["stats"]
+            n_of = lambda f: int(stats[f].sum()) if f in stats else 0
+            got = (ctl.rounds_run, snn.total_spikes(st), n_of("spikes_dropped"),
+                   n_of("spikes_duped"), n_of("outbox_lost"),
+                   int(ctl._pending_stacked()["lost_total"].sum()),
+                   faults.fidelity(snn.output_spike_counts(st, meta), job.expected_counts))
+            check(got == target, f"wide under {label} faults on {device}: {got}, want {target}")
+            trees[device] = final_trees(ctl)
+            if counts is not None:
+                add(counts)
+                grouped_rounds += ctl.rounds_run
+                group_rounds += group_ticks(ctl, meta)
+        n, _ = equal_trees(f"wide under {label} faults, card vs CPU", trees["cuda"], trees["cpu"])
+        print(f"wide under {label} faults: rounds, spikes, dropped, duped, lost, fidelity "
+              f"{got}; CPU and card final trees equal on all {n} leaves", flush=True)
+
+    # the recurrent job under three placements, and the skip job
+    r = RECURRENT
+    rec = snn.snn_recurrent_job(r["sizes"], t_steps=r["t_steps"], rate=r["rate"], seed=r["seed"])
+    check(rec.expected_total == r["spikes"] and rec.n_ticks == r["n_ticks"]
+          and snn.is_cyclic(rec.layers, rec.edges), "recurrent oracle")
+    tick_launches = 0
+    for strategy, n_seg in r["segments"].items():
+        if strategy == "auto":
+            descs, placement = snn.auto_segmentation_for(rec.layers, n_segments=4,
+                                                         edges=rec.edges)
+        else:
+            descs, placement = snn.segmentation_for(rec.layers, strategy, n_segments=4,
+                                                    edges=rec.edges), None
+        pair = {}
+        for backend in ("vmap", "sequential"):
+            ctl, _, _, counts = placed_run(f"recurrent {strategy}", rec, descs, placement,
+                                           backend)
+            check(ctl.cfg.n_segments == n_seg and ctl.rounds_run == r["rounds"]
+                  and not ctl.cfg.snn_grouped,
+                  f"recurrent {strategy}/{backend}: {ctl.cfg.n_segments} segments, "
+                  f"{ctl.rounds_run} rounds")
+            pair[backend] = final_trees(ctl)
+            tick_launches += counts["snn_tick"]
+        n, _ = equal_trees(f"recurrent {strategy}, vmap vs sequential", pair["vmap"],
+                           pair["sequential"])
+        print(f"recurrent {strategy}: {n_seg} segments, {r['spikes']} spikes over "
+              f"{rec.n_ticks} ticks, vmap and sequential trees equal on all {n} leaves",
+              flush=True)
+    skip = snn.snn_skip_job()
+    descs = snn.segmentation_for(skip.layers, "uniform", n_segments=4, edges=skip.edges)
+    ctl, _, _, counts = placed_run("skip", skip, descs)
+    check(skip.expected_total == SKIP["spikes"] and ctl.rounds_run == SKIP["rounds"],
+          f"skip: {skip.expected_total} oracle spikes, {ctl.rounds_run} rounds")
+    tick_launches += counts["snn_tick"]
+
+    g, gf = launches["snn_tick_grouped"], launches["snn_tick_grouped_faults"]
+    print(f"wide and recurrent main path: snn_tick_grouped launches {g}, its fault variant "
+          f"{gf}, for {grouped_rounds} grouped rounds (one launch per vmap round, one per "
+          f"segment and round on sequential; the column group fired in {group_rounds} of "
+          f"the runs' rounds); the recurrent and skip jobs' snn_tick launches "
+          f"{tick_launches}", flush=True)
+    check(g > 0 and gf > 0, "wide: the grouped tick and its fault variant must launch")
+    return {"snn_tick_grouped": g, "snn_tick_grouped_faults": gf}
+
+
 def global_loads(name):
     """The global-load instructions of ``csrc/<name>.cu``'s build, by SASS
     opcode (``cuobjdump -sass``): where ``slot_scan`` reads the DRAM backing
@@ -2267,7 +2693,7 @@ def main():
 
     phase("1 kernels against their plain versions")
     rows = [kernel_phase(), lif_faults_phase(), xbar_phase(), xbar_faults_phase()]
-    rows += fused_phase("tick") + fused_phase("finish")
+    rows += fused_phase("tick") + grouped_phase() + fused_phase("finish")
     floor_ms = launch_floor_ms()
     print(f"launch floor: one elementwise torch op on an (8,) int32 tensor, device time "
           f"{floor_ms:.6f} ms in the same CUDA-graph harness ({card})", flush=True)
@@ -2288,6 +2714,8 @@ def main():
     faults_checks()
     phase("7b fused dispatch: the captured round loop against the per-round path")
     fused_dispatch_phase(card)
+    phase("9 wide and recurrent networks")
+    launches.update(wide_recurrent_phase())
     phase("8 falcon-mamba-7b serving through the ssm_scan kernel")
     rows.extend(ssm_scan_phase())
     falcon_jax_phase()

@@ -12,6 +12,8 @@ Strategies:
   load_oriented  — one CPU manages all CIM-Units, the other is free; CIMs
                    live in their own segments (Fig. 4b)
   auto           — greedy balanced partition over per-module cost estimates
+  traffic        — ``traffic_partition``: stripe groups placed to cut the
+                   cross-segment spike traffic (``snn.auto_segmentation_for``)
 """
 from __future__ import annotations
 
@@ -89,6 +91,95 @@ def auto_segmentation(module_costs: dict, n_segments: int):
             descs[s].cim_mgr = mgr
         loads[s] += module_costs[c]
     return [d for d in descs if d.cpu or d.dram or d.n_cims]
+
+
+def traffic_partition(widths, loads, traffic, n_segments: int,
+                      slots_per_seg: int, refine_passes: int = 4,
+                      pinned=None):
+    """Spike-traffic-aware placement of shard groups onto segments.
+
+    widths:  slots each group needs (a column group's ``width`` co-located
+             slots are atomic)
+    loads:   per-group compute cost (synaptic ops/tick), the tie-breaker
+    traffic: (G, G) spike rates, traffic[i, j] events/tick from group i to
+             group j (``snn.profile_traffic`` / ``measure_traffic``); the
+             diagonal (a stripe's lateral spikes to itself) never crosses a
+             segment and is left out of the cut
+    pinned:  optional {group_index: segment_id} of groups whose placement
+             is fixed (e.g. a hybrid job's injector pseudo-group); they seed
+             their segments first and never move
+
+    Minimizes the cross-segment traffic cut under per-segment slot budgets:
+    groups are seeded greedily (widest first, then by traffic degree), each
+    into the feasible segment with the highest affinity (ties: the fullest
+    segment, then the lightest load); then up to ``refine_passes``
+    single-move passes relocate any group whose move strictly reduces the
+    cut.  Deterministic.  Returns an int array: segment id per group.
+    """
+    widths = np.asarray(widths, int)
+    loads = np.asarray(loads, float)
+    traffic = np.asarray(traffic, float)
+    pinned = dict(pinned or {})
+    g = len(widths)
+    assert traffic.shape == (g, g) and len(loads) == g
+    traffic = traffic - np.diag(np.diag(traffic))  # self-traffic never cut
+    assert widths.max(initial=0) <= slots_per_seg, \
+        "a column group is atomic: raise slots_per_seg to its width"
+    assert n_segments * slots_per_seg >= widths.sum(), "not enough slots"
+    sym = traffic + traffic.T
+    assign = np.full(g, -1, int)
+    used = np.zeros(n_segments, int)
+    load = np.zeros(n_segments, float)
+
+    for i, s in sorted(pinned.items()):
+        assert 0 <= s < n_segments, f"pinned group {i} to missing segment {s}"
+        assert used[s] + widths[i] <= slots_per_seg, \
+            f"pinned group {i} does not fit segment {s}'s slot budget"
+        assign[i] = s
+        used[s] += widths[i]
+        load[s] += loads[i]
+
+    def affinity(i, s):
+        members = np.flatnonzero(assign == s)
+        return sym[i, members].sum()
+
+    order = sorted((i for i in range(g) if i not in pinned),
+                   key=lambda i: (-widths[i], -sym[i].sum(), -loads[i], i))
+    for i in order:
+        feas = [s for s in range(n_segments) if used[s] + widths[i] <= slots_per_seg]
+        if not feas:
+            raise AssertionError(
+                f"slot budgets too fragmented for a width-{widths[i]} group; "
+                "raise n_segments or slots_per_seg"
+            )
+        s = max(feas, key=lambda s: (affinity(i, s), used[s], -load[s], -s))
+        assign[i] = s
+        used[s] += widths[i]
+        load[s] += loads[i]
+
+    for _ in range(refine_passes):
+        moved = False
+        for i in range(g):
+            if i in pinned:
+                continue
+            best_s, best_gain = assign[i], 0.0
+            here = affinity(i, assign[i])
+            for s in range(n_segments):
+                if s == assign[i] or used[s] + widths[i] > slots_per_seg:
+                    continue
+                gain = affinity(i, s) - here
+                if gain > best_gain + 1e-12:
+                    best_s, best_gain = s, gain
+            if best_s != assign[i]:
+                used[assign[i]] -= widths[i]
+                load[assign[i]] -= loads[i]
+                assign[i] = best_s
+                used[best_s] += widths[i]
+                load[best_s] += loads[i]
+                moved = True
+        if not moved:
+            break
+    return assign
 
 
 def build(descs, *, programs=None, dram_words=None, crossbars=None,

@@ -29,6 +29,22 @@
 // int8 masks are applied to the sign-extended int8 weight: & and ^ of two
 // sign-extended bytes are the sign-extended byte result.
 //
+// The grouped tick (kGrouped: snn_tick_grouped_launch and
+// snn_tick_grouped_faults_launch) is vp/cim.snn_tick(grouped=True), the same
+// function bit for bit as ref.py::snn_tick(grouped=True): the tick of wide
+// layers whose fan-in spans a column group of co-located slots.  A
+// contributor (a slot whose owner_slot is not its own index) that fires adds
+// its contraction into the charge of the slot owner_slot names in its
+// segment (a negative slot counts from the end, one out of range is
+// dropped), and every contributor's v and refrac are written as 0.  The
+// owner's cluster loops over its segment's slots and contracts each firing
+// contributor's weights (and masks) against that contributor's input
+// in_buf, which the tick never writes in place, so no cluster waits on
+// another: no atomics, no second launch.  Its bound counts the weights of the
+// contractions a state needs (a firing owner's own and its firing
+// contributors', each read once): ~0.18 us at 8 full units all firing.  The
+// owner pays two dependent trips to memory per contributor on top.
+//
 // Bound.  The clean step moves U*R*C weight bytes plus about U*(4C + 20R)
 // state bytes: ~573 KB at U=8, R=C=256, i.e. ~0.17 us at 3.35 TB/s, and does
 // 2*U*R*C integer operations (~1 MOP, far below any compute bound).  The
@@ -216,13 +232,14 @@ constexpr int kTickThreads = 256;   // 8 warps a block
 constexpr int kRowsPerBlock = kXbar / kTickBlocks;                 // 32
 constexpr int kRowsPerWarp = kRowsPerBlock / (kTickThreads / 32);  // 4
 
-// Pointers of one tick, in the order of the C entry's array (31 of them,
+// Pointers of one tick, in the order of the C entry's array (33 of them,
 // ops.py's TICK_POINTERS).  Per unit (U = S * n_slots): present (one
 // byte), mode, tick_period, next_tick, tick_limit, ticks, rows, thresh,
 // leak, rp, spikes_total; per segment: t_gate (S); per unit and row or column:
 // w (U, R, C) int8, in_buf (U, C), v, refrac, spike_counts (U, R), extra
 // (U, R) or null, the fault inputs f_and/f_xor (U, R, C) int8, dead (U, R)
-// bytes and dth (U, R), each or null; then the outputs.
+// bytes and dth (U, R), each or null; then the outputs, the launch counts
+// and owner_slot (U,) (read by kGrouped only).
 struct TickArgs {
   const uint8_t* present;
   const int32_t *mode, *tick_period, *next_tick, *tick_limit, *ticks, *rows, *thresh,
@@ -235,6 +252,7 @@ struct TickArgs {
   int32_t *v_out, *r_out, *in_out, *counts_out, *total_out, *ticks_out, *next_out;
   uint8_t *fired_rows, *fire;
   int32_t* launches;  // [clean, kFaults] launch counts on the card, or null
+  const int32_t* owner_slot;  // (U,) the column-group owner of each slot (kGrouped)
 };
 
 TickArgs tick_args(const void* const* p) {
@@ -260,6 +278,7 @@ TickArgs tick_args(const void* const* p) {
   a.fired_rows = (uint8_t*)p[29];
   a.fire = (uint8_t*)p[30];
   a.launches = (int32_t*)p[31];
+  a.owner_slot = (const int32_t*)p[32];
   return a;
 }
 
@@ -280,7 +299,67 @@ TickArgs tick_args(const void* const* p) {
 // so spikes_total needs no atomics and no scratch.  C % 4 != 0 (or a
 // misaligned base) takes a byte-wise contraction after the spikes are
 // staged.
+// The fire gate of unit ``u`` at its segment's inbox time ``tg``.
+__device__ __forceinline__ bool tick_fires(const TickArgs& a, int u, int tg, int spike_mode) {
+  const int tp = a.tick_period[u], lim = a.tick_limit[u];
+  const int next = (int)((unsigned)a.next_tick[u] + (unsigned)tp);
+  return a.present[u] != 0 && a.mode[u] == spike_mode && tp > 0 && tg >= next &&
+         (lim == 0 || a.ticks[u] < lim);
+}
+
+// Adds one unit's contraction of the warp's kRowsPerWarp rows (from row
+// ``base``; ``ur`` = the unit's first row) into each lane's ``acc``: from
+// the tiles in registers, or byte-wise from memory where the layout is not
+// 4-aligned.  ``s_sh`` holds the unit's clipped spikes.
 template <bool kFaults>
+__device__ __forceinline__ void contract(unsigned (&acc)[kRowsPerWarp],
+                                         const char4 (&wv)[kRowsPerWarp][2],
+                                         const int32_t* s_sh, const int8_t* __restrict__ w,
+                                         const int8_t* __restrict__ fa,
+                                         const int8_t* __restrict__ fx, size_t ur, int base,
+                                         int R, int C, int lane, bool aligned4) {
+  if (aligned4) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = 4 * (lane + 32 * h);
+      if (c < C) {
+        const int s0 = s_sh[c], s1 = s_sh[c + 1], s2 = s_sh[c + 2], s3 = s_sh[c + 3];
+#pragma unroll
+        for (int k = 0; k < kRowsPerWarp; ++k) {
+          const char4 w4 = wv[k][h];
+          acc[k] += (unsigned)((int)w4.x * s0) + (unsigned)((int)w4.y * s1) +
+                    (unsigned)((int)w4.z * s2) + (unsigned)((int)w4.w * s3);
+        }
+      }
+    }
+  } else {
+    for (int c = lane; c < C; c += 32) {
+      const int sc = s_sh[c];
+#pragma unroll
+      for (int k = 0; k < kRowsPerWarp; ++k) {
+        if (base + k < R)
+          acc[k] += (unsigned)(read_weight<kFaults>(w, fa, fx, (ur + base + k) * C + c) * sc);
+      }
+    }
+  }
+}
+
+// The weights of the warp's rows of the unit whose first row is ``ur``, read
+// through the fault masks for kFaults (every load issued before any is used).
+template <bool kFaults>
+__device__ __forceinline__ void load_weights(char4 (&wv)[kRowsPerWarp][2], const int8_t* w,
+                                             const int8_t* fa, const int8_t* fx, size_t ur,
+                                             int base, int R, int C, int lane, bool aligned4) {
+  load_tiles<kRowsPerWarp>(wv, w, ur + base, R - base, C, lane, aligned4, 0);
+  if constexpr (kFaults) {
+    char4 av[kRowsPerWarp][2], xv[kRowsPerWarp][2];
+    load_tiles<kRowsPerWarp>(av, fa, ur + base, R - base, C, lane, aligned4, -1);
+    load_tiles<kRowsPerWarp>(xv, fx, ur + base, R - base, C, lane, aligned4, 0);
+    mask_tiles<kRowsPerWarp>(wv, av, xv);
+  }
+}
+
+template <bool kFaults, bool kGrouped>
 __global__ void __cluster_dims__(kTickBlocks, 1, 1) __launch_bounds__(kTickThreads)
     snn_tick_kernel(TickArgs a, int n_slots, int R, int C, long long in_s0,
                     long long in_s1, int spike_mode) {
@@ -312,21 +391,27 @@ __global__ void __cluster_dims__(kTickBlocks, 1, 1) __launch_bounds__(kTickThrea
   const int next = (int)((unsigned)nt + (unsigned)tp);
   const bool fire = here && md == spike_mode && tp > 0 && tg >= next && (lim == 0 || tk < lim);
   const bool leader = cluster.block_rank() == 0 && t == 0;
-  if (!fire) {
+  const int slot = u % n_slots;
+  bool contrib = false;  // kGrouped: a contributor tile, whose v and refrac stay 0
+  if constexpr (kGrouped) contrib = a.owner_slot[u] != slot;
+  // a contributor without neuron rows shows nothing of its LIF update: its
+  // charge is its owner's to read, so its cluster writes the selects only
+  const bool silent = fire && contrib && n_rows <= 0;
+  if (!fire || silent) {
     if (has_row) {
-      a.v_out[ur + row] = v;
-      a.r_out[ur + row] = rf;
+      a.v_out[ur + row] = contrib ? 0 : v;
+      a.r_out[ur + row] = contrib ? 0 : rf;
       a.counts_out[ur + row] = cnt;
       a.fired_rows[ur + row] = 0;
     }
-    if (has_col) a.in_out[uc + row] = sp_own;
+    if (has_col) a.in_out[uc + row] = fire ? 0 : sp_own;
     if (leader) {
       a.total_out[u] = total0;
-      a.ticks_out[u] = tk;
-      a.next_out[u] = nt;
-      a.fire[u] = 0;
+      a.ticks_out[u] = fire ? (int)((unsigned)tk + 1u) : tk;
+      a.next_out[u] = fire ? next : nt;
+      a.fire[u] = fire ? 1 : 0;
     }
-    return;  // the whole cluster leaves: fire is the unit's
+    return;  // the whole cluster leaves: fire and silent are the unit's
   }
 
   // trip 2
@@ -339,13 +424,7 @@ __global__ void __cluster_dims__(kTickBlocks, 1, 1) __launch_bounds__(kTickThrea
   // columns 4 * lane + (0..3) and 128 + 4 * lane + (0..3) of each row: every
   // load is issued before any is used, the masks' too
   char4 wv[kRowsPerWarp][2];
-  load_tiles<kRowsPerWarp>(wv, a.w, ur + base, R - base, C, lane, aligned4, 0);
-  if constexpr (kFaults) {
-    char4 av[kRowsPerWarp][2], xv[kRowsPerWarp][2];
-    load_tiles<kRowsPerWarp>(av, fa, ur + base, R - base, C, lane, aligned4, -1);
-    load_tiles<kRowsPerWarp>(xv, fx, ur + base, R - base, C, lane, aligned4, 0);
-    mask_tiles<kRowsPerWarp>(wv, av, xv);
-  }
+  load_weights<kFaults>(wv, a.w, fa, fx, ur, base, R, C, lane, aligned4);
   bool is_dead = false;
   unsigned ex = 0;
   if (has_row) {
@@ -362,28 +441,23 @@ __global__ void __cluster_dims__(kTickBlocks, 1, 1) __launch_bounds__(kTickThrea
   unsigned acc[kRowsPerWarp];
 #pragma unroll
   for (int k = 0; k < kRowsPerWarp; ++k) acc[k] = 0;
-  if (aligned4) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = 4 * (lane + 32 * h);
-      if (c < C) {
-        const int s0 = s_sh[c], s1 = s_sh[c + 1], s2 = s_sh[c + 2], s3 = s_sh[c + 3];
-#pragma unroll
-        for (int k = 0; k < kRowsPerWarp; ++k) {
-          const char4 w4 = wv[k][h];
-          acc[k] += (unsigned)((int)w4.x * s0) + (unsigned)((int)w4.y * s1) +
-                    (unsigned)((int)w4.z * s2) + (unsigned)((int)w4.w * s3);
-        }
-      }
-    }
-  } else {
-    for (int c = lane; c < C; c += 32) {
-      const int sc = s_sh[c];
-#pragma unroll
-      for (int k = 0; k < kRowsPerWarp; ++k) {
-        if (base + k < R)
-          acc[k] += (unsigned)(read_weight<kFaults>(a.w, fa, fx, (ur + base + k) * C + c) * sc);
-      }
+  contract<kFaults>(acc, wv, s_sh, a.w, fa, fx, ur, base, R, C, lane, aligned4);
+  if constexpr (kGrouped) {
+    // the column group: every slot m of this segment that names this slot
+    // its owner, is a contributor and fires adds its contraction (the test
+    // is the same in every thread, so the barriers are uniform)
+    const int u0 = u - slot;
+    for (int m = 0; m < n_slots; ++m) {
+      const int um = u0 + m, om = a.owner_slot[um];
+      if (om == m || (om < 0 ? om + n_slots : om) != slot || !tick_fires(a, um, tg, spike_mode))
+        continue;
+      const size_t urm = (size_t)um * R;
+      load_weights<kFaults>(wv, a.w, fa, fx, urm, base, R, C, lane, aligned4);
+      const int32_t* sm = a.in_buf + (u / n_slots) * in_s0 + m * in_s1;
+      __syncthreads();  // every warp is done with the previous spikes
+      if (t < C) s_sh[t] = clip_spike(sm[t]);
+      __syncthreads();
+      contract<kFaults>(acc, wv, s_sh, a.w, fa, fx, urm, base, R, C, lane, aligned4);
     }
   }
 #pragma unroll
@@ -401,8 +475,8 @@ __global__ void __cluster_dims__(kTickBlocks, 1, 1) __launch_bounds__(kTickThrea
     const bool fired = lif_neuron<kFaults>(syn[t] + ex, v, rf, th, leak, rp, is_dead, &vo,
                                            &ro);
     emit = fired && row < n_rows;
-    a.v_out[i] = vo;
-    a.r_out[i] = ro;
+    a.v_out[i] = contrib ? 0 : vo;
+    a.r_out[i] = contrib ? 0 : ro;
     a.fired_rows[i] = (uint8_t)emit;
     a.counts_out[i] = (int)((unsigned)cnt + emit);
   }
@@ -427,11 +501,11 @@ __global__ void __cluster_dims__(kTickBlocks, 1, 1) __launch_bounds__(kTickThrea
   cluster.sync();  // the other blocks' shared memory outlives the leader's reads
 }
 
-template <bool kFaults>
+template <bool kFaults, bool kGrouped>
 int tick_launch(const void* const* p, int U, int n_slots, int R, int C, long long in_s0,
                 long long in_s1, int spike_mode, void* stream) {
   const dim3 grid(kTickBlocks, U);
-  snn_tick_kernel<kFaults><<<grid, kTickThreads, 0, (cudaStream_t)stream>>>(
+  snn_tick_kernel<kFaults, kGrouped><<<grid, kTickThreads, 0, (cudaStream_t)stream>>>(
       tick_args(p), n_slots, R, C, in_s0, in_s1, spike_mode);
   return (int)cudaGetLastError();
 }
@@ -467,8 +541,8 @@ extern "C" int lif_step_faults_launch(
                       stream);
 }
 
-// The fused quantum-boundary tick: ``p`` holds 32 pointers in TickArgs'
-// order (null for an absent extra or fault input; the last, the launch
+// The fused quantum-boundary tick: ``p`` holds 33 pointers in TickArgs'
+// order (the last, owner_slot, read by the grouped variants only) (null for an absent extra or fault input; the last, the launch
 // counts, which block (0, 0) adds one to, null when not counted).  U = S * n_slots units,
 // one cluster of 8 blocks each (U <= 65535); unit u belongs to segment
 // u / n_slots.  R, C <= 256.
@@ -480,7 +554,7 @@ extern "C" int lif_step_faults_launch(
 extern "C" int snn_tick_launch(const void* const* p, int U, int n_slots, int R, int C,
                                long long in_s0, long long in_s1, int spike_mode,
                                void* stream) {
-  return tick_launch<false>(p, U, n_slots, R, C, in_s0, in_s1, spike_mode, stream);
+  return tick_launch<false, false>(p, U, n_slots, R, C, in_s0, in_s1, spike_mode, stream);
 }
 
 // The fault variant of the fused tick: reads W as (W & f_and) ^ f_xor and
@@ -488,5 +562,22 @@ extern "C" int snn_tick_launch(const void* const* p, int U, int n_slots, int R, 
 extern "C" int snn_tick_faults_launch(const void* const* p, int U, int n_slots, int R,
                                       int C, long long in_s0, long long in_s1,
                                       int spike_mode, void* stream) {
-  return tick_launch<true>(p, U, n_slots, R, C, in_s0, in_s1, spike_mode, stream);
+  return tick_launch<true, false>(p, U, n_slots, R, C, in_s0, in_s1, spike_mode, stream);
+}
+
+// The grouped tick (column groups of wide layers), as snn_tick_launch plus
+// p[32] = owner_slot (U,) int32.
+extern "C" int snn_tick_grouped_launch(const void* const* p, int U, int n_slots, int R,
+                                       int C, long long in_s0, long long in_s1,
+                                       int spike_mode, void* stream) {
+  return tick_launch<false, true>(p, U, n_slots, R, C, in_s0, in_s1, spike_mode, stream);
+}
+
+// The grouped tick's fault variant: each contributor's weights are read
+// through its own masks, the owner's dead gate and drift apply.
+extern "C" int snn_tick_grouped_faults_launch(const void* const* p, int U, int n_slots,
+                                              int R, int C, long long in_s0,
+                                              long long in_s1, int spike_mode,
+                                              void* stream) {
+  return tick_launch<true, true>(p, U, n_slots, R, C, in_s0, in_s1, spike_mode, stream);
 }

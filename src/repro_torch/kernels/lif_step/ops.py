@@ -15,6 +15,10 @@ source's fused kernel, with its own ``launches`` and ``fault_launches``
 (the launches issued from the host); the kernel also counts its runs on
 the card (``kernels.card_counts("snn_tick", device)``), so a run whose
 rounds replay a captured graph can show that its ticks went through it.
+``snn_tick(grouped=True)`` launches the grouped variant (multi-crossbar
+column groups: each owner adds its firing contributors' contractions),
+counted in ``grouped_launches`` and on the card under
+``"snn_tick_grouped"``.
 """
 from __future__ import annotations
 
@@ -115,21 +119,24 @@ TICK_UNIT = ("present", "mode", "tick_period", "next_tick", "tick_limit", "ticks
              "thresh", "leak", "refrac_period", "spikes_total")
 TICK_ROWS = ("weights", "in_buf", "v", "refrac", "spike_counts")
 TICK_POINTERS = (TICK_UNIT + ("t_gate",) + TICK_ROWS + ("extra",) + ref.TICK_FAULTS
-                 + tuple(f + "_out" for f in ref.TICK_OUTPUTS) + ("fired_rows", "fire", "launches"))
+                 + tuple(f + "_out" for f in ref.TICK_OUTPUTS)
+                 + ("fired_rows", "fire", "launches", "owner_slot"))
 
 
-def _tick_launcher(faults: bool):
-    if faults not in _tick_fns:
+def _tick_launcher(faults: bool, grouped: bool):
+    key = (faults, grouped)
+    if key not in _tick_fns:
         lib = build.load("lif_step")
-        fn = lib.snn_tick_faults_launch if faults else lib.snn_tick_launch
+        fn = getattr(lib, "snn_tick" + ("_grouped" if grouped else "")
+                     + ("_faults" if faults else "") + "_launch")
         fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 4
                        + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _tick_fns[faults] = fn
-    return _tick_fns[faults]
+        _tick_fns[key] = fn
+    return _tick_fns[key]
 
 
-def _tick_arguments(cims, t_gate, extra):
+def _tick_arguments(cims, t_gate, extra, grouped):
     """Checks the fused tick's inputs against the weights' device and
     allocates its outputs.  Returns (pointer array in ``TICK_POINTERS``
     order, the C entry's int arguments, whether a fault input is given, the
@@ -142,20 +149,21 @@ def _tick_arguments(cims, t_gate, extra):
                          f"launch limits (R, C <= {XBAR}, U <= 65535)")
     in_buf, in_s0, in_s1 = unit_rows(cims["in_buf"])
     tensors = {**{f: cims[f] for f in TICK_UNIT + TICK_ROWS}, "in_buf": in_buf,
-               "t_gate": t_gate, "extra": extra, **{f: cims.get(f) for f in ref.TICK_FAULTS}}
+               "t_gate": t_gate, "extra": extra, **{f: cims.get(f) for f in ref.TICK_FAULTS},
+               "owner_slot": cims["owner_slot"] if grouped else None}
     unit, rows, cells = (s, n), (s, n, r), (s, n, r, c)
     kinds = {**{f: (_I32, unit) for f in TICK_UNIT}, "present": (torch.bool, unit),
              "t_gate": (_I32, (s,)), "weights": (torch.int8, cells), "in_buf": (_I32, (s, n, c)),
              "v": (_I32, rows), "refrac": (_I32, rows), "spike_counts": (_I32, rows),
              "extra": (_I32, rows), "f_and": (torch.int8, cells), "f_xor": (torch.int8, cells),
-             "f_dead": (torch.bool, rows), "f_dth": (_I32, rows)}
+             "f_dead": (torch.bool, rows), "f_dth": (_I32, rows), "owner_slot": (_I32, unit)}
     check_inputs("snn_tick", dev, [(f, tensors[f], *kinds[f]) for f in kinds],
                  strided=("in_buf",))
     new = {f: torch.empty(cims[f].shape, dtype=_I32, device=dev) for f in ref.TICK_OUTPUTS}
     fired_rows = torch.empty(rows, dtype=torch.bool, device=dev)
     fire = torch.empty(unit, dtype=torch.bool, device=dev)
     tensors.update({f + "_out": x for f, x in new.items()}, fired_rows=fired_rows, fire=fire,
-                   launches=card_counts("snn_tick", dev))
+                   launches=card_counts("snn_tick_grouped" if grouped else "snn_tick", dev))
     ptrs = (ctypes.c_void_p * len(TICK_POINTERS))(
         *(None if tensors[f] is None else tensors[f].data_ptr() for f in TICK_POINTERS))
     faulted = any(tensors[f] is not None for f in ref.TICK_FAULTS)
@@ -163,32 +171,36 @@ def _tick_arguments(cims, t_gate, extra):
             ({**cims, **new}, fired_rows, fire, cims["next_tick"]))
 
 
-def snn_tick(cims, t_gate, extra=None):
+def snn_tick(cims, t_gate, extra=None, grouped=False):
     """The quantum-boundary LIF tick of every unit: cims fields ``(S, n,
     ...)`` as ``vp/cim.cim_state`` lays them out, stacked over S segments,
     ``t_gate`` (S,) int32; ``extra`` (S, n, R) int32 charge or None; the
     fault inputs ``f_and``/``f_xor`` (S, n, R, C) int8, ``f_dead`` (S, n, R)
     bool and ``f_dth`` (S, n, R) int32 are read from ``cims`` where present
-    (then the fault variant runs).  Returns (cims', fired_rows bool (S, n,
-    R), fire bool (S, n), tick_time (S, n)) as ``ref.snn_tick`` does; every
-    field the tick writes is a new tensor, the input state stays valid."""
+    (then the fault variant runs).  ``grouped``: the tick of column groups
+    (``ref.snn_tick``), reading ``owner_slot`` (S, n) int32.  Returns
+    (cims', fired_rows bool (S, n, R), fire bool (S, n), tick_time (S, n))
+    as ``ref.snn_tick`` does; every field the tick writes is a new tensor,
+    the input state stays valid."""
     dev = cims["weights"].device
     if dev.type == "cpu":
-        return ref.snn_tick(cims, t_gate, extra)
+        return ref.snn_tick(cims, t_gate, extra, grouped)
     if dev.type != "cuda":
         raise ValueError(f"snn_tick runs on cpu or cuda, not {dev}")
-    ptrs, ints, faulted, result = _tick_arguments(cims, t_gate, extra)
+    ptrs, ints, faulted, result = _tick_arguments(cims, t_gate, extra, grouped)
     if ints[0] == 0:
         return result
-    fn = _tick_launcher(faulted)
+    fn = _tick_launcher(faulted, grouped)
     with torch.cuda.device(dev):
         err = fn(ptrs, *ints, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"snn_tick kernel launch failed: CUDA error {err}")
     snn_tick.launches += 1
     snn_tick.fault_launches += int(faulted)
+    snn_tick.grouped_launches += int(grouped)
     return result
 
 
 snn_tick.launches = 0
 snn_tick.fault_launches = 0
+snn_tick.grouped_launches = 0

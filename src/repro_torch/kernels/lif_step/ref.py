@@ -17,7 +17,9 @@ integration and firing with its membrane pinned to 0; ``dth`` int32
 
 ``snn_tick`` is the quantum-boundary tick of ``vp/cim.snn_tick`` around
 the step: the eager fire gate, one step over every unit, then the selects
-and counters.  It is the plain version of the fused tick kernel.
+and counters; with ``grouped``, column groups merge their charge
+(``group_charge``).  It is the plain version of the fused tick kernel and
+of its grouped variant.
 """
 from __future__ import annotations
 
@@ -89,7 +91,23 @@ TICK_OUTPUTS = ("v", "refrac", "in_buf", "spike_counts", "spikes_total", "ticks"
                 "next_tick")
 
 
-def snn_tick(cims, t_gate, extra=None):
+def group_charge(charge, owner_slot, fwd):
+    """The charge each slot receives from its column group: ``charge`` (S,
+    n, R) int32 per unit, ``owner_slot`` (S, n), ``fwd`` (S, n) bool the
+    contributors that forward this tick.  A contributor's charge adds into
+    its owner's slot of the same segment; a negative slot counts from the
+    end and one out of range is dropped (a sink lane), as the reference's
+    ``.at[].add(mode="drop")`` does."""
+    s, n, r = charge.shape
+    o = torch.where(owner_slot < 0, owner_slot + n, owner_slot)
+    tgt = torch.where(fwd & (o >= 0) & (o < n), o, n).to(torch.int64)
+    sink = torch.zeros((s, n + 1, r), dtype=_I32, device=charge.device)
+    sink.scatter_add_(1, tgt.unsqueeze(-1).expand(s, n, r),
+                      torch.where(fwd.unsqueeze(-1), charge, 0))
+    return sink[:, :n]
+
+
+def snn_tick(cims, t_gate, extra=None, grouped=False):
     """Quantum-boundary LIF tick of every spike-mode unit: cims fields
     ``(S, n, ...)``, ``t_gate`` (S,) int32.  A unit fires once ``t_gate >=
     next_tick + tick_period`` (and below its ``tick_limit``); the LIF step
@@ -97,6 +115,12 @@ def snn_tick(cims, t_gate, extra=None):
     ``extra`` (S, n, R) int32 or None: charge added after the contraction.
     The fault inputs ``f_and``, ``f_xor``, ``f_dead``,
     ``f_dth`` are read from ``cims`` where present.
+
+    ``grouped`` (the tick of multi-crossbar column groups): a contributor
+    (a slot whose ``owner_slot`` is not itself) that fires adds its
+    contraction into its owner's charge (``group_charge``), and every
+    contributor's ``v`` and ``refrac`` are written as 0, as the reference's
+    grouped path does (``repro/vp/cim.py`` ``snn_tick(grouped=True)``).
 
     Returns (cims', fired_rows bool (S, n, R), fire bool (S, n), tick_time
     (S, n)), ``cims'`` a new dict whose ``TICK_OUTPUTS`` are new tensors."""
@@ -109,18 +133,30 @@ def snn_tick(cims, t_gate, extra=None):
     )
     lead = cims["present"].shape  # (S, n)
     flat = lambda x: None if x is None else x.reshape(-1, *x.shape[len(lead):]).contiguous()
+    col = lambda f: flat(cims[f]).unsqueeze(-1)
+    own = syn_charge(flat(cims["weights"]), flat(cims["in_buf"]),
+                     flat(cims.get("f_and")), flat(cims.get("f_xor"))).reshape(*lead, -1)
+    charge = own if extra is None else own + extra
+    if grouped:
+        slots = torch.arange(lead[1], dtype=cims["owner_slot"].dtype, device=fire.device)
+        is_contrib = cims["owner_slot"] != slots
+        charge = charge + group_charge(own, cims["owner_slot"], is_contrib & fire)
     v2, refrac2, fired_i = (
-        x.reshape(*lead, -1) for x in lif_step_units(
-            flat(cims["weights"]), flat(cims["in_buf"]), flat(cims["v"]),
-            flat(cims["refrac"]), flat(cims["thresh"]), flat(cims["leak"]),
-            flat(cims["refrac_period"]), flat(extra),
-            *(flat(cims.get(f)) for f in TICK_FAULTS)))
+        x.reshape(*lead, -1) for x in lif_update(
+            flat(charge), flat(cims["v"]), flat(cims["refrac"]), col("thresh"),
+            col("leak"), col("refrac_period"), flat(cims.get("f_dead")),
+            flat(cims.get("f_dth"))))
     rows_idx = torch.arange(v2.shape[-1], dtype=_I32, device=fire.device)
     fire_r = fire.unsqueeze(-1)
     fired_rows = fire_r & (fired_i != 0) & (rows_idx < cims["rows"].unsqueeze(-1))
     cims = dict(cims)
     cims["v"] = torch.where(fire_r, v2, cims["v"])
     cims["refrac"] = torch.where(fire_r, refrac2, cims["refrac"])
+    if grouped:
+        # contributor tiles hold no neurons: their membrane state stays 0
+        contrib_r = is_contrib.unsqueeze(-1)
+        cims["v"] = torch.where(contrib_r, 0, cims["v"])
+        cims["refrac"] = torch.where(contrib_r, 0, cims["refrac"])
     cims["in_buf"] = torch.where(fire_r, 0, cims["in_buf"])
     tick_time = cims["next_tick"]
     cims["next_tick"] = cims["next_tick"] + torch.where(fire, cims["tick_period"], 0)

@@ -1,6 +1,7 @@
 """Spiking-neural-network subsystem of the port (counterpart of
 ``repro.snn``): LIF pools, the SNN-to-VP mapping and the rate-coded
-inference jobs with their CPU oracle; ``FaultConfig`` and
+inference jobs (feed-forward, wide, recurrent and skip) with their CPU
+oracle, spike-rate profiling and traffic-aware placement; ``FaultConfig`` and
 ``degradation_sweep`` (``repro_torch.faults``) are re-exported here, as the
 reference does."""
 from repro_torch.faults import FaultConfig, degradation_sweep
@@ -12,16 +13,25 @@ from repro_torch.snn.topology import (
     auto_segmentation_for,
     build_snn,
     connectivity,
+    consumed_rates,
+    edge_dsts,
+    is_cyclic,
     layer_groups,
+    measure_traffic,
     n_units_for,
     output_spike_counts,
+    profile_traffic,
     segmentation_for,
     total_spikes,
 )
 from repro_torch.snn.workloads import (
     SNNJob,
+    oracle_rates,
     oracle_run,
+    random_recurrent_snn,
     random_snn,
     rate_encode,
     snn_inference_job,
+    snn_recurrent_job,
+    snn_skip_job,
 )

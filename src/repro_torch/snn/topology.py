@@ -9,9 +9,13 @@ its own spikes.  ``build_snn`` hands the wiring to
 ``core.segmentation.build`` and pre-schedules the input raster as AER
 events in the pending inboxes.
 
-Outside the port so far: wide layers whose fan-in spans several crossbars
-(column groups) and traffic-aware placement (ROADMAP module item 7), and
-hybrid jobs (item 8).
+Wide layers tile into row stripes and co-located column groups (the
+grouped tick of ``vp/cim.snn_tick`` merges a group's charge), lateral,
+recurrent and skip edges ride the same AER wiring under a ``tick_limit``
+horizon, and ``auto_segmentation_for(traffic=...)`` places stripe groups
+to cut the spike traffic that ``profile_traffic`` or ``measure_traffic``
+gives (``core.segmentation.traffic_partition``).  Outside the port so far:
+hybrid jobs (ROADMAP module item 8).
 """
 from __future__ import annotations
 
@@ -121,6 +125,11 @@ def _cyclic(in_edges) -> bool:
     return any(src >= l for l, el in enumerate(in_edges) for src, _, _ in el)
 
 
+def is_cyclic(layers, edges=()) -> bool:
+    """True if any in-edge points sideways or backward (lateral synapses or
+    recurrent projections): such nets need an explicit tick horizon."""
+    return _cyclic(connectivity(layers, edges)[0])
+
 
 @dataclasses.dataclass(frozen=True)
 class StripeGroup:
@@ -227,36 +236,44 @@ def segmentation_for(layers_or_n, strategy: str, n_segments: int = 4,
     return descs
 
 
-
 def auto_segmentation_for(layers, n_segments: int = 4, slots_per_seg: int = 2,
                           traffic=None, edges=()):
-    """Cost-aware placement of shard groups onto segments: greedy
-    longest-processing-time assignment over per-group synaptic-op costs
-    (rows x fan-in), respecting the per-segment slot cap and group
-    atomicity.  Returns (descs, placement), the group -> first-global-unit
-    map ``build_snn`` consumes."""
-    if traffic is not None:
-        raise NotImplementedError(
-            "traffic-aware placement comes with ROADMAP module item 7")
+    """Cost- or traffic-aware placement of shard groups onto segments.
+
+    Without ``traffic``: greedy longest-processing-time assignment over
+    per-group synaptic-op costs (rows x fan-in), respecting the per-segment
+    slot cap and group atomicity.  With ``traffic`` (a (G, G) spike-rate
+    matrix from ``profile_traffic`` or ``measure_traffic``): delegates to
+    ``core.segmentation.traffic_partition``, which minimizes the
+    cross-segment spike-traffic cut under the same slot budgets.  Segments
+    left empty are dropped.
+
+    Returns (descs, placement), the group -> first-global-unit map
+    ``build_snn`` consumes."""
     _, _, eff_n_in = connectivity(layers, edges)
     groups = _tile(layers, eff_n_in)
     widths = [g.width for g in groups]
     costs = [float(g.n_rows * eff_n_in[g.layer]) for g in groups]
     assert max(widths) <= slots_per_seg, \
         "a column group is atomic: raise slots_per_seg to its width"
-    n_seg = max(1, min(n_segments, len(groups)))
-    assert n_seg * slots_per_seg >= sum(widths), "not enough slots"
-    order = sorted(range(len(groups)), key=lambda i: -costs[i])
-    loads = [0.0] * n_seg
-    used = [0] * n_seg
-    assign = np.full(len(groups), -1, int)
-    for i in order:
-        open_segs = [s for s in range(n_seg)
-                     if used[s] + widths[i] <= slots_per_seg]
-        s = min(open_segs, key=lambda s: (loads[s], s))
-        assign[i] = s
-        used[s] += widths[i]
-        loads[s] += costs[i]
+    if traffic is not None:
+        assign = sg.traffic_partition(widths, costs, traffic, n_segments,
+                                      slots_per_seg)
+    else:
+        n_seg = max(1, min(n_segments, len(groups)))
+        assert n_seg * slots_per_seg >= sum(widths), "not enough slots"
+        order = sorted(range(len(groups)), key=lambda i: -costs[i])
+        loads = [0.0] * n_seg
+        used = [0] * n_seg
+        assign = np.full(len(groups), -1, int)
+        for i in order:
+            open_segs = [s for s in range(n_seg)
+                         if used[s] + widths[i] <= slots_per_seg]
+            s = min(open_segs, key=lambda s: (loads[s], s))
+            assign[i] = s
+            used[s] += widths[i]
+            loads[s] += costs[i]
+    # compact to the segments actually used (traffic packing may empty some)
     live = sorted(set(int(s) for s in assign))
     remap = {s: i for i, s in enumerate(live)}
     descs, placement = [], np.zeros(len(groups), int)
@@ -272,8 +289,102 @@ def auto_segmentation_for(layers, n_segments: int = 4, slots_per_seg: int = 2,
     return descs, list(placement)
 
 
+# ---------------------------------------------------------------------------
+# traffic profiling
+
+
+def profile_traffic(layers, raster, edges=(), n_ticks=None, injector=False):
+    """Profiling pass over the CPU oracle: per-group spike rates.
+
+    Returns (rates, traffic): ``rates[i]`` = spikes/tick emitted by group
+    i; ``traffic[i, j]`` = AER events/tick from group i to group j (one
+    event per destination stripe per out-edge; lateral synapses put rate on
+    the diagonal, recurrent projections on the backward block).
+
+    ``injector=True`` (hybrid jobs, where a live CPU injects the raster):
+    the matrix gains a trailing row/column for the injector pseudo-group,
+    the injection stream into every layer-0 group and the spike-count
+    readback out of each output-layer group; ``rates`` keeps length G.
+    """
+    from repro_torch.snn.workloads import oracle_rates
+
+    per_neuron, nt = oracle_rates(layers, raster, edges=edges, n_ticks=n_ticks)
+    _, out_edges, eff_n_in = connectivity(layers, edges)
+    groups = _tile(layers, eff_n_in)
+    rates = np.array([
+        per_neuron[g.layer][g.r0:g.r1].sum() / max(nt, 1) for g in groups
+    ])
+    traffic = _rates_to_traffic(groups, rates, _dsts_of(out_edges))
+    if injector:
+        g = len(groups)
+        ext = np.zeros((g + 1, g + 1))
+        ext[:g, :g] = traffic
+        ev_rate = np.count_nonzero(np.asarray(raster)) / max(nt, 1)
+        for gi, grp in enumerate(groups):
+            if grp.layer == 0:
+                ext[g, gi] = ev_rate  # CPU -> input tiles: injection stores
+            if grp.layer == len(layers) - 1:
+                ext[gi, g] += grp.n_rows / max(nt, 1)  # counts DMA back
+        traffic = ext
+    return rates, traffic
+
+
+def _unit_counters(states, fields):
+    """The run's per-unit counters as numpy arrays, one host copy each."""
+    cims = states["cims"]
+    return [cims[f].detach().cpu().numpy() for f in fields]
+
+
+def measure_traffic(states, meta):
+    """Traffic matrix from a finished run's per-unit spike counters (the
+    measured analogue of ``profile_traffic``): each stripe owner's emitted
+    spikes over its ticks; ``meta["edge_dsts"]`` costs cyclic edges as the
+    profiling pass does.  ``states`` may lie on any device."""
+    groups = [g["group"] for g in meta["groups"]]
+    counts, ticks = _unit_counters(states, ("spike_counts", "ticks"))
+    rates = []
+    for info in meta["groups"]:
+        seg, slot = info["units"][0]
+        emitted = float(counts[seg, slot].sum())
+        rates.append(emitted / max(int(ticks[seg, slot]), 1))
+    rates = np.array(rates)
+    return rates, _rates_to_traffic(groups, rates, meta["edge_dsts"])
+
+
+def consumed_rates(states, meta):
+    """Per-group consumed-spike rates (AER events integrated per tick),
+    from the per-unit ``spikes_in`` counters summed over a group's column
+    tiles, over the owner's ticks.  ``states`` may lie on any device."""
+    spikes_in, ticks = _unit_counters(states, ("spikes_in", "ticks"))
+    rates = []
+    for info in meta["groups"]:
+        total = sum(float(spikes_in[seg, slot]) for seg, slot in info["units"])
+        seg, slot = info["units"][0]
+        rates.append(total / max(int(ticks[seg, slot]), 1))
+    return np.array(rates)
+
+
 def _dsts_of(out_edges):
     return {l: [d for d, _ in out] for l, out in enumerate(out_edges) if out}
+
+
+def edge_dsts(layers, edges=()):
+    """Destination-layer multiset per source layer: {src: [dst, ...]}, one
+    entry per out-edge."""
+    return _dsts_of(connectivity(layers, edges)[1])
+
+
+def _rates_to_traffic(groups, rates, edge_dsts_map):
+    t = np.zeros((len(groups), len(groups)))
+    for i, gi in enumerate(groups):
+        dst_layers = edge_dsts_map.get(gi.layer, [])
+        for j, gj in enumerate(groups):
+            t[i, j] = rates[i] * dst_layers.count(gj.layer)
+    return t
+
+
+# ---------------------------------------------------------------------------
+# placement, wiring and build_snn
 
 
 def _default_placement(groups, descs, reserved=None):

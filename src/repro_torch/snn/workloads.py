@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.snn import topology
 from repro_torch.snn.neuron import LIFParams, lif_step_multi, pool_state
-from repro_torch.snn.topology import SNNLayer, connectivity
+from repro_torch.snn.topology import RecurrentEdge, SNNLayer, connectivity
 
 
 def rate_encode(x, t_steps: int, seed: int = 0):
@@ -40,6 +40,39 @@ def random_snn(layer_sizes=(64, 48, 10), seed: int = 0, w_lo: int = -4, w_hi: in
         w = rng.integers(w_lo, w_hi, (n_out, n_in)).astype(np.int8)
         layers.append(SNNLayer(w, LIFParams(thresh=max(n_in, 1), leak=1)))
     return layers
+
+
+def random_recurrent_snn(layer_sizes=(48, 40, 12), seed: int = 0,
+                         w_lo: int = -4, w_hi: int = 8, inhibition: int = 6):
+    """Recurrent LIF network: ``random_snn``'s chain plus three kinds of
+    cyclic connectivity: the last hidden layer is Elman-style
+    self-recurrent (a random ``lateral`` matrix), the output layer a
+    winner-take-all pool (``-inhibition`` off-diagonal ``lateral``), and
+    the output projects back onto the hidden layer (``RecurrentEdge``).
+
+    Returns (layers, edges) for ``build_snn(..., edges=edges, n_ticks=...)``
+    / ``oracle_run(..., edges=edges, n_ticks=...)``.
+    """
+    rng = np.random.default_rng(seed)
+    sizes = list(layer_sizes)
+    n_layers = len(sizes) - 1
+    assert n_layers >= 2, "a recurrent job needs a hidden and an output layer"
+    layers = []
+    for i, (n_in, n_out) in enumerate(zip(sizes[:-1], sizes[1:])):
+        w = rng.integers(w_lo, w_hi, (n_out, n_in)).astype(np.int8)
+        if i == n_layers - 2:  # Elman hidden: mild random self-coupling
+            lateral = rng.integers(-2, 3, (n_out, n_out)).astype(np.int8)
+            thresh = max(n_in + n_out // 4, 1)
+        elif i == n_layers - 1:  # WTA output: mutual lateral inhibition
+            lateral = (-inhibition * (1 - np.eye(n_out, dtype=np.int64))).astype(np.int8)
+            thresh = max(n_in, 1)
+        else:
+            lateral = None
+            thresh = max(n_in, 1)
+        layers.append(SNNLayer(w, LIFParams(thresh=thresh, leak=1), lateral=lateral))
+    feedback = rng.integers(-2, 3, (sizes[-2], sizes[-1])).astype(np.int8)
+    edges = (RecurrentEdge(src=n_layers - 1, dst=n_layers - 2, weights=feedback),)
+    return layers, edges
 
 
 def _oracle(layers, raster, edges=(), n_ticks=None):
@@ -86,6 +119,13 @@ def oracle_run(layers, raster, edges=(), n_ticks=None):
     return counts, totals
 
 
+def oracle_rates(layers, raster, edges=(), n_ticks=None):
+    """Profiling pass: per-layer per-neuron emitted-spike totals and the
+    tick count, the inputs to ``topology.profile_traffic``."""
+    _, _, per_neuron, nt = _oracle(layers, raster, edges, n_ticks)
+    return per_neuron, nt
+
+
 @dataclasses.dataclass
 class SNNJob:
     layers: list
@@ -105,3 +145,40 @@ def snn_inference_job(layer_sizes=(64, 48, 10), t_steps: int = 12,
     raster = rate_encode(x, t_steps, seed=seed + 2)
     counts, totals = oracle_run(layers, raster)
     return SNNJob(layers, raster, counts, int(totals.sum()))
+
+
+def snn_skip_job(layer_sizes=(32, 24, 16, 10), t_steps: int = 8,
+                 rate: float = 0.5, seed: int = 0, w_lo: int = -4,
+                 w_hi: int = 8) -> SNNJob:
+    """Feed-forward chain plus a forward *skip* connection from the first
+    hidden layer to the output layer (l -> l+k).  Still acyclic, so the
+    network drains by itself and needs no tick horizon; the skip's spikes
+    arrive one tick after emission, like every hop."""
+    assert len(layer_sizes) >= 4, "a skip needs dst > src + 1"
+    rng = np.random.default_rng(seed + 3)
+    layers = random_snn(layer_sizes, seed=seed)
+    src, dst = 0, len(layers) - 1
+    skip = RecurrentEdge(src=src, dst=dst, weights=rng.integers(
+        w_lo, w_hi, (layers[dst].n_out, layers[src].n_out)).astype(np.int8))
+    x = rng.random(layer_sizes[0]) * rate * 2
+    raster = rate_encode(x, t_steps, seed=seed + 2)
+    counts, totals = oracle_run(layers, raster, edges=(skip,))
+    return SNNJob(layers, raster, counts, int(totals.sum()), edges=(skip,))
+
+
+def snn_recurrent_job(layer_sizes=(48, 40, 12), t_steps: int = 10,
+                      rate: float = 0.5, seed: int = 0,
+                      settle: int = 6) -> SNNJob:
+    """Recurrent inference job: a ``random_recurrent_snn`` network under a
+    rate-coded raster, verified over the bounded tick horizon
+    ``n_ticks = T + L + settle`` that both the VP (``tick_limit``) and the
+    oracle simulate, so the expected counts are exact even where the
+    recurrent activity would self-sustain past it."""
+    rng = np.random.default_rng(seed + 1)
+    layers, edges = random_recurrent_snn(layer_sizes, seed=seed)
+    x = rng.random(layer_sizes[0]) * rate * 2
+    raster = rate_encode(x, t_steps, seed=seed + 2)
+    n_ticks = t_steps + len(layers) + settle
+    counts, totals = oracle_run(layers, raster, edges=edges, n_ticks=n_ticks)
+    return SNNJob(layers, raster, counts, int(totals.sum()),
+                  edges=edges, n_ticks=n_ticks)

@@ -12,8 +12,7 @@ Every function works over a leading segment axis: cims fields are
 ``(S, n_slots, ...)``.  The ``apply_*`` register writes update every unit
 of every segment at once, ``pred`` ``(S, n_slots)`` selecting the units
 written (the reference applies one unit at a time and selects with the
-same predicate).  The grouped tick of multi-crossbar layers comes with
-ROADMAP module item 7.
+same predicate).
 """
 from __future__ import annotations
 
@@ -178,12 +177,17 @@ def snn_tick(cims, t_gate, use_kernel: bool = False, grouped: bool = False):
     decides).  The fault inputs (``f_and``, ``f_xor``, ``f_dead``,
     ``f_dth``) go into the same call when the state has them.
 
+    ``grouped`` (static; ``cfg.snn_grouped``) enables multi-crossbar
+    layers: a stripe whose fan-in exceeds one crossbar occupies a column
+    group of co-located slots, the owner holding the neurons and each
+    contributor tile forwarding its exact int32 partial contraction to the
+    owner within the same tick (``owner_slot``).  Co-location in one
+    segment makes the group fire in lockstep, so the summed charge equals
+    the unsharded contraction bit for bit.  The same call takes the
+    grouped variant of the kernel.
+
     Returns (cims', fired_rows bool (S, n, XBAR), fire bool (S, n),
     tick_time (S, n)).
     """
     del use_kernel
-    if grouped:
-        raise NotImplementedError(
-            "multi-crossbar column groups (the grouped LIF tick) come with "
-            "ROADMAP module item 7")
-    return lif_ops.snn_tick(cims, t_gate)
+    return lif_ops.snn_tick(cims, t_gate, grouped=grouped)

@@ -299,9 +299,6 @@ def make_segment_step(cfg: VPConfig, quantum: int, obs=None):
     """
     if obs is not None:
         raise NotImplementedError("telemetry (obs=) comes with ROADMAP module item 10")
-    if cfg.snn_grouped:
-        raise NotImplementedError(
-            "multi-crossbar column groups come with ROADMAP module item 7")
     xb = cim_mod.XBAR
     t = cfg.timing
     wiring = {}  # device -> the static CIM wiring tables, copied there once

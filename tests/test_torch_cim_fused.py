@@ -179,7 +179,7 @@ def test_plain_fused_finish_matches_jax(s, given):
 
 def test_plain_fused_steps_are_the_cim_steps():
     """``vp/cim`` calls the fused wrappers: on the CPU its steps are the
-    plain versions, and the grouped tick stays refused."""
+    plain versions, the grouped tick (column groups) included."""
     from repro_torch.vp import cim
 
     cims, t_gate = tick_state(2, 3)
@@ -188,8 +188,13 @@ def test_plain_fused_steps_are_the_cim_steps():
     for k in lif_ref.TICK_OUTPUTS:
         assert torch.equal(got[0][k], want[0][k]), k
     assert all(torch.equal(g, w) for g, w in zip(got[1:], want[1:]))
-    with pytest.raises(NotImplementedError, match="module item 7"):
-        cim.snn_tick(_torch(cims), torch.from_numpy(t_gate), grouped=True)
+    cims["owner_slot"][:, 1] = 0  # slot 1 of each segment forwards its charge to slot 0
+    got = cim.snn_tick(_torch(cims), torch.from_numpy(t_gate), grouped=True)
+    want = lif_ref.snn_tick(_torch(cims), torch.from_numpy(t_gate), grouped=True)
+    for k in lif_ref.TICK_OUTPUTS:
+        assert torch.equal(got[0][k], want[0][k]), k
+    assert all(torch.equal(g, w) for g, w in zip(got[1:], want[1:]))
+    assert not got[0]["v"][:, 1].any()  # contributors hold no membrane state
     cims, t_end = finish_state(2, 3)
     got, done = cim.finish_ops(_torch(cims), torch.from_numpy(t_end))
     want, want_done = xbar_ref.finish_ops(_torch(cims), torch.from_numpy(t_end))

@@ -4,8 +4,9 @@ of tests/test_faults.py, the built trees, the final trees and
 means off (``faults=None`` and zero-rate configs build the clean tree);
 results do not depend on the segmentation; the drop policy loses and counts
 the reference's spikes, and the default policy raises its message byte for
-byte; the store log stays fatal under drop; a small ``degradation_sweep``
-and a dense offload under crossbar faults equal the reference's."""
+byte; the store log stays fatal under drop; a small ``degradation_sweep``,
+a dense offload under crossbar faults and a wide layer's faulted column
+group equal the reference's."""
 import dataclasses
 
 import jax
@@ -246,15 +247,30 @@ def test_dense_offload_under_crossbar_faults_matches_jax():
     assert not np.array_equal(o.numpy().reshape(8, 2), job["expected"])
 
 
-def test_faults_beside_column_groups_stay_refused():
-    """Wide layers (column groups) take the grouped tick: ROADMAP item 7."""
-    job = snn.snn_inference_job((300, 8), t_steps=2, rate=0.5, seed=2)
-    descs = snn.segmentation_for(job.layers, "uniform", n_segments=2)
-    built = snn.build_snn(job.layers, descs, job.raster, device="cpu",
-                          faults=flt.FaultConfig(**FAMILIES["crossbar"]))
-    assert built[0].snn_grouped
-    with pytest.raises(NotImplementedError, match="ROADMAP module item 7"):
-        _run(built)
+@pytest.mark.parametrize("backend", ["vmap", "sequential"])
+def test_faulted_wide_run_matches_jax(backend):
+    """A wide layer (a 2-tile column group) under crossbar and neuron
+    faults: the contributor tile's masks are drawn from its own logical
+    (layer, stripe, tile) identity, and the faulted grouped tick gives the
+    reference's trees and ``rounds_run``."""
+    kw = dict(FAMILIES["crossbar"], p_dead=0.2, p_thresh_drift=0.3)
+
+    def build(pkg, **dev):
+        job = pkg.snn_inference_job((300, 8), t_steps=2, rate=0.5, seed=2)
+        descs = pkg.segmentation_for(job.layers, "uniform", n_segments=2)
+        return pkg.build_snn(job.layers, descs, job.raster,
+                             faults=(jflt if pkg is jsnn else flt).FaultConfig(**kw), **dev)
+
+    built_j = build(jsnn)
+    ctl_j = _run_jax(built_j)
+    built = build(snn, device="cpu")
+    assert built[0].snn_grouped and cfg_fields(built[0]) == cfg_fields(built_j[0])
+    assert_tree_equal(built_j[1], built[1], "built states")
+    ctl = _run(built, backend)
+    assert ctl.rounds_run == ctl_j.rounds_run
+    assert_tree_equal(ctl_j.result_states(), ctl.result_states(), f"{backend} states")
+    assert_tree_equal(ctl_j._pending_stacked(), ctl._pending_stacked(), f"{backend} pending")
+    assert snn.total_spikes(ctl.result_states()) > 0
 
 
 def test_fault_config_is_carried_in_the_vp_config():

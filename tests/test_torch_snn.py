@@ -158,13 +158,12 @@ def _outside_the_slice():
         # live CPUs beside spike-mode units: a hybrid job (ROADMAP item 8)
         "programs": lambda: sg.build(descs, programs={0: "halt"},
                                      cim_init=spike_units, device="cpu"),
-        "traffic": lambda: snn.auto_segmentation_for(job.layers, traffic=np.eye(2)),
         "counts_request": lambda: hybrid(ch.MSG_W_CIM, isa.CIM_REG_COUNTS, False),
         "live_cpu": lambda: hybrid(ch.MSG_W_SCRATCH, 7, True),
     }
 
 
-@pytest.mark.parametrize("option", ["threads", "shard_map", "obs", "programs", "traffic",
+@pytest.mark.parametrize("option", ["threads", "shard_map", "obs", "programs",
                                     "counts_request", "live_cpu"])
 def test_options_outside_the_slice_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
