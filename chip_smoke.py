@@ -33,8 +33,11 @@ and fails (non-zero exit, no result line) unless every phase holds:
      (``snn_tick(grouped=True)``) and its fault variant bit-equal to the
      plain grouped tick at full-width tiles (two segments, each a 3-wide
      group beside a single unit: all, the group alone and none firing, timed
-     there), at the wide job's own units and at the mixed states with
-     ``owner_slot`` drawn over every branch;
+     there), at the wide job's own units, at the mixed states with
+     ``owner_slot`` drawn over every branch and at a 7-tile group (one
+     segment of 8 slots: two of the kernel's stages), also at narrow tiles;
+     the ptxas report of every ``snn_tick_kernel`` instantiation shows no
+     spill;
   2. ``fig5snn`` (128x96x64x10, T=24): 2045 spikes in 28 rounds under three
      placements and both backends, the oracle's output counts, one fused
      tick launch per round (per segment on ``sequential``), and a CPU rerun
@@ -109,6 +112,10 @@ and fails (non-zero exit, no result line) unless every phase holds:
      the unfused path (expansion ops and the unfused kernel per 256-token
      chunk, 1088 launches) and with the plain scan, profiles of a prefill
      and a decode step, and one decode step under sync-debug "error".
+
+``python3 chip_smoke.py --turns OTHER.cu`` runs none of this: it times the
+fused ticks against another build of ``lif_step.cu`` in turns
+(``turns_phase``).
 
 A VP main path's kernel launches (phases 2, 3, 6, 7 and 9) are counted on
 the card: the fused tick, the fused completion and the slot scan each add
@@ -978,26 +985,34 @@ def fused_phase(kind):
 
 GROUP_SHAPE = (2, 4)  # per segment: a 3-wide column group (owner at slot 0) and one unit
 GROUP_STATES = {"all": (True, True), "group": (True, False), "none": (False, False)}
+# one segment of 8 slots: a 7-tile column group (fan-in 1792, two of the grouped
+# kernel's stages) and one unit; "group": contributor 4 is at its tick limit
+WIDE_GROUP_SHAPE = (1, 8)
+WIDE_GROUP_STATES = ("all", "group")
 
 
-def group_state(state, seed):
+def group_state(state, seed, wide=False):
     """Full-width tiles in ``GROUP_SHAPE``: each segment's slots 1 and 2
     forward their charge to slot 0 (``owner_slot``, rows 0), slot 3 is a
     unit of its own; ``state`` names whether the group and the single unit
-    are due to tick.  Weights, spikes and membranes drawn from a seed."""
+    are due to tick.  ``wide``: in ``WIDE_GROUP_SHAPE``, slots 1-6 forward
+    to slot 0 and slot 7 is the single unit, every unit due (``state``
+    "all") or all but contributor 4, which has reached its tick limit
+    ("group").  Weights, spikes and membranes drawn from a seed."""
     from repro_torch.vp import isa
 
-    group_fires, single_fires = GROUP_STATES[state]
-    s, n = GROUP_SHAPE
+    shape = WIDE_GROUP_SHAPE if wide else GROUP_SHAPE
+    s, n = shape
+    group_fires, single_fires = (True, True) if wide else GROUP_STATES[state]
     g = np.random.default_rng(seed)
-    c = cims_state(GROUP_SHAPE)
+    c = cims_state(shape)
     draw = lambda lo, hi, shape, dt=np.int32: torch.from_numpy(
         g.integers(lo, hi, shape).astype(dt)).cuda()
     c["present"][:] = True
     c["mode"][:] = isa.CIM_MODE_SPIKE
     c["tick_period"][:] = 32
-    c["owner_slot"][:] = torch.tensor([0, 0, 0, 3], dtype=torch.int32)
-    c["rows"][:] = torch.tensor([256, 0, 0, 256], dtype=torch.int32)
+    c["owner_slot"][:] = torch.tensor([0] * (n - 1) + [n - 1], dtype=torch.int32)
+    c["rows"][:] = torch.tensor([256] + [0] * (n - 2) + [256], dtype=torch.int32)
     c["thresh"] = draw(100, 400, (s, n))
     c["leak"] = draw(0, 4, (s, n))
     c["refrac_period"][:] = 2
@@ -1008,9 +1023,52 @@ def group_state(state, seed):
     c["spike_counts"] = draw(0, 20, (s, n, 256))
     c["spikes_total"] = c["spike_counts"].sum(-1, dtype=torch.int32)
     c["ticks"][:] = 5
-    due = torch.tensor([group_fires] * 3 + [single_fires], device="cuda").expand(s, n)
+    due = torch.tensor([group_fires] * (n - 1) + [single_fires], device="cuda").expand(s, n)
     c["next_tick"] = torch.where(due, 160, 192).to(torch.int32)
+    if wide and state == "group":
+        c["tick_limit"][0, 4] = 5
     return c, torch.full((s,), 192, dtype=torch.int32, device="cuda")
+
+
+def narrow(cims, r, c):
+    """``cims`` cut to (R, C) = (r, c) tiles: a C that is not a multiple of
+    16 takes the grouped kernel's 4-byte copies, one that is not a multiple
+    of 4 its byte-wise path."""
+    out = dict(cims, rows=cims["rows"].clamp(max=r), in_buf=cims["in_buf"][..., :c].contiguous())
+    for f in ("weights", "f_and", "f_xor"):
+        if f in out:
+            out[f] = out[f][..., :r, :c].contiguous()
+    for f in ("v", "refrac", "spike_counts", "f_dead", "f_dth"):
+        if f in out:
+            out[f] = out[f][..., :r].contiguous()
+    return out
+
+
+def tick_ptxas():
+    """The ptxas report of every ``snn_tick_kernel`` instantiation in
+    ``lif_step.cu``'s build: {(kFaults, kGrouped): (registers, spill store
+    bytes, spill load bytes, static shared bytes)}."""
+    import re
+
+    from repro_torch.kernels import build as kbuild
+
+    out, key = {}, None
+    for line in kbuild.build_log("lif_step").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"snn_tick_kernelILb([01])ELb([01])E", m[1])
+            key = (k[1] == "1", k[2] == "1") if k else None
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[key] = (None, int(m[1]), int(m[2]), 0)
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m:
+            _, st, ld, _ = out.get(key, (None, 0, 0, 0))
+            out[key] = (int(m[1]), st, ld, int(m[2] or 0))
+    return out
 
 
 def wide_tick_state(seed):
@@ -1063,9 +1121,13 @@ def grouped_phase():
     (the group and the single unit firing, the group alone, none), at the
     wide job's own units, and at the tests' mixed-gate states with
     ``owner_slot`` drawn over every branch (a contributor, an owner out of
-    range, a negative slot); under every fault input alone and all
+    range, a negative slot), at a 7-tile group that takes two of the
+    kernel's stages (all firing, and one contributor at its tick limit), the
+    mixed states and the 7-tile group also at narrow tiles (the 4-byte
+    copies and the byte-wise path); under every fault input alone and all
     together, and neutral inputs against the clean kernel; then the
-    full-width states' device times, the plain version's and the bound.
+    full-width states' device times, the plain version's and the bound; and
+    the ptxas report: no ``snn_tick_kernel`` instantiation may spill.
     Returns the clean and faulted rows."""
     from repro_torch.kernels.lif_step import ops as lops, ref as lref
 
@@ -1096,8 +1158,39 @@ def grouped_phase():
             got, err = fused_check(f"{label} wide job's units {given}", wrap, plain, c, t)
             max_err = max(max_err, err)
             check(bool(got[2][cims["present"]].all()), f"{label} wide job: every unit fires")
+        for k, state in enumerate(WIDE_GROUP_STATES):
+            cims, t = group_state(state, 100 + k, wide=True)
+            for given, c in variants(cims, 105 + k).items():
+                got, err = fused_check(f"{label} 7-tile group {state} {given}", wrap, plain, c, t)
+                max_err = max(max_err, err)
+                want = torch.ones(WIDE_GROUP_SHAPE, dtype=torch.bool, device="cuda")
+                want[0, 4] = state == "all"
+                check(torch.equal(got[2], want), f"{label} 7-tile group {state}: the wrong "
+                      "units fire")
+                check(not bool(got[0]["v"][:, 1:7].any()), f"{label} 7-tile group {state}: "
+                      "contributors' v")
+                for r, cols in ((70, 100), (64, 37)):
+                    max_err = max(max_err, fused_check(
+                        f"{label} 7-tile group {state} {given} at {r}x{cols}", wrap, plain,
+                        narrow(c, r, cols), t)[1])
+            if state == "all":
+                c = variants(cims, 105 + k)["all" if faulted else "clean"]
+                print(f"{label} (S, n) = {WIDE_GROUP_SHAPE} x 256x256, a 7-tile group and a "
+                      f"single unit all firing: device time kernel "
+                      f"{device_ms(lambda: wrap(c, t)):.6f} ms", flush=True)
+        for s in (1, 2):  # the mixed states' narrow tiles
+            cims, t = mixed_state("tick", s, 60 + s)
+            cims["owner_slot"] = torch.from_numpy(
+                np.random.default_rng(70 + s).integers(-3, 3, (s, 2)).astype(np.int32)).cuda()
+            for given, c in variants(cims, s).items():
+                for r, cols in ((70, 100), (64, 37)):
+                    max_err = max(max_err, fused_check(
+                        f"{label} mixed S={s} {given} at {r}x{cols}", wrap, plain,
+                        narrow(c, r, cols), t)[1])
         print(f"{label}: bit-equal to its plain version at the tests' mixed states (S in (1, "
-              f"2, 4), owner_slot drawn in [-3, 3)) and at the wide job's units"
+              f"2, 4), owner_slot drawn in [-3, 3)), at the wide job's units and at a 7-tile "
+              f"group (two stages; all firing, and one contributor at its tick limit), the "
+              f"mixed states and the 7-tile group also at 70x100 and 64x37 tiles"
               + (", under every fault input alone and all together" if faulted else ""),
               flush=True)
         for k, state in enumerate(GROUP_STATES):
@@ -1141,6 +1234,19 @@ def grouped_phase():
                        "bound_ms": bound_ms, "bound_by": bound_by,
                        # no single PyTorch call computes a gated, grouped tick
                        "library_ms": None}
+    report = tick_ptxas()
+    check(len(report) == 4, f"ptxas report: {len(report)} snn_tick_kernel instantiations")
+    for (faults_, grouped), (regs, st, ld, _) in sorted(report.items()):
+        check(st == 0 and ld == 0, f"snn_tick_kernel<kFaults={faults_}, kGrouped={grouped}> "
+              f"spills {st} bytes (stores) and {ld} (loads)")
+    from repro_torch.kernels import build as kbuild
+
+    lib = kbuild.load("lif_step")
+    print("snn_tick_kernel ptxas (sm_90a), no instantiation spills; grouped: " + "; ".join(
+        f"{name} {report[f, True][0]} registers, {report[f, True][1]} bytes spill stores, "
+        f"{report[f, True][2]} bytes spill loads, {report[f, True][3]} bytes static and "
+        f"{lib.snn_tick_grouped_shared_bytes(int(f))} bytes dynamic shared memory"
+        for f, name in ((False, "clean"), (True, "faults"))), flush=True)
     return [rows["snn_tick_grouped"], rows["snn_tick_grouped_faults"]]
 
 
@@ -2655,10 +2761,74 @@ def global_loads(name):
     return {op: ops.count(op) for op in sorted(set(ops))}
 
 
+def turns_phase(other_cu, card):
+    """The fused ticks of this checkout against those of another build of
+    ``lif_step.cu`` (``other_cu``, e.g. a parent commit's, ``git show
+    <commit>:src/repro_torch/kernels/csrc/lif_step.cu``), timed in turns
+    (other, this, this, other, twice) at phase 1b's states: the grouped tick
+    and its fault variant at ``GROUP_STATES`` and the 7-tile group, the
+    ungrouped ones at ``TICK_STATES``; both builds' outputs equal first."""
+    import ctypes
+
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.lif_step import ops as lops
+
+    other_so = kbuild.BUILD_DIR / "other-lif_step.so"
+    kbuild.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    log = subprocess.run([kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-o", str(other_so), other_cu],
+                         capture_output=True, text=True, timeout=600)
+    check(log.returncode == 0, f"nvcc failed on {other_cu}:\n{log.stdout}{log.stderr}")
+    other = ctypes.CDLL(str(other_so))
+    if hasattr(other, "snn_tick_prepare"):
+        check(other.snn_tick_prepare() == 0, "the other build's snn_tick_prepare")
+
+    def other_tick(c, t, grouped):
+        ptrs, ints, faulted, result = lops._tick_arguments(c, t, None, grouped)
+        fn = getattr(other, "snn_tick" + ("_grouped" if grouped else "")
+                     + ("_faults" if faulted else "") + "_launch")
+        fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 4
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
+        check(fn(ptrs, *ints, torch.cuda.current_stream().cuda_stream) == 0,
+              "the other build's launch")
+        return result
+
+    states = []
+    for k, state in enumerate(GROUP_STATES):
+        c, t = group_state(state, 90 + k)
+        states += [(f"grouped {state}", True, c, t),
+                   (f"grouped faults {state}", True, with_faults(c, 95 + k), t)]
+    c, t = group_state("all", 100, wide=True)
+    states += [("grouped 7-tile all", True, c, t),
+               ("grouped faults 7-tile all", True, with_faults(c, 105), t)]
+    for k, (state, n_fire) in enumerate(TICK_STATES.items()):
+        c, t = tick_state(n_fire, 40 + k)
+        states += [(f"ungrouped {state}", False, c, t),
+                   (f"ungrouped faults {state}", False, with_faults(c, 50 + k), t)]
+    for label, grouped, c, t in states:
+        this = lambda: lops.snn_tick(c, t, grouped=grouped)
+        that = lambda: other_tick(c, t, grouped)
+        a, b = this(), that()
+        torch.cuda.synchronize()
+        check(tree_err(a, b) == 0 and all(torch.equal(a[0][f], b[0][f]) for f in b[0]),
+              f"turns {label}: the builds' outputs differ")
+        ms = [device_ms(fn) for _ in range(2) for fn in (that, this, this, that)]
+        old_ms = statistics.mean(ms[0::4] + ms[3::4])
+        new_ms = statistics.mean(ms[1::4] + ms[2::4])
+        print(f"turns {label}: other {old_ms:.6f} ms, this {new_ms:.6f} ms, this/other "
+              f"{new_ms / old_ms:.3f} (each: {' '.join(f'{x:.6f}' for x in ms)}; {card})",
+              flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--turns"]:  # python3 chip_smoke.py --turns OTHER_LIF_STEP_CU
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+        turns_phase(sys.argv[2], smi.splitlines()[0])
+        return 0
     from repro_torch.kernels import build as kbuild
 
     phase("0 environment")

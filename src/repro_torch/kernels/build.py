@@ -4,8 +4,9 @@ interface and loads them with ``ctypes``.
 Each ``csrc/<name>.cu`` compiles with one ``nvcc`` call for ``sm_90a`` into
 ``build/repro_torch/<name>-<hash>.so`` under the repository root, keyed by
 a hash of the source and the flags, so an edit rebuilds and an unchanged
-source is reused.  ``build_all`` starts every compile at once.  Nothing
-here runs at import: the CPU tests import every module, and only a launch
+source is reused.  ``build_all`` starts every compile at once.  nvcc's
+output (the ptxas report: registers, spills, shared memory of each kernel)
+is kept beside each library (``build_log``).  Nothing here runs at import: the CPU tests import every module, and only a launch
 on a CUDA tensor needs a library.
 """
 from __future__ import annotations
@@ -67,8 +68,15 @@ def build_all(names) -> dict:
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     return seconds
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for ``csrc/<name>.cu``'s current library, built on first use."""
+    load(name)
+    return library_path(name).with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

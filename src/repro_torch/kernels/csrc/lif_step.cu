@@ -37,13 +37,31 @@
 // its contraction into the charge of the slot owner_slot names in its
 // segment (a negative slot counts from the end, one out of range is
 // dropped), and every contributor's v and refrac are written as 0.  The
-// owner's cluster loops over its segment's slots and contracts each firing
-// contributor's weights (and masks) against that contributor's input
-// in_buf, which the tick never writes in place, so no cluster waits on
-// another: no atomics, no second launch.  Its bound counts the weights of the
-// contractions a state needs (a firing owner's own and its firing
-// contributors', each read once): ~0.18 us at 8 full units all firing.  The
-// owner pays two dependent trips to memory per contributor on top.
+// owner's cluster contracts its own tile and each firing contributor's
+// weights (and masks) against that contributor's input in_buf, which the
+// tick never writes in place, so no cluster waits on another: no atomics,
+// no second launch.  It keeps the ungrouped tick's two trips to memory,
+// however many members the group has.  Trip 1: lane m of every warp also
+// reads slot m's owner_slot, so a warp ballot gives every warp the same
+// candidates (the slots that name this one their owner) without a barrier.
+// Trip 2: the block copies its 32 rows of the own tile's and every
+// candidate's weights (and masks) into shared memory with cp.async from
+// every thread (16 bytes a copy; 4 where C % 16 != 0 or a base is not
+// 16-byte aligned), stages their clipped in_buf rows beside them and reads
+// the candidates' fire gates, waits once, and each warp contracts its rows
+// tile by tile from shared memory for the candidates that fire, the masks
+// applied to whole 32-bit words as they are read (no tile lives in
+// registers).  A candidate that does not fire costs its copy only.  A stage
+// holds kStageTiles tiles, a full-width group at four slots a segment: 36 KB
+// of dynamic shared memory, 100 KB with the masks.  A larger group takes one
+// more trip per further stage, a segment of more than 32 slots one more per
+// further 32 slots.  C % 4 != 0 or a base not 4-byte aligned stages the
+// spikes only and reads the weights byte-wise from memory.  Its bound counts
+// the weights of the contractions a state needs (a firing owner's own and
+// its firing contributors', each read once): ~0.18 us at 8 full units all
+// firing.  What it costs beyond the ungrouped tick is the copy, at most
+// kStageTiles tiles into one block's shared memory (the owner's 8 SMs carry
+// the whole group), and the contraction out of shared memory.
 //
 // Bound.  The clean step moves U*R*C weight bytes plus about U*(4C + 20R)
 // state bytes: ~573 KB at U=8, R=C=256, i.e. ~0.17 us at 3.35 TB/s, and does
@@ -231,6 +249,14 @@ constexpr int kTickBlocks = 8;      // a cluster of blocks per unit
 constexpr int kTickThreads = 256;   // 8 warps a block
 constexpr int kRowsPerBlock = kXbar / kTickBlocks;                 // 32
 constexpr int kRowsPerWarp = kRowsPerBlock / (kTickThreads / 32);  // 4
+// the grouped tick's stage: kStageTiles tiles of a block's rows (weights, and
+// for kFaults both masks) and their clipped spike rows, in dynamic shared memory
+constexpr int kStageTiles = 4;
+constexpr int kTileBytes = kRowsPerBlock * kXbar;  // 8 KB
+template <bool kFaults>
+constexpr int grouped_shared_bytes() {
+  return kStageTiles * (kXbar * (int)sizeof(int32_t) + (kFaults ? 3 : 1) * kTileBytes);
+}
 
 // Pointers of one tick, in the order of the C entry's array (33 of them,
 // ops.py's TICK_POINTERS).  Per unit (U = S * n_slots): present (one
@@ -298,19 +324,49 @@ TickArgs tick_args(const void* const* p) {
 // 0 of the cluster adds the others' sums through distributed shared memory,
 // so spikes_total needs no atomics and no scratch.  C % 4 != 0 (or a
 // misaligned base) takes a byte-wise contraction after the spikes are
-// staged.
-// The fire gate of unit ``u`` at its segment's inbox time ``tg``.
-__device__ __forceinline__ bool tick_fires(const TickArgs& a, int u, int tg, int spike_mode) {
-  const int tp = a.tick_period[u], lim = a.tick_limit[u];
-  const int next = (int)((unsigned)a.next_tick[u] + (unsigned)tp);
-  return a.present[u] != 0 && a.mode[u] == spike_mode && tp > 0 && tg >= next &&
-         (lim == 0 || a.ticks[u] < lim);
+// staged.  The grouped tick's trip 2 stages its members' tiles in shared
+// memory instead (the design note at the top, contract_group).
+// The fire gate's fields of one unit, and the gate at its segment's inbox
+// time ``tg`` (the grouped tick reads its members' gates with these).
+struct Gate {
+  bool here;
+  int md, tp, nt, lim, tk;
+};
+
+__device__ __forceinline__ Gate load_gate(const TickArgs& a, int u) {
+  return {a.present[u] != 0, a.mode[u], a.tick_period[u], a.next_tick[u], a.tick_limit[u],
+          a.ticks[u]};
+}
+
+__device__ __forceinline__ bool gate_fires(const Gate& g, int tg, int spike_mode) {
+  const int next = (int)((unsigned)g.nt + (unsigned)g.tp);
+  return g.here & (g.md == spike_mode) & (g.tp > 0) & (tg >= next) &
+         ((g.lim == 0) | (g.tk < g.lim));
 }
 
 // Adds one unit's contraction of the warp's kRowsPerWarp rows (from row
-// ``base``; ``ur`` = the unit's first row) into each lane's ``acc``: from
-// the tiles in registers, or byte-wise from memory where the layout is not
-// 4-aligned.  ``s_sh`` holds the unit's clipped spikes.
+// ``base``; ``ur`` = the unit's first row) into each lane's ``acc``, reading
+// the weights (and masks) byte-wise from memory: the path of a layout that is
+// not 4-aligned.  ``s_sh`` holds the unit's clipped spikes.
+template <bool kFaults>
+__device__ __forceinline__ void contract_bytes(unsigned (&acc)[kRowsPerWarp],
+                                               const int32_t* s_sh,
+                                               const int8_t* __restrict__ w,
+                                               const int8_t* __restrict__ fa,
+                                               const int8_t* __restrict__ fx, size_t ur,
+                                               int base, int R, int C, int lane) {
+  for (int c = lane; c < C; c += 32) {
+    const int sc = s_sh[c];
+#pragma unroll
+    for (int k = 0; k < kRowsPerWarp; ++k) {
+      if (base + k < R)
+        acc[k] += (unsigned)(read_weight<kFaults>(w, fa, fx, (ur + base + k) * C + c) * sc);
+    }
+  }
+}
+
+// As contract_bytes, from the tiles in registers where the layout is
+// 4-aligned.
 template <bool kFaults>
 __device__ __forceinline__ void contract(unsigned (&acc)[kRowsPerWarp],
                                          const char4 (&wv)[kRowsPerWarp][2],
@@ -333,14 +389,7 @@ __device__ __forceinline__ void contract(unsigned (&acc)[kRowsPerWarp],
       }
     }
   } else {
-    for (int c = lane; c < C; c += 32) {
-      const int sc = s_sh[c];
-#pragma unroll
-      for (int k = 0; k < kRowsPerWarp; ++k) {
-        if (base + k < R)
-          acc[k] += (unsigned)(read_weight<kFaults>(w, fa, fx, (ur + base + k) * C + c) * sc);
-      }
-    }
+    contract_bytes<kFaults>(acc, s_sh, w, fa, fx, ur, base, R, C, lane);
   }
 }
 
@@ -359,11 +408,191 @@ __device__ __forceinline__ void load_weights(char4 (&wv)[kRowsPerWarp][2], const
   }
 }
 
+// ---- the grouped tick's member list and stages (kGrouped)
+
+// One bit per lane for the warp's 32 slots: lane m's slot (m < n_slots) is a
+// contributor whose ``owner`` (its owner_slot) resolves to ``slot`` (a
+// negative slot counts from the end, one out of range is dropped) and
+// ``pass`` holds.  Every warp reads the same slots, so every warp gets the
+// same bits and every test on them is uniform across the block.
+__device__ __forceinline__ unsigned group_ballot(int owner, bool pass, int m, int n_slots,
+                                                int slot) {
+  const int o = owner < 0 ? owner + n_slots : owner;
+  return __ballot_sync(0xffffffffu, pass && m < n_slots && owner != m && o == slot);
+}
+
+// Copies ``n`` bytes from global ``src`` to shared ``dst`` with cp.async from
+// every thread of the block: 16 bytes a copy where ``wide`` (n, both
+// addresses 16-byte aligned), else 4.  cp.async.wait_all completes them.
+__device__ __forceinline__ void copy_async(int8_t* dst, const int8_t* src, int n, int t,
+                                           bool wide) {
+  if (wide) {
+    for (int i = 16 * t; i < n; i += 16 * kTickThreads)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       (unsigned)__cvta_generic_to_shared(dst + i)),
+                   "l"(src + i)
+                   : "memory");
+  } else {
+    for (int i = 4 * t; i < n; i += 4 * kTickThreads)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                       (unsigned)__cvta_generic_to_shared(dst + i)),
+                   "l"(src + i)
+                   : "memory");
+  }
+}
+
+// Adds the contraction of one staged tile into the warp's rows: ``w_sh`` its
+// block's rows (C bytes each, from the warp's first row), ``a_sh``/``x_sh``
+// its masks or null (neutral), ``s_sh`` its clipped spikes.  Four weights are
+// one 32-bit word, so the masks apply to a word in one (w & a) ^ x, and every
+// load is issued before any is used.
+template <bool kFaults>
+__device__ __forceinline__ void contract_shared(unsigned (&acc)[kRowsPerWarp],
+                                                const int8_t* w_sh, const int8_t* a_sh,
+                                                const int8_t* x_sh, const int32_t* s_sh,
+                                                int C, int lane) {
+  unsigned wd[2][kRowsPerWarp];
+  int4 s[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = 4 * (lane + 32 * h);
+    const bool in = c < C;
+    s[h] = in ? *reinterpret_cast<const int4*>(s_sh + c) : make_int4(0, 0, 0, 0);
+#pragma unroll
+    for (int k = 0; k < kRowsPerWarp; ++k) {
+      const int i = k * C + c;
+      unsigned w = in ? *reinterpret_cast<const unsigned*>(w_sh + i) : 0u;
+      if constexpr (kFaults) {
+        const unsigned m = in && a_sh != nullptr ? *reinterpret_cast<const unsigned*>(a_sh + i)
+                                                 : ~0u;
+        const unsigned f = in && x_sh != nullptr ? *reinterpret_cast<const unsigned*>(x_sh + i)
+                                                 : 0u;
+        w = (w & m) ^ f;
+      }
+      wd[h][k] = w;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int k = 0; k < kRowsPerWarp; ++k) {
+      const unsigned w = wd[h][k];  // bytes 0..3: columns c..c+3
+      acc[k] += (unsigned)((int)(int8_t)w * s[h].x) + (unsigned)((int)(int8_t)(w >> 8) * s[h].y) +
+                (unsigned)((int)(int8_t)(w >> 16) * s[h].z) +
+                (unsigned)((int)(int8_t)(w >> 24) * s[h].w);
+    }
+  }
+}
+
+// The grouped tick's contraction (see the design note at the top): the owner's
+// own tile and every member of its group, in stages of kStageTiles tiles, into
+// the warp's rows' ``acc``.  ``bits``: the candidates among slots [0, 32)
+// (their owner_slot, read in trip 1, names this slot); their fire gates are
+// read beside the first stage's copies, and only those that fire are
+// contracted.  Slots past 32 are read a chunk of 32 at a time, owner and gate
+// together.  ``seg_in`` is the segment's in_buf, ``row0`` the block's first
+// row, ``base`` the warp's.  Every branch and barrier here is uniform across
+// the block.
+template <bool kFaults>
+__device__ __forceinline__ void contract_group(unsigned (&acc)[kRowsPerWarp], const TickArgs& a,
+                                               unsigned bits, int u0, int slot, int n_slots,
+                                               const int32_t* seg_in, long long in_s1, int tg,
+                                               int spike_mode, int R, int C, int row0,
+                                               int base, int lane, int t, bool aligned4) {
+  extern __shared__ __align__(16) unsigned char group_sh[];
+  int32_t* s_st = reinterpret_cast<int32_t*>(group_sh);  // (kStageTiles, kXbar) spikes
+  int8_t* w_st = reinterpret_cast<int8_t*>(group_sh) + kStageTiles * kXbar * sizeof(int32_t);
+  int8_t* a_st = w_st + kStageTiles * kTileBytes;  // kFaults: f_and's tiles
+  int8_t* x_st = a_st + kStageTiles * kTileBytes;  // kFaults: f_xor's tiles
+  const int8_t* fa = kFaults ? a.f_and : nullptr;
+  const int8_t* fx = kFaults ? a.f_xor : nullptr;
+  const bool wide = (C & 15) == 0 &&
+                    (((uintptr_t)a.w | (uintptr_t)fa | (uintptr_t)fx) & 15) == 0;
+  const int n_bytes = max(min(kRowsPerBlock, R - row0), 0) * C;  // the block's rows of a tile
+  const int n_chunks = (n_slots + 31) >> 5;
+  const int local = base - row0;  // the warp's first row in a staged tile
+  unsigned firing = 0;  // the slots of [0, 32) that fire
+  int chunk = 0;
+  for (int stage = 0;; ++stage) {
+    int ms[kStageTiles];  // the stage's slots, -1 past the group's end
+    int nk = 0;
+#pragma unroll
+    for (int k = 0; k < kStageTiles; ++k) {
+      ms[k] = -1;
+      if (stage == 0 && k == 0) {
+        ms[k] = slot;  // the owner's own tile
+      } else {
+        while (bits == 0 && chunk + 1 < n_chunks) {  // a segment past 32 slots
+          const int m = 32 * (++chunk) + lane, um = u0 + min(m, n_slots - 1);
+          bits = group_ballot(a.owner_slot[um], gate_fires(load_gate(a, um), tg, spike_mode),
+                              m, n_slots, slot);
+        }
+        if (bits != 0) {
+          ms[k] = 32 * chunk + __ffs(bits) - 1;
+          bits &= bits - 1;
+        }
+      }
+      nk += ms[k] >= 0;
+    }
+    if (nk == 0) break;
+    if (stage > 0) __syncthreads();  // every warp is done with the previous stage
+    if (aligned4) {
+#pragma unroll
+      for (int k = 0; k < kStageTiles; ++k) {
+        if (ms[k] < 0) continue;
+        const size_t off = ((size_t)(u0 + ms[k]) * R + row0) * C;
+        copy_async(w_st + k * kTileBytes, a.w + off, n_bytes, t, wide);
+        if constexpr (kFaults) {
+          if (fa != nullptr) copy_async(a_st + k * kTileBytes, fa + off, n_bytes, t, wide);
+          if (fx != nullptr) copy_async(x_st + k * kTileBytes, fx + off, n_bytes, t, wide);
+        }
+      }
+    }
+    Gate gate{};  // the candidates' fire gates, read beside the first stage's copies
+    if (stage == 0) gate = load_gate(a, u0 + min(lane, n_slots - 1));
+    int sv[kStageTiles];
+#pragma unroll
+    for (int k = 0; k < kStageTiles; ++k)
+      sv[k] = ms[k] >= 0 && t < C ? seg_in[ms[k] * in_s1 + t] : 0;
+#pragma unroll
+    for (int k = 0; k < kStageTiles; ++k)
+      if (t < C) s_st[k * kXbar + t] = clip_spike(sv[k]);
+    if (stage == 0)
+      firing = __ballot_sync(0xffffffffu, (lane < n_slots) & gate_fires(gate, tg, spike_mode));
+    if (aligned4) asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    if (base < R) {  // the warp's rows (uniform in the warp: no shuffles here)
+#pragma unroll
+      for (int k = 0; k < kStageTiles; ++k) {
+        // the own tile, a member past slot 32 (its gate tested), a candidate that fires
+        if (ms[k] < 0 || !((stage == 0 && k == 0) || ms[k] >= 32 || (firing >> ms[k]) & 1))
+          continue;
+        const int32_t* s_k = s_st + k * kXbar;
+        if (aligned4) {
+          const int8_t* a_k = kFaults && fa != nullptr ? a_st + k * kTileBytes + local * C
+                                                       : nullptr;
+          const int8_t* x_k = kFaults && fx != nullptr ? x_st + k * kTileBytes + local * C
+                                                       : nullptr;
+          contract_shared<kFaults>(acc, w_st + k * kTileBytes + local * C, a_k, x_k, s_k, C,
+                                   lane);
+        } else {
+          contract_bytes<kFaults>(acc, s_k, a.w, fa, fx, (size_t)(u0 + ms[k]) * R, base, R, C,
+                                  lane);
+        }
+      }
+    }
+    if (nk < kStageTiles) break;
+  }
+}
+
+// The grouped variants ask for at least one block per SM: without that
+// ptxas holds the fault variant to 80 registers and spills.  The ungrouped
+// variants pass 0, no minimum.
 template <bool kFaults, bool kGrouped>
-__global__ void __cluster_dims__(kTickBlocks, 1, 1) __launch_bounds__(kTickThreads)
-    snn_tick_kernel(TickArgs a, int n_slots, int R, int C, long long in_s0,
+__global__ void __cluster_dims__(kTickBlocks, 1, 1)
+    __launch_bounds__(kTickThreads, kGrouped ? 1 : 0) snn_tick_kernel(TickArgs a, int n_slots, int R, int C, long long in_s0,
                     long long in_s1, int spike_mode) {
-  __shared__ int32_t s_sh[kXbar];  // the unit's clipped spike counts
+  __shared__ int32_t s_sh[kXbar];  // the unit's clipped spike counts (ungrouped)
   __shared__ unsigned syn[kRowsPerBlock];  // the block's rows' charges
   __shared__ unsigned warp_fired[kTickThreads / 32];
   __shared__ unsigned block_fired;
@@ -388,6 +617,11 @@ __global__ void __cluster_dims__(kTickBlocks, 1, 1) __launch_bounds__(kTickThrea
     cnt = a.spike_counts[ur + row];
   }
   if (has_col) sp_own = spikes[row];
+  int owner_m = 0;  // kGrouped: owner_slot of slot t % 32 (of the last slot past the segment)
+  if constexpr (kGrouped) {
+    owner_m = a.owner_slot[u - u % n_slots + min(t & 31, n_slots - 1)];
+    asm volatile("" ::"r"(owner_m));  // read in this trip, not sunk past the exit below
+  }
   const int next = (int)((unsigned)nt + (unsigned)tp);
   const bool fire = here && md == spike_mode && tp > 0 && tg >= next && (lim == 0 || tk < lim);
   const bool leader = cluster.block_rank() == 0 && t == 0;
@@ -424,7 +658,7 @@ __global__ void __cluster_dims__(kTickBlocks, 1, 1) __launch_bounds__(kTickThrea
   // columns 4 * lane + (0..3) and 128 + 4 * lane + (0..3) of each row: every
   // load is issued before any is used, the masks' too
   char4 wv[kRowsPerWarp][2];
-  load_weights<kFaults>(wv, a.w, fa, fx, ur, base, R, C, lane, aligned4);
+  if constexpr (!kGrouped) load_weights<kFaults>(wv, a.w, fa, fx, ur, base, R, C, lane, aligned4);
   bool is_dead = false;
   unsigned ex = 0;
   if (has_row) {
@@ -434,31 +668,20 @@ __global__ void __cluster_dims__(kTickBlocks, 1, 1) __launch_bounds__(kTickThrea
       if (a.dth != nullptr) th = drifted(th, a.dth[ur + row]);
     }
   }
-  if (t < C) s_sh[t] = clip_spike(sp);
-  if (has_col) a.in_out[uc + row] = 0;
-  __syncthreads();
-
   unsigned acc[kRowsPerWarp];
 #pragma unroll
   for (int k = 0; k < kRowsPerWarp; ++k) acc[k] = 0;
-  contract<kFaults>(acc, wv, s_sh, a.w, fa, fx, ur, base, R, C, lane, aligned4);
   if constexpr (kGrouped) {
-    // the column group: every slot m of this segment that names this slot
-    // its owner, is a contributor and fires adds its contraction (the test
-    // is the same in every thread, so the barriers are uniform)
-    const int u0 = u - slot;
-    for (int m = 0; m < n_slots; ++m) {
-      const int um = u0 + m, om = a.owner_slot[um];
-      if (om == m || (om < 0 ? om + n_slots : om) != slot || !tick_fires(a, um, tg, spike_mode))
-        continue;
-      const size_t urm = (size_t)um * R;
-      load_weights<kFaults>(wv, a.w, fa, fx, urm, base, R, C, lane, aligned4);
-      const int32_t* sm = a.in_buf + (u / n_slots) * in_s0 + m * in_s1;
-      __syncthreads();  // every warp is done with the previous spikes
-      if (t < C) s_sh[t] = clip_spike(sm[t]);
-      __syncthreads();
-      contract<kFaults>(acc, wv, s_sh, a.w, fa, fx, urm, base, R, C, lane, aligned4);
-    }
+    if (has_col) a.in_out[uc + row] = 0;
+    contract_group<kFaults>(acc, a, group_ballot(owner_m, true, lane, n_slots, slot),
+                            u - slot, slot, n_slots, a.in_buf + (u / n_slots) * in_s0, in_s1,
+                            tg, spike_mode, R, C, (int)cluster.block_rank() * kRowsPerBlock,
+                            base, lane, t, aligned4);
+  } else {
+    if (t < C) s_sh[t] = clip_spike(sp);
+    if (has_col) a.in_out[uc + row] = 0;
+    __syncthreads();
+    contract<kFaults>(acc, wv, s_sh, a.w, fa, fx, ur, base, R, C, lane, aligned4);
   }
 #pragma unroll
   for (int k = 0; k < kRowsPerWarp; ++k) {
@@ -505,7 +728,8 @@ template <bool kFaults, bool kGrouped>
 int tick_launch(const void* const* p, int U, int n_slots, int R, int C, long long in_s0,
                 long long in_s1, int spike_mode, void* stream) {
   const dim3 grid(kTickBlocks, U);
-  snn_tick_kernel<kFaults, kGrouped><<<grid, kTickThreads, 0, (cudaStream_t)stream>>>(
+  const size_t shmem = kGrouped ? grouped_shared_bytes<kFaults>() : 0;
+  snn_tick_kernel<kFaults, kGrouped><<<grid, kTickThreads, shmem, (cudaStream_t)stream>>>(
       tick_args(p), n_slots, R, C, in_s0, in_s1, spike_mode);
   return (int)cudaGetLastError();
 }
@@ -542,9 +766,10 @@ extern "C" int lif_step_faults_launch(
 }
 
 // The fused quantum-boundary tick: ``p`` holds 33 pointers in TickArgs'
-// order (the last, owner_slot, read by the grouped variants only) (null for an absent extra or fault input; the last, the launch
-// counts, which block (0, 0) adds one to, null when not counted).  U = S * n_slots units,
-// one cluster of 8 blocks each (U <= 65535); unit u belongs to segment
+// order, null for an absent extra or fault input.  p[31] is the launch
+// counts, which block (0, 0) adds one to, or null when not counted; p[32] is
+// owner_slot, read by the grouped variants only.  U = S * n_slots units, one
+// cluster of 8 blocks each (U <= 65535); unit u belongs to segment
 // u / n_slots.  R, C <= 256.
 // in_buf may be strided over its two leading axes: unit u's C spike counts
 // start at in_buf + (u / n_slots) * in_s0 + (u % n_slots) * in_s1 (in
@@ -566,7 +791,8 @@ extern "C" int snn_tick_faults_launch(const void* const* p, int U, int n_slots, 
 }
 
 // The grouped tick (column groups of wide layers), as snn_tick_launch plus
-// p[32] = owner_slot (U,) int32.
+// p[32] = owner_slot (U,) int32.  Takes snn_tick_grouped_shared_bytes of
+// dynamic shared memory: call snn_tick_prepare first on each device.
 extern "C" int snn_tick_grouped_launch(const void* const* p, int U, int n_slots, int R,
                                        int C, long long in_s0, long long in_s1,
                                        int spike_mode, void* stream) {
@@ -580,4 +806,25 @@ extern "C" int snn_tick_grouped_faults_launch(const void* const* p, int U, int n
                                               long long in_s1, int spike_mode,
                                               void* stream) {
   return tick_launch<true, true>(p, U, n_slots, R, C, in_s0, in_s1, spike_mode, stream);
+}
+
+// Lets the grouped variants take their stage's dynamic shared memory (the
+// fault variant's is above the default 48 KB) on the current device.  Call
+// once per device before the first grouped launch, outside any graph
+// capture.  Returns the CUDA error (0 on success).
+extern "C" int snn_tick_prepare() {
+  int err = (int)cudaFuncSetAttribute(snn_tick_kernel<false, true>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      grouped_shared_bytes<false>());
+  if (err == 0)
+    err = (int)cudaFuncSetAttribute(snn_tick_kernel<true, true>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    grouped_shared_bytes<true>());
+  return err;
+}
+
+// The dynamic shared memory of one grouped launch in bytes (``faults``
+// nonzero: the fault variant's).
+extern "C" int snn_tick_grouped_shared_bytes(int faults) {
+  return faults ? grouped_shared_bytes<true>() : grouped_shared_bytes<false>();
 }

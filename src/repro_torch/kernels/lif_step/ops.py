@@ -18,7 +18,9 @@ rounds replay a captured graph can show that its ticks went through it.
 ``snn_tick(grouped=True)`` launches the grouped variant (multi-crossbar
 column groups: each owner adds its firing contributors' contractions),
 counted in ``grouped_launches`` and on the card under
-``"snn_tick_grouped"``.
+``"snn_tick_grouped"``.  Its first launch on a device lets the kernel take
+its stage's dynamic shared memory there (``snn_tick_prepare``), so, like
+the card's launch counts, it must come before any capture of the tick.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ _SHMEM_LIMIT = 48 * 1024  # static shared-memory launch limit, bytes
 XBAR = 256  # the fused tick's largest crossbar (a cluster of 8 blocks a unit)
 _fns = {}
 _tick_fns = {}
+_grouped_ready = set()  # devices where the grouped tick may take its shared memory
 
 
 def _launcher(faults: bool):
@@ -136,6 +139,19 @@ def _tick_launcher(faults: bool, grouped: bool):
     return _tick_fns[key]
 
 
+def _prepare_grouped(dev):
+    """Raises the grouped tick's dynamic shared-memory limit on ``dev`` (once
+    per device, the current one), never inside a capture."""
+    if dev.index in _grouped_ready:
+        return
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("snn_tick: launch the grouped tick once before capturing it")
+    err = build.load("lif_step").snn_tick_prepare()
+    if err != 0:
+        raise RuntimeError(f"snn_tick_prepare failed: CUDA error {err}")
+    _grouped_ready.add(dev.index)
+
+
 def _tick_arguments(cims, t_gate, extra, grouped):
     """Checks the fused tick's inputs against the weights' device and
     allocates its outputs.  Returns (pointer array in ``TICK_POINTERS``
@@ -192,6 +208,8 @@ def snn_tick(cims, t_gate, extra=None, grouped=False):
         return result
     fn = _tick_launcher(faulted, grouped)
     with torch.cuda.device(dev):
+        if grouped:
+            _prepare_grouped(dev)
         err = fn(ptrs, *ints, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"snn_tick kernel launch failed: CUDA error {err}")

@@ -119,6 +119,36 @@ def _group_state(kind, seed):
     return c, np.full(2, 192, np.int32)
 
 
+def _wide_group_state(kind, seed):
+    """Full-width tiles, (S, n) = (1, 8): slots 1-6 forward to slot 0, a
+    7-tile column group (fan-in 1792, more tiles than one of the kernel's
+    stages holds), and slot 7 is a unit of its own.  ``kind``: "all" fire, or
+    in "group" contributor 4 has reached its tick limit (the owner fires
+    without it)."""
+    rng = np.random.default_rng(seed)
+    c, sh = _base(1, 8), (1, 8)
+    c["present"][:] = True
+    c["mode"][:] = isa.CIM_MODE_SPIKE
+    c["tick_period"][:] = 32
+    c["owner_slot"][:] = [0] * 7 + [7]
+    c["rows"][:] = [256] + [0] * 6 + [256]
+    c["thresh"][:] = rng.integers(100, 3000, sh)
+    c["leak"][:] = rng.integers(0, 4, sh)
+    c["refrac_period"][:] = 2
+    c["weights"][:] = rng.integers(-128, 128, c["weights"].shape)
+    c["in_buf"][:] = rng.integers(0, 6, c["in_buf"].shape)
+    c["in_buf"][..., :3] = 900
+    c["v"][:] = rng.integers(0, 60, c["v"].shape)
+    c["refrac"][:] = rng.integers(0, 3, c["refrac"].shape)
+    c["spike_counts"][:] = rng.integers(0, 20, c["spike_counts"].shape)
+    c["spikes_total"][:] = c["spike_counts"].sum(-1)
+    c["ticks"][:] = 5
+    c["next_tick"][:] = 160
+    if kind == "group":
+        c["tick_limit"][0, 4] = 5  # reached: contributor 4 no longer fires
+    return c, np.full(1, 192, np.int32)
+
+
 def _with_faults(cims, seed):
     """Every fault input, drawn by the reference's ``unit_masks`` at high rates."""
     s, n = cims["present"].shape
@@ -131,6 +161,8 @@ STATES = {"mixed S=1": lambda: _mixed_state(1, 11), "mixed S=2": lambda: _mixed_
           "mixed S=4": lambda: _mixed_state(4, 14)}
 STATES.update({k: (lambda k=k: _group_state(k, 20 + i))
                for i, k in enumerate(("all", "group", "none", "straddle", "wrap"))})
+STATES.update({f"wide {k}": (lambda k=k: _wide_group_state(k, 30 + i))
+               for i, k in enumerate(("all", "group"))})
 
 
 @pytest.mark.parametrize("use_kernel", [False, True], ids=["ref", "interpret"])
@@ -158,6 +190,9 @@ def test_grouped_tick_matches_jax(state, faulted, use_kernel):
         assert not got[0]["v"][:, 1:3].any() and not got[0]["refrac"][:, 1:3].any()
     if state == "wrap":  # the owners' charge wrapped only through the group's sum
         assert (got[0]["v"][:, 0] == 0).any() and not got[1][:, 0].all()
+    if state.startswith("wide"):  # every contributor of the 7-tile group
+        assert not got[0]["v"][:, 1:7].any() and not got[0]["refrac"][:, 1:7].any()
+        assert fire[0, 4] == (state == "wide all") and fire[0, 0] and fire[0, 7]
 
 
 # ---------------------------------------------------------------------------
