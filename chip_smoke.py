@@ -34,8 +34,9 @@ and fails (non-zero exit, no result line) unless every phase holds:
      plain grouped tick at full-width tiles (two segments, each a 3-wide
      group beside a single unit: all, the group alone and none firing, timed
      there), at the wide job's own units, at the mixed states with
-     ``owner_slot`` drawn over every branch and at a 7-tile group (one
-     segment of 8 slots: two of the kernel's stages), also at narrow tiles;
+     ``owner_slot`` drawn over every branch, at a 7-tile group (one
+     segment of 8 slots: two of the kernel's stages) and at a segment of 40
+     slots (members on both sides of slot 32), also at narrow tiles;
      the ptxas report of every ``snn_tick_kernel`` instantiation shows no
      spill;
   2. ``fig5snn`` (128x96x64x10, T=24): 2045 spikes in 28 rounds under three
@@ -112,10 +113,6 @@ and fails (non-zero exit, no result line) unless every phase holds:
      the unfused path (expansion ops and the unfused kernel per 256-token
      chunk, 1088 launches) and with the plain scan, profiles of a prefill
      and a decode step, and one decode step under sync-debug "error".
-
-``python3 chip_smoke.py --turns OTHER.cu`` runs none of this: it times the
-fused ticks against another build of ``lif_step.cu`` in turns
-(``turns_phase``).
 
 A VP main path's kernel launches (phases 2, 3, 6, 7 and 9) are counted on
 the card: the fused tick, the fused completion and the slot scan each add
@@ -1030,10 +1027,59 @@ def group_state(state, seed, wide=False):
     return c, torch.full((s,), 192, dtype=torch.int32, device="cuda")
 
 
+# (S, n) = (1, 40): slot 0 owns members on both sides of slot 32 (38 through
+# a negative slot), slot 34 owns 5, 36 and 39 (a negative slot); slot 25
+# names an owner out of range, slot 30 one that does not fire
+BIG_SHAPE = (1, 40)
+BIG_OWNER = np.arange(40, dtype=np.int32)
+BIG_OWNER[[1, 2, 12, 20, 33, 35, 37]] = 0
+BIG_OWNER[38] = -40
+BIG_OWNER[[5, 36]] = 34
+BIG_OWNER[39] = -6
+BIG_OWNER[25] = 45
+BIG_OWNER[30] = 31
+BIG_QUIET = [12, 31, 35, 37]  # not due (12, 35: candidates of slot 0; 31: 30's owner),
+# or at its tick limit (37)
+
+
+def big_segment_state(seed):
+    """Full-width tiles in ``BIG_SHAPE``, a segment past 32 slots (the
+    grouped kernel reads slots past 32 a chunk at a time): owners and
+    single units of 256 rows, contributors of none, every slot due but
+    ``BIG_QUIET``.  Weights, spikes and membranes drawn from a seed."""
+    from repro_torch.vp import isa
+
+    s, n = BIG_SHAPE
+    g = np.random.default_rng(seed)
+    c = cims_state(BIG_SHAPE)
+    draw = lambda lo, hi, shape, dt=np.int32: torch.from_numpy(
+        g.integers(lo, hi, shape).astype(dt)).cuda()
+    contrib = torch.from_numpy(BIG_OWNER != np.arange(n)).cuda()
+    c["present"][:] = True
+    c["mode"][:] = isa.CIM_MODE_SPIKE
+    c["tick_period"][:] = 32
+    c["owner_slot"][:] = torch.from_numpy(BIG_OWNER).cuda()
+    c["rows"][:] = torch.where(contrib, 0, 256).to(torch.int32)
+    c["thresh"] = draw(100, 3000, (s, n))
+    c["leak"] = draw(0, 4, (s, n))
+    c["refrac_period"][:] = 2
+    c["weights"] = draw(-128, 128, (s, n, 256, 256), np.int8)
+    c["in_buf"] = draw(0, 6, (s, n, 256))
+    c["in_buf"][..., :3] = 900
+    c["v"] = draw(0, 60, (s, n, 256))
+    c["refrac"] = draw(0, 3, (s, n, 256))
+    c["spike_counts"] = draw(0, 20, (s, n, 256))
+    c["spikes_total"] = c["spike_counts"].sum(-1, dtype=torch.int32)
+    c["ticks"][:] = 5
+    c["next_tick"][:] = 160
+    c["next_tick"][0, BIG_QUIET[:3]] = 192
+    c["tick_limit"][0, 37] = 5
+    return c, torch.full((s,), 192, dtype=torch.int32, device="cuda")
+
+
 def narrow(cims, r, c):
     """``cims`` cut to (R, C) = (r, c) tiles: a C that is not a multiple of
-    16 takes the grouped kernel's 4-byte copies, one that is not a multiple
-    of 4 its byte-wise path."""
+    16 takes the grouped kernel's byte-wise path."""
     out = dict(cims, rows=cims["rows"].clamp(max=r), in_buf=cims["in_buf"][..., :c].contiguous())
     for f in ("weights", "f_and", "f_xor"):
         if f in out:
@@ -1122,9 +1168,9 @@ def grouped_phase():
     wide job's own units, and at the tests' mixed-gate states with
     ``owner_slot`` drawn over every branch (a contributor, an owner out of
     range, a negative slot), at a 7-tile group that takes two of the
-    kernel's stages (all firing, and one contributor at its tick limit), the
-    mixed states and the 7-tile group also at narrow tiles (the 4-byte
-    copies and the byte-wise path); under every fault input alone and all
+    kernel's stages (all firing, and one contributor at its tick limit), at
+    ``BIG_SHAPE``'s segment of 40 slots, the mixed states and the 7-tile
+    group also at narrow tiles (the byte-wise path); under every fault input alone and all
     together, and neutral inputs against the clean kernel; then the
     full-width states' device times, the plain version's and the bound; and
     the ptxas report: no ``snn_tick_kernel`` instantiation may spill.
@@ -1169,10 +1215,9 @@ def grouped_phase():
                       "units fire")
                 check(not bool(got[0]["v"][:, 1:7].any()), f"{label} 7-tile group {state}: "
                       "contributors' v")
-                for r, cols in ((70, 100), (64, 37)):
-                    max_err = max(max_err, fused_check(
-                        f"{label} 7-tile group {state} {given} at {r}x{cols}", wrap, plain,
-                        narrow(c, r, cols), t)[1])
+                max_err = max(max_err, fused_check(
+                    f"{label} 7-tile group {state} {given} at 64x37", wrap, plain,
+                    narrow(c, 64, 37), t)[1])
             if state == "all":
                 c = variants(cims, 105 + k)["all" if faulted else "clean"]
                 print(f"{label} (S, n) = {WIDE_GROUP_SHAPE} x 256x256, a 7-tile group and a "
@@ -1183,14 +1228,23 @@ def grouped_phase():
             cims["owner_slot"] = torch.from_numpy(
                 np.random.default_rng(70 + s).integers(-3, 3, (s, 2)).astype(np.int32)).cuda()
             for given, c in variants(cims, s).items():
-                for r, cols in ((70, 100), (64, 37)):
-                    max_err = max(max_err, fused_check(
-                        f"{label} mixed S={s} {given} at {r}x{cols}", wrap, plain,
-                        narrow(c, r, cols), t)[1])
+                max_err = max(max_err, fused_check(
+                    f"{label} mixed S={s} {given} at 64x37", wrap, plain, narrow(c, 64, 37),
+                    t)[1])
+        cims, t = big_segment_state(110)
+        for given, c in variants(cims, 111).items():
+            got, err = fused_check(f"{label} 40 slots {given}", wrap, plain, c, t)
+            max_err = max(max_err, err)
+            want = torch.ones(BIG_SHAPE, dtype=torch.bool, device="cuda")
+            want[0, BIG_QUIET] = False
+            check(torch.equal(got[2], want), f"{label} 40 slots: the wrong units fire")
+            contrib = torch.from_numpy(BIG_OWNER != np.arange(BIG_SHAPE[1])).cuda()
+            check(not bool(got[0]["v"][0, contrib].any()), f"{label} 40 slots: contributors' v")
         print(f"{label}: bit-equal to its plain version at the tests' mixed states (S in (1, "
               f"2, 4), owner_slot drawn in [-3, 3)), at the wide job's units and at a 7-tile "
-              f"group (two stages; all firing, and one contributor at its tick limit), the "
-              f"mixed states and the 7-tile group also at 70x100 and 64x37 tiles"
+              f"group (two stages; all firing, and one contributor at its tick limit), at a "
+              f"segment of 40 slots (members on both sides of slot 32), the mixed states and "
+              f"the 7-tile group also at 64x37 tiles"
               + (", under every fault input alone and all together" if faulted else ""),
               flush=True)
         for k, state in enumerate(GROUP_STATES):
@@ -2761,74 +2815,10 @@ def global_loads(name):
     return {op: ops.count(op) for op in sorted(set(ops))}
 
 
-def turns_phase(other_cu, card):
-    """The fused ticks of this checkout against those of another build of
-    ``lif_step.cu`` (``other_cu``, e.g. a parent commit's, ``git show
-    <commit>:src/repro_torch/kernels/csrc/lif_step.cu``), timed in turns
-    (other, this, this, other, twice) at phase 1b's states: the grouped tick
-    and its fault variant at ``GROUP_STATES`` and the 7-tile group, the
-    ungrouped ones at ``TICK_STATES``; both builds' outputs equal first."""
-    import ctypes
-
-    from repro_torch.kernels import build as kbuild
-    from repro_torch.kernels.lif_step import ops as lops
-
-    other_so = kbuild.BUILD_DIR / "other-lif_step.so"
-    kbuild.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    log = subprocess.run([kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-o", str(other_so), other_cu],
-                         capture_output=True, text=True, timeout=600)
-    check(log.returncode == 0, f"nvcc failed on {other_cu}:\n{log.stdout}{log.stderr}")
-    other = ctypes.CDLL(str(other_so))
-    if hasattr(other, "snn_tick_prepare"):
-        check(other.snn_tick_prepare() == 0, "the other build's snn_tick_prepare")
-
-    def other_tick(c, t, grouped):
-        ptrs, ints, faulted, result = lops._tick_arguments(c, t, None, grouped)
-        fn = getattr(other, "snn_tick" + ("_grouped" if grouped else "")
-                     + ("_faults" if faulted else "") + "_launch")
-        fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
-        check(fn(ptrs, *ints, torch.cuda.current_stream().cuda_stream) == 0,
-              "the other build's launch")
-        return result
-
-    states = []
-    for k, state in enumerate(GROUP_STATES):
-        c, t = group_state(state, 90 + k)
-        states += [(f"grouped {state}", True, c, t),
-                   (f"grouped faults {state}", True, with_faults(c, 95 + k), t)]
-    c, t = group_state("all", 100, wide=True)
-    states += [("grouped 7-tile all", True, c, t),
-               ("grouped faults 7-tile all", True, with_faults(c, 105), t)]
-    for k, (state, n_fire) in enumerate(TICK_STATES.items()):
-        c, t = tick_state(n_fire, 40 + k)
-        states += [(f"ungrouped {state}", False, c, t),
-                   (f"ungrouped faults {state}", False, with_faults(c, 50 + k), t)]
-    for label, grouped, c, t in states:
-        this = lambda: lops.snn_tick(c, t, grouped=grouped)
-        that = lambda: other_tick(c, t, grouped)
-        a, b = this(), that()
-        torch.cuda.synchronize()
-        check(tree_err(a, b) == 0 and all(torch.equal(a[0][f], b[0][f]) for f in b[0]),
-              f"turns {label}: the builds' outputs differ")
-        ms = [device_ms(fn) for _ in range(2) for fn in (that, this, this, that)]
-        old_ms = statistics.mean(ms[0::4] + ms[3::4])
-        new_ms = statistics.mean(ms[1::4] + ms[2::4])
-        print(f"turns {label}: other {old_ms:.6f} ms, this {new_ms:.6f} ms, this/other "
-              f"{new_ms / old_ms:.3f} (each: {' '.join(f'{x:.6f}' for x in ms)}; {card})",
-              flush=True)
-
-
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--turns"]:  # python3 chip_smoke.py --turns OTHER_LIF_STEP_CU
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-        turns_phase(sys.argv[2], smi.splitlines()[0])
-        return 0
     from repro_torch.kernels import build as kbuild
 
     phase("0 environment")
@@ -2845,8 +2835,8 @@ def main():
     built = kbuild.build_all(SOURCES)
     print(f"built {sorted(built) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    for name, log in kbuild.BUILD_LOGS.items():
-        for line in log.splitlines():
+    for name in SOURCES:
+        for line in kbuild.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
     print(f"slot_scan global loads in SASS: {global_loads('slot_scan')}", flush=True)

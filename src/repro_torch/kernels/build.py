@@ -6,8 +6,9 @@ Each ``csrc/<name>.cu`` compiles with one ``nvcc`` call for ``sm_90a`` into
 a hash of the source and the flags, so an edit rebuilds and an unchanged
 source is reused.  ``build_all`` starts every compile at once.  nvcc's
 output (the ptxas report: registers, spills, shared memory of each kernel)
-is kept beside each library (``build_log``).  Nothing here runs at import: the CPU tests import every module, and only a launch
-on a CUDA tensor needs a library.
+is kept beside each library (``build_log``).  Nothing here runs at
+import: the CPU tests import every module, and only a launch on a CUDA
+tensor needs a library.
 """
 from __future__ import annotations
 
@@ -26,7 +27,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict = {}
-BUILD_LOGS: dict = {}  # name -> nvcc's output of this process's build (ptxas report)
 
 
 def _nvcc() -> str:
@@ -64,7 +64,6 @@ def build_all(names) -> dict:
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
-        BUILD_LOGS[name] = log
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")

@@ -45,17 +45,16 @@
 // reads slot m's owner_slot, so a warp ballot gives every warp the same
 // candidates (the slots that name this one their owner) without a barrier.
 // Trip 2: the block copies its 32 rows of the own tile's and every
-// candidate's weights (and masks) into shared memory with cp.async from
-// every thread (16 bytes a copy; 4 where C % 16 != 0 or a base is not
-// 16-byte aligned), stages their clipped in_buf rows beside them and reads
-// the candidates' fire gates, waits once, and each warp contracts its rows
+// candidate's weights (and masks) into shared memory with 16-byte cp.async
+// copies from every thread, stages their clipped in_buf rows beside them and
+// reads the candidates' fire gates, waits once, and each warp contracts its rows
 // tile by tile from shared memory for the candidates that fire, the masks
 // applied to whole 32-bit words as they are read (no tile lives in
 // registers).  A candidate that does not fire costs its copy only.  A stage
 // holds kStageTiles tiles, a full-width group at four slots a segment: 36 KB
 // of dynamic shared memory, 100 KB with the masks.  A larger group takes one
 // more trip per further stage, a segment of more than 32 slots one more per
-// further 32 slots.  C % 4 != 0 or a base not 4-byte aligned stages the
+// further 32 slots.  C % 16 != 0 or a base not 16-byte aligned stages the
 // spikes only and reads the weights byte-wise from memory.  Its bound counts
 // the weights of the contractions a state needs (a firing owner's own and
 // its firing contributors', each read once): ~0.18 us at 8 full units all
@@ -422,23 +421,14 @@ __device__ __forceinline__ unsigned group_ballot(int owner, bool pass, int m, in
 }
 
 // Copies ``n`` bytes from global ``src`` to shared ``dst`` with cp.async from
-// every thread of the block: 16 bytes a copy where ``wide`` (n, both
-// addresses 16-byte aligned), else 4.  cp.async.wait_all completes them.
-__device__ __forceinline__ void copy_async(int8_t* dst, const int8_t* src, int n, int t,
-                                           bool wide) {
-  if (wide) {
-    for (int i = 16 * t; i < n; i += 16 * kTickThreads)
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                       (unsigned)__cvta_generic_to_shared(dst + i)),
-                   "l"(src + i)
-                   : "memory");
-  } else {
-    for (int i = 4 * t; i < n; i += 4 * kTickThreads)
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                       (unsigned)__cvta_generic_to_shared(dst + i)),
-                   "l"(src + i)
-                   : "memory");
-  }
+// every thread of the block, 16 bytes a copy (n and both addresses 16-byte
+// aligned).  cp.async.wait_all completes them.
+__device__ __forceinline__ void copy_async(int8_t* dst, const int8_t* src, int n, int t) {
+  for (int i = 16 * t; i < n; i += 16 * kTickThreads)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     (unsigned)__cvta_generic_to_shared(dst + i)),
+                 "l"(src + i)
+                 : "memory");
 }
 
 // Adds the contraction of one staged tile into the warp's rows: ``w_sh`` its
@@ -491,14 +481,15 @@ __device__ __forceinline__ void contract_shared(unsigned (&acc)[kRowsPerWarp],
 // read beside the first stage's copies, and only those that fire are
 // contracted.  Slots past 32 are read a chunk of 32 at a time, owner and gate
 // together.  ``seg_in`` is the segment's in_buf, ``row0`` the block's first
-// row, ``base`` the warp's.  Every branch and barrier here is uniform across
-// the block.
+// row, ``base`` the warp's.  A layout whose C or bases are not 16-byte
+// aligned stages the spikes only and contracts byte-wise from memory.  Every
+// branch and barrier here is uniform across the block.
 template <bool kFaults>
 __device__ __forceinline__ void contract_group(unsigned (&acc)[kRowsPerWarp], const TickArgs& a,
                                                unsigned bits, int u0, int slot, int n_slots,
                                                const int32_t* seg_in, long long in_s1, int tg,
                                                int spike_mode, int R, int C, int row0,
-                                               int base, int lane, int t, bool aligned4) {
+                                               int base, int lane, int t) {
   extern __shared__ __align__(16) unsigned char group_sh[];
   int32_t* s_st = reinterpret_cast<int32_t*>(group_sh);  // (kStageTiles, kXbar) spikes
   int8_t* w_st = reinterpret_cast<int8_t*>(group_sh) + kStageTiles * kXbar * sizeof(int32_t);
@@ -536,15 +527,15 @@ __device__ __forceinline__ void contract_group(unsigned (&acc)[kRowsPerWarp], co
     }
     if (nk == 0) break;
     if (stage > 0) __syncthreads();  // every warp is done with the previous stage
-    if (aligned4) {
+    if (wide) {
 #pragma unroll
       for (int k = 0; k < kStageTiles; ++k) {
         if (ms[k] < 0) continue;
         const size_t off = ((size_t)(u0 + ms[k]) * R + row0) * C;
-        copy_async(w_st + k * kTileBytes, a.w + off, n_bytes, t, wide);
+        copy_async(w_st + k * kTileBytes, a.w + off, n_bytes, t);
         if constexpr (kFaults) {
-          if (fa != nullptr) copy_async(a_st + k * kTileBytes, fa + off, n_bytes, t, wide);
-          if (fx != nullptr) copy_async(x_st + k * kTileBytes, fx + off, n_bytes, t, wide);
+          if (fa != nullptr) copy_async(a_st + k * kTileBytes, fa + off, n_bytes, t);
+          if (fx != nullptr) copy_async(x_st + k * kTileBytes, fx + off, n_bytes, t);
         }
       }
     }
@@ -559,7 +550,7 @@ __device__ __forceinline__ void contract_group(unsigned (&acc)[kRowsPerWarp], co
       if (t < C) s_st[k * kXbar + t] = clip_spike(sv[k]);
     if (stage == 0)
       firing = __ballot_sync(0xffffffffu, (lane < n_slots) & gate_fires(gate, tg, spike_mode));
-    if (aligned4) asm volatile("cp.async.wait_all;\n" ::: "memory");
+    if (wide) asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
     if (base < R) {  // the warp's rows (uniform in the warp: no shuffles here)
 #pragma unroll
@@ -568,7 +559,7 @@ __device__ __forceinline__ void contract_group(unsigned (&acc)[kRowsPerWarp], co
         if (ms[k] < 0 || !((stage == 0 && k == 0) || ms[k] >= 32 || (firing >> ms[k]) & 1))
           continue;
         const int32_t* s_k = s_st + k * kXbar;
-        if (aligned4) {
+        if (wide) {
           const int8_t* a_k = kFaults && fa != nullptr ? a_st + k * kTileBytes + local * C
                                                        : nullptr;
           const int8_t* x_k = kFaults && fx != nullptr ? x_st + k * kTileBytes + local * C
@@ -676,7 +667,7 @@ __global__ void __cluster_dims__(kTickBlocks, 1, 1)
     contract_group<kFaults>(acc, a, group_ballot(owner_m, true, lane, n_slots, slot),
                             u - slot, slot, n_slots, a.in_buf + (u / n_slots) * in_s0, in_s1,
                             tg, spike_mode, R, C, (int)cluster.block_rank() * kRowsPerBlock,
-                            base, lane, t, aligned4);
+                            base, lane, t);
   } else {
     if (t < C) s_sh[t] = clip_spike(sp);
     if (has_col) a.in_out[uc + row] = 0;

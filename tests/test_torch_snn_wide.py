@@ -149,6 +149,49 @@ def _wide_group_state(kind, seed):
     return c, np.full(1, 192, np.int32)
 
 
+# (S, n) = (1, 40): the members of two column groups on both sides of slot 32
+BIG_OWNER = np.arange(40)
+BIG_OWNER[[1, 2, 12, 20, 33, 35, 37]] = 0
+BIG_OWNER[38] = -40  # slot 0, counted from the end
+BIG_OWNER[[5, 36]] = 34
+BIG_OWNER[39] = -6  # slot 34
+BIG_OWNER[25] = 45  # out of range: dropped
+BIG_OWNER[30] = 31  # an owner that does not fire
+BIG_QUIET = [12, 31, 35]  # not due
+BIG_CONTRIB = BIG_OWNER != np.arange(40)
+
+
+def _big_segment_state(seed):
+    """Full-width tiles, (S, n) = (1, 40), a segment past 32 slots: slot 0
+    owns a group of members on both sides of slot 32 (1, 2, 20, 33, and 38
+    through a negative slot) with candidates that do not fire (12 and 35
+    not due, 37 at its tick limit), slot 34 one of 5, 36 and 39 (a negative
+    slot); slot 25 names an owner out of range, slot 30 one that does not
+    fire; the other slots are units of their own, all due."""
+    rng = np.random.default_rng(seed)
+    c, sh = _base(1, 40), (1, 40)
+    c["present"][:] = True
+    c["mode"][:] = isa.CIM_MODE_SPIKE
+    c["tick_period"][:] = 32
+    c["owner_slot"][:] = BIG_OWNER
+    c["rows"][:] = np.where(BIG_CONTRIB, 0, 256)
+    c["thresh"][:] = rng.integers(100, 3000, sh)
+    c["leak"][:] = rng.integers(0, 4, sh)
+    c["refrac_period"][:] = 2
+    c["weights"][:] = rng.integers(-128, 128, c["weights"].shape)
+    c["in_buf"][:] = rng.integers(0, 6, c["in_buf"].shape)
+    c["in_buf"][..., :3] = 900
+    c["v"][:] = rng.integers(0, 60, c["v"].shape)
+    c["refrac"][:] = rng.integers(0, 3, c["refrac"].shape)
+    c["spike_counts"][:] = rng.integers(0, 20, c["spike_counts"].shape)
+    c["spikes_total"][:] = c["spike_counts"].sum(-1)
+    c["ticks"][:] = 5
+    c["next_tick"][:] = 160
+    c["next_tick"][0, BIG_QUIET] = 192
+    c["tick_limit"][0, 37] = 5  # reached
+    return c, np.full(1, 192, np.int32)
+
+
 def _with_faults(cims, seed):
     """Every fault input, drawn by the reference's ``unit_masks`` at high rates."""
     s, n = cims["present"].shape
@@ -163,6 +206,7 @@ STATES.update({k: (lambda k=k: _group_state(k, 20 + i))
                for i, k in enumerate(("all", "group", "none", "straddle", "wrap"))})
 STATES.update({f"wide {k}": (lambda k=k: _wide_group_state(k, 30 + i))
                for i, k in enumerate(("all", "group"))})
+STATES["40 slots"] = lambda: _big_segment_state(40)
 
 
 @pytest.mark.parametrize("use_kernel", [False, True], ids=["ref", "interpret"])
@@ -193,6 +237,11 @@ def test_grouped_tick_matches_jax(state, faulted, use_kernel):
     if state.startswith("wide"):  # every contributor of the 7-tile group
         assert not got[0]["v"][:, 1:7].any() and not got[0]["refrac"][:, 1:7].any()
         assert fire[0, 4] == (state == "wide all") and fire[0, 0] and fire[0, 7]
+    if state == "40 slots":  # every contributor, a firing one or not
+        assert not got[0]["v"][0, BIG_CONTRIB].any() and not got[0]["refrac"][0, BIG_CONTRIB].any()
+        quiet = np.zeros(40, bool)
+        quiet[BIG_QUIET + [37]] = True
+        assert (fire[0] == ~quiet).all()
 
 
 # ---------------------------------------------------------------------------
