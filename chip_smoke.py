@@ -6,9 +6,11 @@ Drives the port's paths through the hand-written CUDA kernels — spiking
 jobs built by ``snn.build_snn`` on CPU-free platforms (feed-forward, wide
 with column groups, recurrent, placed by traffic), the paper's
 dense VMM offload on live RISC-V CPUs built by
-``segmentation.build(programs=...)``, and both under seeded fault
-injection (``faults=FaultConfig(...)``), each run to completion by
-``Controller.run`` through its captured round loop; and falcon-mamba-7b
+``segmentation.build(programs=...)``, hybrid jobs where live CPUs inject
+spikes and read counts back (``snn.build_hybrid``), and both under seeded
+fault injection (``faults=FaultConfig(...)``), each run to completion by
+``Controller.run`` through its captured round loop (and on the
+``sequential`` and ``threads`` backends); and falcon-mamba-7b
 served by ``greedy_generate`` —
 and fails (non-zero exit, no result line) unless every phase holds:
 
@@ -100,6 +102,29 @@ and fails (non-zero exit, no result line) unless every phase holds:
      segments) on both backends, and the skip job its oracle's 246; every
      grouped round launches the grouped tick once (once per segment on
      ``sequential``), counted on the card;
+  10. (run before 8) hybrid jobs, live RISC-V CPUs driving spiking CIM
+     units beside a dense offload (``snn.hybrid_job`` -> ``build_hybrid``
+     -> ``Controller.run`` -> ``hybrid_results``), and the ``threads``
+     backend: (a) ``slot_scan``'s tick-addressed ``CIM_REG_SPIKE`` path
+     bit-equal to its plain version at four spike-store states (the driver
+     beside its input unit, across segments, past its deadline, no ticking
+     unit wired), and its device time for the full-width driver's round;
+     (b) the hybrid job of ``benchmarks/bench_snn.py`` (48x40x16, T=12) on
+     split, packed and auto, each on ``vmap`` fused and per-round,
+     ``sequential`` and ``threads``: 325 spikes, ``O == A @ B``, the published counts equal
+     the oracle's, the JAX package's ``rounds_run`` (``HYBRID_TARGET``,
+     made by ``scripts/hybrid_targets.py``), trees equal across backends,
+     and split's card trees equal to the CPU's; (c) the job at a full
+     crossbar's width (256x256x256 spiking, an 8x256x4 dense half) fused on
+     the three placements: 3107 spikes in 400 rounds with both halves
+     right, its wall per round and profiles, and one round on ``vmap`` and
+     on ``threads`` under sync-debug "error"; (d) late injection and late
+     readback raise the reference's message on both dispatch paths; (e)
+     sq-vs-pll on this card: fig5snn, fullxbar, Googlenet-conv1 and the
+     full-width hybrid on ``sequential``, ``threads``, ``vmap`` per-round
+     and fused, wall per round, trees leaf-equal, whether the ``threads``
+     workers' kernels overlapped on the card (a profile's streams), and no
+     ``vp-seg`` thread left after ``close()``;
   8. falcon-mamba-7b serving: ``ssm_scan`` (unfused) and
      ``ssm_scan_fused`` (the Mamba-1 expansion inside the scan) against
      their plain versions on the card (a prefill chunk, or the whole
@@ -114,7 +139,7 @@ and fails (non-zero exit, no result line) unless every phase holds:
      chunk, 1088 launches) and with the plain scan, profiles of a prefill
      and a decode step, and one decode step under sync-debug "error".
 
-A VP main path's kernel launches (phases 2, 3, 6, 7 and 9) are counted on
+A VP main path's kernel launches (phases 2, 3, 6, 7, 9 and 10) are counted on
 the card: the fused tick, the fused completion and the slot scan each add
 one to a device counter when they run (``kernels.card_counts``), since the
 captured dispatch replays them without calling their wrappers, whose
@@ -126,6 +151,7 @@ main path's runs (0 for the unfused ``lif_step``, ``crossbar_vmm`` and
 """
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
 import statistics
@@ -323,6 +349,57 @@ FALCON_TARGET = {'last_logits': [[-1.328125, -2.453125, 0.6328125, 1.796875, -1.
 # is skipped where the JAX package's top-1/top-2 margin is below it.
 FALCON_TOL = 0.0625
 # the main path: all 64 layers, weights from a seeded torch.Generator, B=4, a
+# phase 10: hybrid jobs at quantum 700, channel latency 2000, the
+# termination check every 4 rounds (Controller.run's default): the hybrid
+# job of benchmarks/bench_snn.py and the same job at a full crossbar's
+# width.  HYBRID_TARGET is the JAX package's numbers, made on a CPU by
+#     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/hybrid_targets.py
+HYBRID_QUANTUM = 700
+HYBRID_LATENCY = 2000
+HYBRID_CHECK_EVERY = 4
+HYBRID_JOBS = {
+    "bench_snn": dict(layer_sizes=(48, 40, 16), t_steps=12, rate=0.5, seed=5),
+    "full_width": dict(layer_sizes=(256, 256, 256), t_steps=12, rate=0.5, seed=5,
+                       dense=(8, 256, 4)),
+}
+HYBRID_STRATEGIES = ("split", "packed", "auto")
+HYBRID_MODES = (("vmap", True), ("vmap", False), ("sequential", None), ("threads", None))
+HYBRID_COUNTED = ("snn_tick", "finish_ops", "slot_scan")
+PROFILED_ROUNDS = 8  # rounds of a threads run in the profile that looks for overlap
+HYBRID_TARGET = {'bench_snn': {'expected_total': 325,
+               'split': {'segments': 4,
+                         'rounds': 80,
+                         'spikes': 325,
+                         'correct': True,
+                         'rounds_by_backend': {'sequential': 80, 'threads': 80}},
+               'packed': {'segments': 2,
+                          'rounds': 80,
+                          'spikes': 325,
+                          'correct': True,
+                          'rounds_by_backend': {'sequential': 80, 'threads': 80}},
+               'auto': {'segments': 3,
+                        'rounds': 80,
+                        'spikes': 325,
+                        'correct': True,
+                        'rounds_by_backend': {'sequential': 80, 'threads': 80}}},
+ 'full_width': {'expected_total': 3107,
+                'split': {'segments': 4, 'rounds': 400, 'spikes': 3107, 'correct': True},
+                'packed': {'segments': 2, 'rounds': 400, 'spikes': 3107, 'correct': True},
+                'auto': {'segments': 3, 'rounds': 400, 'spikes': 3107, 'correct': True}},
+ 'late_injection': "late SNN MMIO ops: flag 'snn_mmio_late' tripped first at segment 1 (6 > "
+                   'cap 0; per-segment watermarks [0, 6, 0, 0]): a CIM_REG_SPIKE store '
+                   "executed at/after its target tick's grid time, or a CIM_REG_COUNTS "
+                   'readback was served after the unit ticked past the requested count — the '
+                   'result would depend on round timing, not the tick grid.  Issue the op '
+                   'earlier in the program, or raise tick_period (builder kwarg) so the '
+                   'injection window covers it',
+ 'late_readback': "late SNN MMIO ops: flag 'snn_mmio_late' tripped first at segment 0 (1 > cap "
+                  '0; per-segment watermarks [1, 0]): a CIM_REG_SPIKE store executed at/after '
+                  "its target tick's grid time, or a CIM_REG_COUNTS readback was served after "
+                  'the unit ticked past the requested count — the result would depend on round '
+                  'timing, not the tick grid.  Issue the op earlier in the program, or raise '
+                  'tick_period (builder kwarg) so the injection window covers it'}
+
 # 512-token prompt (two chunks of 256), greedy_generate(steps=16)
 FALCON_MAIN = dict(batch=4, prompt=512, steps=16, weight_seed=0, prompt_seed=1)
 
@@ -2799,6 +2876,376 @@ def wide_recurrent_phase():
     return {"snn_tick_grouped": g, "snn_tick_grouped_faults": gf}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: hybrid jobs (live RISC-V CPUs driving spiking units) and the
+# threads backend
+
+
+def hybrid_job(name):
+    from repro_torch import snn
+    from repro_torch.vp import workloads as wl
+
+    kw = dict(HYBRID_JOBS[name])
+    dense = kw.pop("dense", None)
+    if dense is not None:
+        kw["dense_layer"] = wl.Layer("hybrid", "vmm", *dense)
+    return snn.hybrid_job(**kw)
+
+
+def hybrid_controller(job, strategy, backend="vmap", device=None, **kw):
+    from repro_torch import snn
+    from repro_torch.core.controller import Controller
+
+    cfg, states, pending, meta = snn.build_hybrid(
+        job, strategy, channel_latency=HYBRID_LATENCY, device=device, **kw)
+    return Controller(cfg, states, pending, backend=backend, quantum=HYBRID_QUANTUM,
+                      device=device), meta
+
+
+def hybrid_run(name, job, strategy, backend="vmap", fused=None, device=None, count=True):
+    """Build and run one hybrid job to completion on one backend, its
+    kernels' launches counted on the card (``count``); checks the spikes,
+    both halves (``O == A @ B`` and the counts the driver CPU published
+    against the oracle) and ``rounds_run`` against the JAX package's.
+    Returns (controller, meta, seconds, counts or None)."""
+    from repro_torch import snn
+
+    target = HYBRID_TARGET[name][strategy]
+    ctl, meta = hybrid_controller(job, strategy, backend, device)
+    cap = ready(ctl) if fused is not False else None
+    run = lambda: ctl.run(max_rounds=2000, check_every=HYBRID_CHECK_EVERY, fused=fused)
+    if count:
+        counts, secs = counted(run)
+    else:
+        counts, t0 = None, time.perf_counter()
+        run()
+        secs = time.perf_counter() - t0
+    st = ctl.result_states()
+    spikes = snn.total_spikes(st)
+    o, published = snn.hybrid_results(st, meta)
+    mode = backend + ("" if fused is None else "/fused" if fused else "/per-round")
+    label = f"hybrid {name} {strategy}/{mode} on {ctl.device.type}"
+    print(f"{label}: segments {ctl.cfg.n_segments}, spikes {spikes}, rounds "
+          f"{ctl.rounds_run}, launches "
+          f"{'not counted' if counts is None else {k: counts[k] for k in HYBRID_COUNTED}}, "
+          f"{secs:.6f} s, {secs / ctl.rounds_run * 1e6:.1f} us/round, "
+          f"{spikes / secs:.1f} spikes/s, {ctl.dispatches} dispatches{capture_note(cap)}",
+          flush=True)
+    rounds = target["rounds"] if backend == "vmap" else target.get(
+        "rounds_by_backend", {}).get(backend, target["rounds"])
+    check(ctl.cfg.n_segments == target["segments"], f"{label}: segments")
+    check(spikes == job.snn.expected_total == HYBRID_TARGET[name]["expected_total"],
+          f"{label}: {spikes} spikes, want {HYBRID_TARGET[name]['expected_total']}")
+    check(ctl.rounds_run == rounds, f"{label}: {ctl.rounds_run} rounds, want {rounds}")
+    check(np.array_equal(o, job.dense_expected), f"{label}: O != A @ B")
+    check(np.array_equal(published, job.snn.expected_counts),
+          f"{label}: the published counts differ from the oracle's")
+    if counts is not None:
+        per_round = 1 if backend == "vmap" else ctl.cfg.n_segments
+        want = dict.fromkeys(COUNTED, 0)
+        for k in HYBRID_COUNTED:
+            want[k] = per_round * ctl.rounds_run
+        check(counts == want, f"{label}: launches {counts}, want {want}")
+    return ctl, meta, secs, counts
+
+
+def spike_store_states():
+    """Slot-scan inputs on the card at hybrid states with spike stores:
+    (label, cfg, quantum, states, t_limit, wiring, spikes wanted, late
+    wanted): the driver beside its input unit (packed) and across segments
+    (split) at round 0 of bench_snn's hybrid job, the saturated raster past its
+    64-cycle deadline after one round, and a store with no ticking unit
+    wired."""
+    from repro_torch import snn
+    from repro_torch.core import segmentation as sg
+    from repro_torch.core.controller import Controller
+    from repro_torch.vp import isa
+
+    out = []
+    job = hybrid_job("bench_snn")
+    saturated = snn.hybrid_job((16, 12, 8), t_steps=6, rate=1.0, seed=2)
+    prog = "\n".join([f"    li t0, {sg.cim_global_base(1)}",
+                      f"    li t1, {isa.pack_spike(0, 3)}",
+                      f"    sw t1, {isa.CIM_REG_SPIKE}(t0)", "    halt"])
+    cases = [("own segment (packed)", lambda: hybrid_controller(job, "packed")[0], 0, True, False),
+             ("across segments (split)", lambda: hybrid_controller(job, "split")[0], 0, True,
+              False),
+             ("late (tick period 64)", lambda: Controller(*snn.build_hybrid(
+                 saturated, "split", tick_period=64, channel_latency=64)[:3], quantum=400), 1,
+              True, True),
+             ("no ticking unit wired", lambda: Controller(*sg.build(
+                 sg.uniform(2, 2), programs={0: prog}), quantum=64), 0, False, True)]
+    for label, make, rounds, spikes, late in cases:
+        ctl = make()
+        for _ in range(rounds):
+            ctl.round()
+        cfg = ctl.cfg
+        wiring = [torch.tensor(x, dtype=torch.int32, device="cuda")
+                  for x in (cfg.cim_seg, cfg.cim_slot)]
+        out.append((label, cfg, ctl.quantum, ctl.states, ctl._limits(ctl.states["time"]),
+                    wiring, spikes, late))
+    return out
+
+
+def spike_store_phase():
+    """(a) slot_scan's tick-addressed injection against its plain version,
+    bit for bit, at the four spike-store states; then its device time for
+    one round of the full-width hybrid job's driver CPU (round 0 of split:
+    the driver streams its 1589 events), the plain version's on the card,
+    and the bound."""
+    from repro_torch import tree
+    from repro_torch.core import channel as ch
+    from repro_torch.kernels.slot_scan import ops, ref
+
+    def fresh(cfg, states):
+        return (tree.tree_map(lambda x: x.clone(), states),
+                ch.empty_box(cfg.out_cap, (cfg.n_segments,), "cuda"))
+
+    max_err = 0
+    for label, cfg, quantum, st0, limit, wiring, spikes, late in spike_store_states():
+        outs = [fn(cfg, quantum, *fresh(cfg, st0), limit, *wiring)
+                for fn in (ops.slot_scan, ref.slot_scan)]
+        torch.cuda.synchronize()
+        n, err = equal_trees(f"slot_scan spike stores, {label}",
+                             {"states": outs[0][0], "outbox": outs[0][1]},
+                             {"states": outs[1][0], "outbox": outs[1][1]})
+        max_err = max(max_err, err)
+        box = outs[0][1]
+        n_spk = int((box["valid"] & (box["kind"] == ch.MSG_SPIKE)).sum())
+        n_late = int((outs[0][0]["stats"]["snn_mmio_late"]
+                      - st0["stats"]["snn_mmio_late"]).sum())
+        print(f"slot_scan spike stores, {label}, {quantum} slots on {cfg.n_segments} "
+              f"segments (tick period {cfg.snn_tick_period}): kernel and plain equal on all "
+              f"{n} leaves; {n_spk} tick-addressed spikes, {n_late} late", flush=True)
+        check((n_spk > 0) == spikes and (n_late > 0) == late,
+              f"slot_scan spike stores, {label}: {n_spk} spikes, {n_late} late")
+
+    # the hybrid driver CPU's round at full width: round 0 of split
+    ctl, _ = hybrid_controller(hybrid_job("full_width"), "split")
+    cfg, st0 = ctl.cfg, ctl.states
+    limit = ctl._limits(st0["time"])
+    wiring = [torch.tensor(x, dtype=torch.int32, device="cuda")
+              for x in (cfg.cim_seg, cfg.cim_slot)]
+    reps = 10
+    inputs = [fresh(cfg, st0) for _ in range(reps + 1)]
+    out = ops.slot_scan(cfg, HYBRID_QUANTUM, *inputs[-1], limit, *wiring)  # warm
+    skipped = ops.slot_scan.skipped.tolist()
+    ms, _ = queued_ms([lambda st=st, box=box: ops.slot_scan(
+        cfg, HYBRID_QUANTUM, st, box, limit, *wiring) for st, box in inputs[:reps]])
+    bound_ms, bound_by, instrs = scan_bound_ms(st0, out[0], out[1])
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    st, box = fresh(cfg, st0)
+    start.record()
+    plain = ref.slot_scan(cfg, HYBRID_QUANTUM, st, box, limit, *wiring)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    n, err = equal_trees("slot_scan full-width hybrid round 0",
+                         {"states": out[0], "outbox": out[1]},
+                         {"states": plain[0], "outbox": plain[1]})
+    max_err = max(max_err, err)
+    n_spk = int((out[1]["valid"] & (out[1]["kind"] == ch.MSG_SPIKE)).sum())
+    print(f"slot_scan full-width hybrid split, round 0 ({HYBRID_QUANTUM} slots on "
+          f"{cfg.n_segments} segments, {instrs} simulated instructions, {n_spk} "
+          f"tick-addressed spikes, {sum(skipped)} fast-forwarded): kernel {ms:.6f} ms "
+          f"(device, mean of {reps}) = {ms * 1e6 / max(instrs, 1):.1f} ns per simulated "
+          f"instruction; plain (on the card) {plain_ms:.3f} ms, equal on all {n} leaves; "
+          f"bound {bound_ms:.6f} ms ({bound_by}); max abs err {max_err}", flush=True)
+    check(n_spk > 0, "slot_scan full-width round 0: no spike injected")
+    return max_err
+
+
+def hybrid_phase():
+    """(b) bench_snn's hybrid job on every placement and backend, (c) the
+    full-width job fused on every placement, with its times, (d) the late
+    injection and late readback messages on both dispatch paths.  Returns
+    the launches of (b) and (c), the main path's runs."""
+    from repro_torch import snn
+
+    launches = dict.fromkeys(HYBRID_COUNTED, 0)
+
+    def add(counts):
+        for k in HYBRID_COUNTED:
+            launches[k] += counts[k]
+
+    job = hybrid_job("bench_snn")
+    for strategy in HYBRID_STRATEGIES:
+        trees = {}
+        for backend, fused in HYBRID_MODES:
+            ctl, _, _, counts = hybrid_run("bench_snn", job, strategy, backend, fused)
+            add(counts)
+            ctl.close()
+            trees[backend, fused] = final_trees(ctl)
+        first = next(iter(trees))
+        for mode in list(trees)[1:]:
+            n, _ = equal_trees(f"hybrid bench_snn {strategy}, {first} vs {mode}",
+                               trees[first], trees[mode])
+        print(f"hybrid bench_snn {strategy}: trees equal across "
+              f"{[f'{b}/{f}' for b, f in trees]} on all {n} leaves", flush=True)
+        if strategy == "split":
+            host = hybrid_run("bench_snn", job, strategy, "vmap", False, device="cpu",
+                              count=False)[0]
+            n, _ = equal_trees("hybrid bench_snn split, card vs CPU", trees[first],
+                               final_trees(host))
+            print(f"hybrid bench_snn split: card and CPU final trees equal on all {n} leaves",
+                  flush=True)
+
+    job = hybrid_job("full_width")
+    for strategy in HYBRID_STRATEGIES:
+        add(hybrid_run("full_width", job, strategy, "vmap", True)[3])
+    # where the time goes: split fused and per-round, each timed unprofiled
+    # (uncounted) and then profiled
+    for fused in (True, False):
+        secs = hybrid_run("full_width", job, "split", "vmap", fused, count=False)[2]
+        ctl = hybrid_controller(job, "split")[0]
+        captured = fused and ready(ctl) is not None
+        profile_run(f"hybrid full_width split/vmap {'fused' if fused else 'per-round'}",
+                    lambda: ctl.run(max_rounds=2000, check_every=HYBRID_CHECK_EVERY,
+                                    fused=fused),
+                    lambda: ctl.rounds_run, "round", secs, top=0 if captured else 8)
+
+    for backend in ("vmap", "threads"):
+        sync_free_phase(f"hybrid full_width split/{backend}",
+                        lambda: hybrid_controller(job, "split", backend)[0])
+
+    # (d) late MMIO: the reference's message on both dispatch paths
+    from repro_torch.core import channel as ch
+    from repro_torch.core.controller import Controller
+    from repro_torch.vp import isa
+
+    saturated = snn.hybrid_job((16, 12, 8), t_steps=6, rate=1.0, seed=2)
+    small = snn.snn_inference_job((12, 8), t_steps=4, rate=0.6, seed=3)
+
+    def late_injection():
+        return Controller(*snn.build_hybrid(saturated, "split", tick_period=64,
+                                            channel_latency=64)[:3], quantum=400)
+
+    def late_readback():
+        descs = snn.segmentation_for(small.layers, "uniform", n_segments=2)
+        cfg, states, pending, meta = snn.build_snn(small.layers, descs, small.raster)
+        s, k = meta["out_unit"]
+        for f, v in (("kind", ch.MSG_W_CIM), ("addr", (k << 16) | isa.CIM_REG_COUNTS),
+                     ("data", 1), ("t_avail", 6 * 10_000), ("valid", True)):
+            pending[f][s, -1] = v
+        return Controller(cfg, states, pending, quantum=32)
+
+    for name, make, max_rounds in (("late_injection", late_injection, 800),
+                                   ("late_readback", late_readback, 400)):
+        for fused in (False, True):
+            ctl = make()
+            try:
+                ctl.run(max_rounds=max_rounds, check_every=CHECK_EVERY, fused=fused)
+            except RuntimeError as e:
+                got = str(e)
+            else:
+                got = None
+            path = "fused" if fused else "per-round"
+            check(got == HYBRID_TARGET[name], f"{name} ({path}): message {got!r}, want the "
+                  f"reference's {HYBRID_TARGET[name]!r}")
+            print(f"{name} ({path}, round {ctl.rounds_run}): the reference's message, byte "
+                  f"for byte", flush=True)
+    return launches
+
+
+def stream_overlap(trace_path):
+    """From a chrome trace: the kernels, the streams they ran on, and the
+    device time during which kernels of two or more streams ran at once."""
+    events = json.loads(Path(trace_path).read_text())["traceEvents"]
+    kernels = sorted((e["ts"], e["ts"] + e["dur"], e["args"].get("stream"))
+                     for e in events if e.get("cat") == "kernel" and "dur" in e)
+    overlap, pairs, live = 0.0, 0, []
+    for t0, t1, stream in kernels:
+        live = [(e, s) for e, s in live if e > t0]
+        others = [e for e, s in live if s != stream]
+        if others:
+            pairs += len(others)
+            overlap += min(max(others), t1) - t0
+        live.append((t1, stream))
+    return len(kernels), len({s for _, _, s in kernels}), pairs, overlap
+
+
+def backends_phase(card):
+    """(e) the paper's sq-vs-pll on this card: fig5snn, fullxbar,
+    Googlenet-conv1 uniform/cim and the full-width hybrid (split) on
+    sequential, threads, vmap per-round and vmap fused: the wall per round
+    of each, trees leaf-equal across the four; a profile of the threads run
+    says whether its workers' kernels overlapped on the card; after
+    ``close()`` no ``vp-seg`` thread is left."""
+    import tempfile
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import snn
+    from repro_torch.core.controller import Controller
+
+    fig5 = snn.snn_inference_job(FIG5SNN["sizes"], t_steps=24, rate=0.5, seed=2)
+    fx = snn.snn_inference_job(FULLXBAR["sizes"], t_steps=24, rate=0.5, seed=2)
+    full = hybrid_job("full_width")
+
+    def spiking(job, in_cap):
+        return lambda backend: Controller(*build(job, "uniform", in_cap, None)[:3],
+                                          backend=backend, quantum=QUANTUM)
+
+    def dense(backend):
+        cfg, states, pending, _ = build_dense(dense_layer("Googlenet-conv1"), "uniform", "cim",
+                                              DENSE_QUANTUM)
+        return Controller(cfg, states, pending, backend=backend, quantum=DENSE_QUANTUM)
+
+    jobs = [("fig5snn uniform", spiking(fig5, None), 2000),
+            ("fullxbar uniform", spiking(fx, FULLXBAR["in_cap"]), 2000),
+            ("Googlenet-conv1 uniform/cim", dense, 2000),
+            ("hybrid full_width split", lambda b: hybrid_controller(full, "split", b)[0], 2000)]
+    before = set(threading.enumerate())
+    for name, make, max_rounds in jobs:
+        walls, trees, rounds = {}, {}, set()
+        for backend, fused in (("sequential", None), ("threads", None), ("vmap", False),
+                               ("vmap", True)):
+            ctl = make(backend)
+            if fused:
+                ready(ctl)
+            t0 = time.perf_counter()
+            ctl.run(max_rounds=max_rounds, check_every=CHECK_EVERY, fused=fused)
+            secs = time.perf_counter() - t0
+            key = backend if fused is None else f"vmap {'fused' if fused else 'per-round'}"
+            walls[key] = secs / ctl.rounds_run * 1e6
+            rounds.add(ctl.rounds_run)
+            trees[key] = final_trees(ctl)
+            ctl.close()
+        check(len(rounds) == 1, f"{name}: rounds differ across backends: {rounds}")
+        for key in list(trees)[1:]:
+            n, _ = equal_trees(f"{name}, sequential vs {key}", trees["sequential"], trees[key])
+        print(f"{name}, {rounds.pop()} rounds, wall per round ({card}): "
+              + ", ".join(f"{k} {w:.1f} us" for k, w in walls.items())
+              + f"; sequential / threads {walls['sequential'] / walls['threads']:.3f}, "
+              f"sequential / vmap fused {walls['sequential'] / walls['vmap fused']:.3f}; "
+              f"trees equal on all {n} leaves", flush=True)
+
+        # does the threads backend's work overlap on the card?  A profile of
+        # a few rounds after a warm one
+        ctl = make("threads")
+        ctl.round()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILED_ROUNDS):
+                ctl.round()
+            torch.cuda.synchronize()
+        ctl.close()
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            path = Path(tmp) / "threads.json"
+            prof.export_chrome_trace(str(path))
+            n_k, n_s, pairs, overlap = stream_overlap(path)
+        print(f"{name} threads profile, {PROFILED_ROUNDS} rounds: {n_k} kernels on {n_s} streams; {pairs} pairs of "
+              f"kernels on different streams ran at once, {overlap / 1e3:.3f} ms of device "
+              f"time overlapped ({'the workers overlap on the card' if pairs else 'no overlap'})",
+              flush=True)
+    gc.collect()
+    left = [t.name for t in threading.enumerate() if t not in before
+            and t.name.startswith("vp-seg")]
+    check(not left, f"threads backend: workers left after close(): {left}")
+    print("threads backend: no vp-seg worker left after close()", flush=True)
+
+
 def global_loads(name):
     """The global-load instructions of ``csrc/<name>.cu``'s build, by SASS
     opcode (``cuobjdump -sass``): where ``slot_scan`` reads the DRAM backing
@@ -2876,6 +3323,12 @@ def main():
     fused_dispatch_phase(card)
     phase("9 wide and recurrent networks")
     launches.update(wide_recurrent_phase())
+    phase("10 hybrid jobs and the threads backend")
+    scan_row = next(row for row in rows if row["name"] == "slot_scan")
+    scan_row["max_abs_err"] = max(scan_row["max_abs_err"], spike_store_phase())
+    for name, n in hybrid_phase().items():
+        launches[name] += n
+    backends_phase(card)
     phase("8 falcon-mamba-7b serving through the ssm_scan kernel")
     rows.extend(ssm_scan_phase())
     falcon_jax_phase()

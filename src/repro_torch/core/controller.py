@@ -10,10 +10,14 @@ Per round (the paper's ``exec`` + ``sync``):
 Backends for the ``exec`` phase:
   sequential — segments stepped one after another, each as a one-segment
                stack (the conventional SystemC baseline, "sq");
+  threads    — one host thread per segment, each stepping its one-segment
+               stack, in a persistent pool of ``vp-seg`` workers (the
+               paper's literal mechanism); on the card each worker issues
+               its segment's step on a CUDA stream of its own;
   vmap       — all segments stepped as one batched step over the leading
                segment axis (the default, "pll").
 
-Both give bit-identical results.  A round issues no host sync.  On
+All three give bit-identical results.  A round issues no host sync.  On
 ``vmap``, ``run()`` defaults to the reference's fused dispatch: up to
 ``rounds_per_dispatch`` rounds per host dispatch, the termination and
 watermark flags evaluated on the device at every ``check_every``-th round,
@@ -23,13 +27,14 @@ once per controller: a WHILE node on the device-side ``running`` flag runs
 round after round and stops on the card at ``done``, ``over`` or the
 dispatch's last round, with the flag check in an IF node on the check
 point; one launch a dispatch.  On the CPU the same round and check bodies
-run eagerly.  ``sequential``
-keeps its per-round host loop, as the reference's host-loop backends do.
+run eagerly.  ``sequential`` and ``threads``
+keep their per-round host loop, as the reference's host-loop backends do.
 Results, ``rounds_run`` and every watermark message equal the reference's
 on every path.
 """
 from __future__ import annotations
 
+import concurrent.futures as cf
 import dataclasses
 import time as _time
 
@@ -38,7 +43,6 @@ import torch
 
 from repro_torch import tree
 from repro_torch.core import channel as ch
-from repro_torch.vp import isa
 from repro_torch.vp import platform as pf
 
 _BIG = 2**30
@@ -134,13 +138,11 @@ class Controller:
     def __post_init__(self):
         if self.obs is not None:
             raise NotImplementedError("telemetry (obs=) comes with ROADMAP module item 10")
-        if self.backend == "threads":
-            raise NotImplementedError(
-                "the threads backend is queued in ROADMAP.md (module item 5b)")
+        self._pool = None  # the threads backend's workers, made below
         if self.backend == "shard_map" or self.mesh is not None:
             raise NotImplementedError(
                 "multi-device backends come with ROADMAP module item 12")
-        if self.backend not in ("sequential", "vmap"):
+        if self.backend not in ("sequential", "threads", "vmap"):
             raise ValueError(self.backend)
         self.device = tree.resolve_device(self.device)
         self.dispatches = 0  # fused dispatches issued
@@ -160,27 +162,30 @@ class Controller:
             injected = self.pending["valid"] & (self.pending["kind"] != ch.MSG_SPIKE)
             if bool(injected.any()):
                 self.cfg = dataclasses.replace(self.cfg, has_cpu=True)
-        if self.cfg.has_cpu and self.cfg.has_snn:
-            # a spiking platform takes the full step with every CPU halted
-            # and no spike-count readback asked for: a live CPU beside
-            # spike-mode units (tick-addressed CIM_REG_SPIKE stores) or a
-            # CIM_REG_COUNTS request makes a hybrid job
-            cpu, pen = self.states["cpu"], self.pending
-            counts = pen["valid"] & (pen["kind"] == ch.MSG_W_CIM) & (
-                (pen["addr"] & 0xFFFF) == isa.CIM_REG_COUNTS)
-            if bool((cpu["present"] & ~cpu["halted"]).any() | counts.any()
-                    | (self.states["cims"]["count_req"] >= 0).any()):
-                raise NotImplementedError(
-                    "hybrid dense+spiking jobs (live CPUs beside spike-mode units, "
-                    "CIM_REG_COUNTS readbacks) come with ROADMAP module item 8")
         self.lat = self.cfg.latency_matrix(self.device)
         self._step = pf.make_segment_step(self.cfg, self.quantum, self.obs)
+        self._step.prepare(self.device)
         s = self.cfg.n_segments
         self._eye = torch.eye(s, dtype=torch.bool, device=self.device)
-        self._list_mode = self.backend == "sequential"
+        # sequential and threads keep per-segment state as persistent lists
+        self._list_mode = self.backend in ("sequential", "threads")
         if self._list_mode:
             self._states_l = [tree.take(self.states, i) for i in range(s)]
             self._pending_l = [tree.take(self.pending, i) for i in range(s)]
+        if self.backend == "threads":
+            # one persistent pool for the controller's life: a pool made and
+            # torn down every round would charge the paper's parallel
+            # mechanism thread spawns and joins per quantum
+            self._pool = cf.ThreadPoolExecutor(max_workers=s, thread_name_prefix="vp-seg")
+            self._streams = None
+            if self.device.type == "cuda":
+                # each worker issues its segment's step on a stream of its
+                # own; ``_ready`` (recorded on the controller's stream once
+                # the round's limits are made) gates them, each worker's
+                # ``_done`` event gates the controller's route and merge
+                self._streams = [torch.cuda.Stream(self.device) for _ in range(s)]
+                self._ready = torch.cuda.Event()
+                self._done = [torch.cuda.Event() for _ in range(s)]
 
     # ------------------------------------------------------------------
     def _limits(self, times):
@@ -204,14 +209,49 @@ class Controller:
         fresh = ch.route(outboxes, self.lat, self.cfg.in_cap)
         return states, ch.merge_pending(pending, fresh)
 
+    def _segment_step(self, i, lim):
+        """Segment ``i``'s step as a one-segment stack, under the decoupling
+        bound ``lim[i]``.  On the threads backend's card path it runs on
+        the worker's stream, after the round's ``_ready`` event, and records
+        the worker's ``_done`` event.
+
+        No tensor here needs ``record_stream``.  A block the caching
+        allocator hands a worker's stream was last read on the controller's
+        stream before a later round's ``_ready`` record (the controller
+        drops a round's outboxes and states only after reading them), and
+        every later launch on the worker's stream waits on that record.  A
+        block of the controller's stream that a worker reads (the limits,
+        the merged inboxes) is dropped only after the controller's stream
+        waited on every worker's ``_done`` event, so it is reused only by
+        work ordered after the worker's reads."""
+        st, pen = self._states_l[i], self._pending_l[i]
+        if self._pool is None or self._streams is None:
+            return self._step(st, pen, lim[i:i + 1])
+        stream = self._streams[i]
+        with torch.cuda.stream(stream):
+            stream.wait_event(self._ready)
+            out = self._step(st, pen, lim[i:i + 1])
+            self._done[i].record(stream)
+        return out
+
     def round(self):
         self._require_open()
         if self.backend == "vmap":
             self.states, self.pending = self._vmap_round(self.states, self.pending)
         else:
+            s = self.cfg.n_segments
             lim = self._limits(torch.cat([st["time"] for st in self._states_l]))
-            results = [self._step(st, pen, lim[i:i + 1]) for i, (st, pen)
-                       in enumerate(zip(self._states_l, self._pending_l))]
+            if self._pool is None:
+                results = [self._segment_step(i, lim) for i in range(s)]
+            else:
+                if self._streams is not None:
+                    current = torch.cuda.current_stream(self.device)
+                    self._ready.record(current)
+                # list() reads every future: a worker's exception raises here
+                results = list(self._pool.map(self._segment_step, range(s), [lim] * s))
+                if self._streams is not None:
+                    for done in self._done:
+                        current.wait_event(done)
             self._states_l = [r[0] for r in results]
             fresh = ch.route(tree.cat([r[1] for r in results]), self.lat,
                              self.cfg.in_cap)
@@ -269,11 +309,20 @@ class Controller:
         return self
 
     def close(self):
-        """Idempotent.  These backends hold no host resources, but a closed
-        controller refuses to ``run``/``round`` with the reference's error.
-        Reading results (``result_states``/``sim_time``/``done``) stays
-        valid."""
+        """Release host resources (the threads backend's persistent pool).
+        Idempotent; a closed controller refuses to ``run``/``round`` with
+        the reference's error.  Reading results (``result_states``/
+        ``sim_time``/``done``) stays valid."""
+        pool = getattr(self, "_pool", None)
+        if pool is not None:
+            pool.shutdown(wait=True)
+            self._pool = None
         self._closed = True
+
+    def __del__(self):
+        pool = self.__dict__.get("_pool")
+        if pool is not None:
+            pool.shutdown(wait=False)
 
     def _fetch(self, x):
         """The dispatch-boundary host sync: one ``_HOST_FETCH`` of the
@@ -393,8 +442,9 @@ class Controller:
         ``rounds_per_dispatch`` rounds per host dispatch, the termination
         predicate and the overflow watermarks evaluated on the device at
         every ``check_every``-th round since this call started, one host
-        fetch per dispatch.  ``fused=False``, and ``sequential`` always,
-        run the per-round host loop with the flags read at the same rounds.
+        fetch per dispatch.  ``fused=False``, and ``sequential`` and
+        ``threads`` always, run the per-round host loop with the flags read
+        at the same rounds.
         Both give the reference's results, ``rounds_run`` and overflow
         errors.  ``on_telemetry`` is accepted for the reference's signature
         and unused: telemetry (``obs``) is refused at construction.

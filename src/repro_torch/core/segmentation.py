@@ -3,8 +3,8 @@ builder (counterpart of ``repro/core/segmentation.py``).
 
 ``build`` assembles the stacked simulation state on the host and moves it
 to the device once: programs, DRAM images, crossbar weights, scratch
-presets, CIM state presets and the structural fault sites.  Hybrid
-dense+spiking jobs come with ROADMAP module item 8.
+presets, CIM state presets and the structural fault sites, for spiking,
+dense and hybrid (programs beside spike-mode units) platforms alike.
 
 Strategies:
   uniform        — every CPU segment gets an equal share of CIM-Units
@@ -204,11 +204,6 @@ def build(descs, *, programs=None, dram_words=None, crossbars=None,
     fault_uids: {global_cim_id: stable_uid}, the placement-invariant unit
         identities of the fault draws (default: the global cim id)
     """
-    if programs and any(int(f.get("mode", 0)) == isa.CIM_MODE_SPIKE
-                        for f in (cim_init or {}).values()):
-        raise NotImplementedError(
-            "hybrid dense+spiking jobs (programs with spike-mode units) come "
-            "with ROADMAP module item 8")
     device = tree.resolve_device(device)
     if channel_latency < local_latency:
         raise ValueError("intra-segment hops cannot be slower than cross-segment channels")

@@ -1,10 +1,26 @@
 """The port's hand-written kernels: CUDA sources in ``csrc/``, each with a
 plain PyTorch version (``<name>/ref.py``) and a wrapper (``<name>/ops.py``).
 Below, what the wrappers of the fused quantum-boundary kernels share."""
+import threading
+
 import torch
 
 # kernel name -> {device index: int32 (2,) launch counts on that card}
 _CARD_COUNTS = {}
+
+# The threads backend's workers reach the wrappers together: each kernel's
+# once-per-process and once-per-device set-ups (its ctypes entry, a
+# shared-memory limit, its card counts) and the wrappers' launch counters
+# are read and written under this lock.
+LOCK = threading.RLock()
+
+
+def count_launch(fn, **deltas):
+    """Add each of ``deltas`` to the counter of that name on the wrapper
+    ``fn`` (``fn.launches += 1`` and the like), under ``LOCK``."""
+    with LOCK:
+        for name, n in deltas.items():
+            setattr(fn, name, getattr(fn, name) + n)
 
 
 def card_counts(name, device):
@@ -14,12 +30,13 @@ def card_counts(name, device):
     launches they are; a wrapper's ``.launches`` counts only the launches it
     issues from the host.  Made at the kernel's first launch on the card,
     which must not be inside a capture (the graph would replay its reset)."""
-    counts = _CARD_COUNTS.setdefault(name, {})
-    if device.index not in counts:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(f"{name}: launch the kernel once before capturing it")
-        counts[device.index] = torch.zeros(2, dtype=torch.int32, device=device)
-    return counts[device.index]
+    with LOCK:
+        counts = _CARD_COUNTS.setdefault(name, {})
+        if device.index not in counts:
+            if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"{name}: launch the kernel once before capturing it")
+            counts[device.index] = torch.zeros(2, dtype=torch.int32, device=device)
+        return counts[device.index]
 
 
 def read_card_counts(reset=False):
@@ -27,9 +44,11 @@ def read_card_counts(reset=False):
     (summed over cards; one host read each); with ``reset``, the counts
     are set to 0 after the read."""
     out = {}
-    for name, counts in _CARD_COUNTS.items():
+    with LOCK:
+        cards = {name: list(counts.values()) for name, counts in _CARD_COUNTS.items()}
+    for name, counts in cards.items():
         total = [0, 0]
-        for x in counts.values():
+        for x in counts:
             total = [a + b for a, b in zip(total, x.tolist())]
             if reset:
                 x.zero_()

@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -27,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict = {}
+_LOCK = threading.Lock()  # two threads' first loads build a source once
 
 
 def _nvcc() -> str:
@@ -80,7 +82,8 @@ def build_log(name: str) -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
-    if name not in _LIBS:
-        build_all([name])
-        _LIBS[name] = ctypes.CDLL(str(library_path(name)))
-    return _LIBS[name]
+    with _LOCK:
+        if name not in _LIBS:
+            build_all([name])
+            _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+        return _LIBS[name]

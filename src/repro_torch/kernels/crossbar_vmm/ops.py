@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, card_counts, check_inputs, unit_rows
+from repro_torch.kernels import LOCK, build, card_counts, check_inputs, count_launch, unit_rows
 from repro_torch.kernels.crossbar_vmm import ref
 from repro_torch.vp import isa
 
@@ -36,14 +36,15 @@ _finish_fns = {}
 
 
 def _launcher(faults: bool):
-    if faults not in _fns:
-        lib = build.load("crossbar_vmm")
-        fn = lib.crossbar_vmm_faults_launch if faults else lib.crossbar_vmm_launch
-        fn.argtypes = ([ctypes.c_void_p] * (5 if faults else 3) + [ctypes.c_int] * 3
-                       + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fns[faults] = fn
-    return _fns[faults]
+    with LOCK:
+        if faults not in _fns:
+            lib = build.load("crossbar_vmm")
+            fn = lib.crossbar_vmm_faults_launch if faults else lib.crossbar_vmm_launch
+            fn.argtypes = ([ctypes.c_void_p] * (5 if faults else 3) + [ctypes.c_int] * 3
+                           + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            _fns[faults] = fn
+        return _fns[faults]
 
 
 def _launch(weights, x, w_stride, r, in_res, out_res, f_and=None, f_xor=None):
@@ -80,8 +81,7 @@ def _launch(weights, x, w_stride, r, in_res, out_res, f_and=None, f_xor=None):
                  out.data_ptr(), b, r, c, w_stride, in_res, out_res, stream)
     if err != 0:
         raise RuntimeError(f"crossbar_vmm kernel launch failed: CUDA error {err}")
-    crossbar_vmm_batch.launches += 1
-    crossbar_vmm_batch.fault_launches += int(faulted)
+    count_launch(crossbar_vmm_batch, launches=1, fault_launches=int(faulted))
     return out
 
 
@@ -141,14 +141,15 @@ FINISH_POINTERS = (FINISH_UNIT + ("t_end", "weights", "f_and", "f_xor", "in_buf"
 
 
 def _finish_launcher(faults: bool):
-    if faults not in _finish_fns:
-        lib = build.load("crossbar_vmm")
-        fn = lib.finish_ops_faults_launch if faults else lib.finish_ops_launch
-        fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _finish_fns[faults] = fn
-    return _finish_fns[faults]
+    with LOCK:
+        if faults not in _finish_fns:
+            lib = build.load("crossbar_vmm")
+            fn = lib.finish_ops_faults_launch if faults else lib.finish_ops_launch
+            fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 4
+                           + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            _finish_fns[faults] = fn
+        return _finish_fns[faults]
 
 
 def _finish_arguments(cims, t_end):
@@ -203,8 +204,7 @@ def finish_ops(cims, t_end):
         err = fn(ptrs, *ints, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"finish_ops kernel launch failed: CUDA error {err}")
-    finish_ops.launches += 1
-    finish_ops.fault_launches += int(faulted)
+    count_launch(finish_ops, launches=1, fault_launches=int(faulted))
     return result
 
 

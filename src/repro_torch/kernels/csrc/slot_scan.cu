@@ -23,7 +23,10 @@
 // reference, through the read-only data cache — and the store log, kept in a
 // global scratch buffer, is applied to it in order afterwards.  Outbox
 // appends go to global memory at ``count``; ``count`` keeps recording demand
-// past the box's capacity.  The reference's int32 arithmetic wraps: the ALU
+// past the box's capacity.  On a platform with ticking spike-mode units
+// (``tick_period`` > 0, a hybrid job) a CIM_REG_SPIKE store becomes a
+// tick-addressed AER spike in place of the MSG_W_CIM it does not send
+// (reference :477-503), with the tick's grid time backed out of its t_emit.  The reference's int32 arithmetic wraps: the ALU
 // works in uint32 and reinterprets; right shifts of int32 values stay
 // arithmetic.
 //
@@ -89,6 +92,9 @@ enum Int {
   I_SCRATCH_CYCLES, I_CACHE_HIT, I_DRAM_ACCESS, I_PAGE_SWITCH, I_WRITE_READ_SWITCH, I_IMISS, I_MMIO_POST,
   I_DRAM_ROW_BITS, I_LINE_SHIFT, I_ISET_MASK, I_DSET_MASK, I_DRAM_WORDS,
   I_SCRATCH_WORDS, I_PROG_WORDS,
+  // tick-addressed CIM_REG_SPIKE injection: the platform's LIF tick period
+  // (0: no ticking unit wired) and its two routing latencies
+  I_TICK_PERIOD, I_LOCAL_LATENCY, I_CHANNEL_LATENCY,
   N_INTS
 };
 
@@ -101,7 +107,7 @@ struct Params {
 constexpr int32_t kCimBase = 0x40000000;
 constexpr int32_t kScratchBase = 0x70000000;
 constexpr int kCimRegSpike = 0x20;
-constexpr int kMsgWDram = 0, kMsgWCim = 1, kMsgRDram = 3;
+constexpr int kMsgWDram = 0, kMsgWCim = 1, kMsgRDram = 3, kMsgSpike = 5;
 // RV32 opcodes
 constexpr int kOpLui = 0x37, kOpAuipc = 0x17, kOpJal = 0x6F, kOpJalr = 0x67,
               kOpBranch = 0x63, kOpLoad = 0x03, kOpStore = 0x23,
@@ -219,13 +225,13 @@ __device__ void run_segment(const Params& P, int s, int32_t* scratch,
   uint32_t a_instret = 0, a_ihits = 0, a_dhits = 0, a_instrs = 0;
   int skipped = 0;
 
-  auto append = [&](int kind, int32_t dst, int32_t addr, int32_t data) {
+  auto append = [&](int kind, int32_t dst, int32_t addr, int32_t data, int32_t t_emit) {
     if (ob_count < cap) {  // past capacity: dropped, the count records demand
       ob_kind[ob_count] = kind;
       ob_dst[ob_count] = dst;
       ob_addr[ob_count] = addr;
       ob_data[ob_count] = data;
-      ob_t[ob_count] = time;
+      ob_t[ob_count] = t_emit;
       ob_valid[ob_count] = 1;
     }
     ++ob_count;
@@ -335,7 +341,7 @@ __device__ void run_segment(const Params& P, int s, int32_t* scratch,
             cost += dram_touch(widx, false);
             set_reg(rd, (uint32_t)__ldg(backing + widx));
           } else {  // blocking request, tag = seg_id << 8 | rd; stalls
-            append(kMsgRDram, n[I_DRAM_SEGMENT], widx, (seg_id << 8) | rd);
+            append(kMsgRDram, n[I_DRAM_SEGMENT], widx, (seg_id << 8) | rd, time);
             cost += cpi;
             waiting = true;
           }
@@ -361,7 +367,7 @@ __device__ void run_segment(const Params& P, int s, int32_t* scratch,
             log_data[li] = st_data;
             ++log_count;
           } else {
-            append(kMsgWDram, n[I_DRAM_SEGMENT], widx, st_data);
+            append(kMsgWDram, n[I_DRAM_SEGMENT], widx, st_data, time);
             cost += mmio_post;
           }
         } else {
@@ -369,13 +375,25 @@ __device__ void run_segment(const Params& P, int s, int32_t* scratch,
           if (n_cim > 0 && addr >= kCimBase && addr < kScratchBase) {
             const int g = min(max((addr - kCimBase) >> 12, 0), n_cim - 1);
             const int32_t reg_off = addr & 0xFFF;
-            if (reg_off == kCimRegSpike) {
-              // late MMIO, as on a platform without ticking units: a live
-              // CPU beside ticking units (tick-addressed AER injection) is
-              // a hybrid job, which the controller refuses
-              ++mmio_late;
+            const int period = n[I_TICK_PERIOD];
+            if (reg_off != kCimRegSpike) {
+              append(kMsgWCim, cim_seg[g], (cim_slot[g] << 16) | reg_off, st_data, time);
+            } else if (period > 0) {
+              // tick-addressed AER injection: a spike for tick k whose
+              // t_avail is the tick's grid time (k+1)*period, the routing
+              // latency backed out of t_emit; stored at or after that time
+              // it is late.  The products wrap in uint32, as the
+              // reference's int32 arithmetic does.  The store set ``dirty``
+              // above, so no fast-forward skips it.
+              const uint32_t tick = ((uint32_t)st_data >> 16) & 0x7FFFu;
+              const int32_t target = (int32_t)((tick + 1u) * (uint32_t)period);
+              const int32_t lat = cim_seg[g] == seg_id ? n[I_LOCAL_LATENCY]
+                                                       : n[I_CHANNEL_LATENCY];
+              if (time >= target) ++mmio_late;
+              append(kMsgSpike, cim_seg[g], (cim_slot[g] << 16) | (st_data & 0xFFFF), 1,
+                     (int32_t)((uint32_t)target - (uint32_t)lat));
             } else {
-              append(kMsgWCim, cim_seg[g], (cim_slot[g] << 16) | reg_off, st_data);
+              ++mmio_late;  // no ticking spike-mode unit wired: never valid
             }
           }
         }
@@ -484,12 +502,28 @@ __global__ void slot_scan_kernel(const Params P) {
 
 }  // namespace
 
+// Lets the kernel take up to the current device's opt-in dynamic shared
+// memory; call once per device before the first launch there (the wrapper
+// does, under its lock, outside any capture).  Returns the CUDA error, 0 on
+// success.
+extern "C" int slot_scan_prepare() {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(slot_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+  return (int)err;
+}
+
 // Launches one block per segment on ``stream``; returns cudaGetLastError()
 // after the launch (0 on success), or -1 when the caller's argument counts
 // differ from this build's.  ``ptrs`` holds N_PTRS device pointers and
 // ``ints`` N_INTS integers, in the orders above.  Dynamic shared memory: 16
 // bytes per program word (the decoded table) and 4 per scratch word, cache
-// set and register — 30,848 bytes at the platform's sizes.
+// set and register — 30,848 bytes at the platform's sizes (past 48 KB only
+// after slot_scan_prepare).
 extern "C" int slot_scan_launch(void* const* ptrs, int n_ptrs, const int* ints,
                                 int n_ints, int n_segments, void* stream) {
   if (n_ptrs != N_PTRS || n_ints != N_INTS) return -1;
@@ -498,11 +532,6 @@ extern "C" int slot_scan_launch(void* const* ptrs, int n_ptrs, const int* ints,
   for (int i = 0; i < N_INTS; ++i) P.n[i] = ints[i];
   const size_t shmem = sizeof(uint4) * (size_t)P.n[I_PROG_WORDS] + sizeof(int32_t) *
       (size_t)(P.n[I_SCRATCH_WORDS] + P.n[I_ISET_MASK] + 1 + P.n[I_DSET_MASK] + 1 + 32);
-  if (shmem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        slot_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
-    if (err != cudaSuccess) return (int)err;
-  }
   slot_scan_kernel<<<n_segments, 256, shmem, (cudaStream_t)stream>>>(P);
   return (int)cudaGetLastError();
 }

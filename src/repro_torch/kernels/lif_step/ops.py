@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, card_counts, check_inputs, unit_rows
+from repro_torch.kernels import LOCK, build, card_counts, check_inputs, count_launch, unit_rows
 from repro_torch.kernels.lif_step import ref
 from repro_torch.vp import isa
 
@@ -41,14 +41,15 @@ _grouped_ready = set()  # devices where the grouped tick may take its shared mem
 
 
 def _launcher(faults: bool):
-    if faults not in _fns:
-        lib = build.load("lif_step")
-        fn = lib.lif_step_faults_launch if faults else lib.lif_step_launch
-        n_ptrs = 15 if faults else 11
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fns[faults] = fn
-    return _fns[faults]
+    with LOCK:
+        if faults not in _fns:
+            lib = build.load("lif_step")
+            fn = lib.lif_step_faults_launch if faults else lib.lif_step_launch
+            n_ptrs = 15 if faults else 11
+            fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _fns[faults] = fn
+        return _fns[faults]
 
 
 def _check(name, x, dtype, shape, device):
@@ -107,8 +108,7 @@ def lif_step_units(weights, spikes, v, refrac, thresh, leak, refrac_period,
                  *(o.data_ptr() for o in outs), u, r, c, stream)
     if err != 0:
         raise RuntimeError(f"lif_step kernel launch failed: CUDA error {err}")
-    lif_step_units.launches += 1
-    lif_step_units.fault_launches += int(faulted)
+    count_launch(lif_step_units, launches=1, fault_launches=int(faulted))
     return tuple(outs)
 
 
@@ -127,29 +127,31 @@ TICK_POINTERS = (TICK_UNIT + ("t_gate",) + TICK_ROWS + ("extra",) + ref.TICK_FAU
 
 
 def _tick_launcher(faults: bool, grouped: bool):
-    key = (faults, grouped)
-    if key not in _tick_fns:
-        lib = build.load("lif_step")
-        fn = getattr(lib, "snn_tick" + ("_grouped" if grouped else "")
-                     + ("_faults" if faults else "") + "_launch")
-        fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _tick_fns[key] = fn
-    return _tick_fns[key]
+    with LOCK:
+        key = (faults, grouped)
+        if key not in _tick_fns:
+            lib = build.load("lif_step")
+            fn = getattr(lib, "snn_tick" + ("_grouped" if grouped else "")
+                         + ("_faults" if faults else "") + "_launch")
+            fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_int] * 4
+                           + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            _tick_fns[key] = fn
+        return _tick_fns[key]
 
 
 def _prepare_grouped(dev):
     """Raises the grouped tick's dynamic shared-memory limit on ``dev`` (once
     per device, the current one), never inside a capture."""
-    if dev.index in _grouped_ready:
-        return
-    if torch.cuda.is_current_stream_capturing():
-        raise RuntimeError("snn_tick: launch the grouped tick once before capturing it")
-    err = build.load("lif_step").snn_tick_prepare()
-    if err != 0:
-        raise RuntimeError(f"snn_tick_prepare failed: CUDA error {err}")
-    _grouped_ready.add(dev.index)
+    with LOCK:
+        if dev.index in _grouped_ready:
+            return
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("snn_tick: launch the grouped tick once before capturing it")
+        err = build.load("lif_step").snn_tick_prepare()
+        if err != 0:
+            raise RuntimeError(f"snn_tick_prepare failed: CUDA error {err}")
+        _grouped_ready.add(dev.index)
 
 
 def _tick_arguments(cims, t_gate, extra, grouped):
@@ -213,9 +215,8 @@ def snn_tick(cims, t_gate, extra=None, grouped=False):
         err = fn(ptrs, *ints, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"snn_tick kernel launch failed: CUDA error {err}")
-    snn_tick.launches += 1
-    snn_tick.fault_launches += int(faulted)
-    snn_tick.grouped_launches += int(grouped)
+    count_launch(snn_tick, launches=1, fault_launches=int(faulted),
+                 grouped_launches=int(grouped))
     return result
 
 

@@ -15,12 +15,13 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, card_counts
+from repro_torch.kernels import LOCK, build, card_counts, count_launch
 from repro_torch.kernels.slot_scan import ref
 
 _I32 = torch.int32
 _U8 = torch.uint8
 _fn = None
+_ready = set()  # devices where the kernel may take its dynamic shared memory
 
 # the kernel's pointer and integer arguments, in csrc/slot_scan.cu's order
 POINTERS = (
@@ -40,7 +41,8 @@ INTS = (
     "quantum", "out_cap", "store_log", "n_cim", "dram_segment", "cpi",
     "scratch_cycles", "cache_hit", "dram_access", "page_switch", "write_read_switch", "imiss", "mmio_post",
     "dram_row_bits", "line_shift", "iset_mask", "dset_mask", "dram_words",
-    "scratch_words", "prog_words",
+    "scratch_words", "prog_words", "tick_period", "local_latency",
+    "channel_latency",
 )
 
 
@@ -54,8 +56,10 @@ def pack_ints(cfg, quantum: int, *, out_cap: int, isets: int, dsets: int,
               dram_words: int, scratch_words: int, prog_words: int) -> dict:
     """The kernel's integer arguments (``INTS``) for platform ``cfg``: its
     timing, with the cache geometry as a line shift and set masks, so that
-    no slot divides.  Raises ``ValueError`` on a line size, set count, DRAM
-    backing or program that is not a power of two, or an empty store log."""
+    no slot divides, and the tick period and latencies that turn a
+    ``CIM_REG_SPIKE`` store into a tick-addressed spike.  Raises
+    ``ValueError`` on a line size, set count, DRAM backing or program that
+    is not a power of two, or an empty store log."""
     t = cfg.timing
     _log2("the DRAM backing's word count", dram_words)
     _log2("the program's word count", prog_words)
@@ -72,19 +76,31 @@ def pack_ints(cfg, quantum: int, *, out_cap: int, isets: int, dsets: int,
         "iset_mask": (1 << _log2("the icache's set count", isets)) - 1,
         "dset_mask": (1 << _log2("the dcache's set count", dsets)) - 1,
         "dram_words": dram_words, "scratch_words": scratch_words,
-        "prog_words": prog_words,
+        "prog_words": prog_words, "tick_period": cfg.snn_tick_period,
+        "local_latency": cfg.local_latency, "channel_latency": cfg.channel_latency,
     }
 
 
-def _launcher():
+def _launcher(dev):
+    """The kernel's ctypes entry, with its shared-memory limit raised on
+    ``dev`` (once per device, never inside a capture)."""
     global _fn
-    if _fn is None:
-        fn = build.load("slot_scan").slot_scan_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+    with LOCK:
+        if _fn is None:
+            fn = build.load("slot_scan").slot_scan_launch
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _fn = fn
+        if dev.index not in _ready:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("slot_scan: launch the kernel once before capturing it")
+            with torch.cuda.device(dev):
+                err = build.load("slot_scan").slot_scan_prepare()
+            if err != 0:
+                raise RuntimeError(f"slot_scan_prepare failed: CUDA error {err}")
+            _ready.add(dev.index)
+        return _fn
 
 
 def _check(name, x, dtype, shape, device):
@@ -187,14 +203,14 @@ def slot_scan(cfg, quantum: int, st, outbox, t_limit, cim_seg, cim_slot):
     tensors["launches"] = card_counts("slot_scan", dev)
     ptrs = (ctypes.c_void_p * len(POINTERS))(*(tensors[k].data_ptr() for k in POINTERS))
     vals = (ctypes.c_int * len(INTS))(*(int(ints[k]) for k in INTS))
-    fn = _launcher()
+    fn = _launcher(dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(ctypes.addressof(ptrs), len(POINTERS), ctypes.addressof(vals),
                  len(INTS), st["time"].shape[0], stream)
     if err != 0:
         raise RuntimeError(f"slot_scan kernel launch failed: error {err}")
-    slot_scan.launches += 1
+    count_launch(slot_scan, launches=1)
     slot_scan.skipped = tensors["log"][:, -1]
     return _result(st, tensors), outbox
 

@@ -12,12 +12,15 @@ cheap without changing a bit of the result:
 - the program is decoded once per quantum (it cannot change inside one)
   and each slot gathers its decoded fields;
 - a slot appends at most one message (a load and a store exclude each
-  other, and so do DRAM and CIM addresses), so the reference's three
+  other, and so do DRAM and CIM addresses), so the reference's four
   masked appends are one;
 - once no segment can run (halted, waiting, absent or at ``t_limit``,
   states that last for the rest of the quantum) every remaining slot only
   advances the clock of a live CPU by one cycle up to ``t_limit``, which
-  is applied in closed form: ``min(time + remaining, t_limit)``.
+  is applied in closed form: ``min(time + remaining, t_limit)``;
+- while every CPU that can run waits in a flag poll at a fixed point
+  (``lw rd, flag; beq rd, x0, -4`` on a zero scratch word), whole
+  iterations are applied in closed form too (``_poll_skip``).
 
 The working buffers (scratch, store log, outbox) carry a sink lane and are
 updated in place, the port's counterpart of JAX's dropped scatters.
@@ -98,14 +101,34 @@ def _mem_access(cfg, hot, dram_data, box, mem):
         slot_u = hot["cim_slot"][u]
         cim_store = sd & is_cim
         is_spk = cim_store & (reg_off == isa.CIM_REG_SPIKE)
-        # a CIM_REG_SPIKE store is late MMIO, as on a platform without
-        # ticking units: a live CPU beside ticking units (tick-addressed
-        # AER injection) is a hybrid job, which the controller refuses
-        hot["mmio_late"] = hot["mmio_late"] + is_spk.to(_I32)
-        append = remote | (cim_store & ~is_spk)
-        kind = torch.where(remote, kind, ch.MSG_W_CIM)
+        period = cfg.snn_tick_period
+        if period > 0:
+            # tick-addressed AER injection: the store names a LIF tick and
+            # becomes a MSG_SPIKE whose t_avail is the tick's grid time
+            # (t_emit backs the routing latency out), so under any placement
+            # it arrives tagged like a pre-scheduled raster event.  A tick-k
+            # spike stored at or after (k+1)*period is late.  int32 wraps,
+            # as the reference's does.
+            tick = ((st_data >> 16) & 0x7FFF).to(_I64)
+            target = riscv._wrap32((tick + 1) * period)
+            lat = torch.where(seg_u == hot["seg_id"], cfg.local_latency,
+                              cfg.channel_latency)
+            late = is_spk & (hot["time"] >= target)
+            spike = is_spk
+        else:
+            late = is_spk  # no ticking spike-mode unit wired: never valid
+            spike = torch.zeros_like(is_spk)
+        hot["mmio_late"] = hot["mmio_late"] + late.to(_I32)
+        # a spike store takes the place of the MSG_W_CIM it does not send
+        append = remote | (cim_store & ~is_spk) | spike
+        kind = torch.where(remote, kind, torch.where(spike, ch.MSG_SPIKE, ch.MSG_W_CIM)
+                           .to(_I32))
         dst = torch.where(remote, dst, seg_u)
-        m_addr = torch.where(remote, m_addr, (slot_u << 16) | reg_off)
+        m_addr = torch.where(remote, m_addr, (slot_u << 16) | torch.where(
+            spike, st_data & 0xFFFF, reg_off))
+        if period > 0:
+            data = torch.where(spike, 1, data)
+            t_emit = torch.where(spike, riscv._wrap32(target.to(_I64) - lat), t_emit)
     cap = box.shape[-1] - 1
     count = hot["box_count"]
     i = torch.where(append & (count < cap), count, cap)
@@ -141,6 +164,55 @@ def _slot(cfg, hot, table, dram_data, box, t_limit):
     hot["cpu"] = cpu2
     hot["instrs"] = hot["instrs"] + runnable.to(_I32)
     return hot
+
+
+def _poll_words(table):
+    """(S, program words) bool: word w starts a flag poll, ``lw rd,
+    imm(rs1)`` with rd != 0 followed by ``beq rd, x0, -4``, the loop the
+    offload managers and the spike driver wait in."""
+    d = dict(zip(riscv.DECODED, table.unbind(1)))
+    nxt = lambda f: torch.roll(d[f], -1, -1)
+    return ((d["op"] == isa.OP_LOAD) & (d["rd"] != 0) & (nxt("op") == isa.OP_BRANCH)
+            & (nxt("f3") == isa.F3_BEQ) & (nxt("rs1") == d["rd"]) & (nxt("rs2") == 0)
+            & (nxt("imm_b") == -4))
+
+
+def _poll_skip(cfg, hot, table, polls, runnable, t_limit, remaining):
+    """Iterations of a flag poll that every runnable CPU may skip at once,
+    or 0.  A poll is at a fixed point when its scratch word and ``rd`` are
+    0 and both of its words hit the icache (in different sets, or one
+    line): each iteration then only adds ``2*cpi + scratch`` cycles, two
+    instructions and two icache hits, as ``_slot`` would, until the clock
+    nears ``t_limit``.  The skip leaves the last whole iteration, and the
+    rest of the quantum, to ``_slot``; a CPU that cannot run meanwhile
+    gains one cycle a slot, up to ``t_limit``."""
+    t = cfg.timing
+    cpu = hot["cpu"]
+    words = table.shape[-1]
+    w = ((cpu["pc"] >> 2) & (words - 1)).to(_I64)
+    if bool((runnable & ~polls.gather(-1, w.unsqueeze(-1)).squeeze(-1)).any()):
+        return 0
+    at = lambda f: table[:, riscv.DECODED.index(f)].gather(-1, w.unsqueeze(-1)).squeeze(-1)
+    regs = cpu["regs"]
+    rd = at("rd").to(_I64).unsqueeze(-1)
+    addr = riscv._wrap32(regs.gather(-1, at("rs1").to(_I64).unsqueeze(-1)).squeeze(-1)
+                         .to(_I64) + at("imm_i"))
+    scratch = hot["scratch"]
+    n_scratch = scratch.shape[-1] - 1
+    in_scratch = (addr >= isa.SCRATCH_BASE) & (addr < isa.SCRATCH_BASE + n_scratch * 4)
+    s_idx = ((addr.to(_I64) - isa.SCRATCH_BASE) >> 2).clamp(0, n_scratch - 1)
+    lines = torch.stack([w, (w + 1) % words]) // t.line_words  # (2, S)
+    tags = hot["icache"]["tags"]
+    sets = lines % tags.shape[-1]
+    hits = (tags.gather(-1, sets.T) == lines.T).all(-1)
+    fixed = (in_scratch & (scratch.gather(-1, s_idx.unsqueeze(-1)).squeeze(-1) == 0)
+             & (regs.gather(-1, rd).squeeze(-1) == 0) & hits
+             & ((lines[0] == lines[1]) | (sets[0] != sets[1])))
+    if bool((runnable & ~fixed).any()):
+        return 0
+    step = 2 * t.cpi + t.scratch
+    room = torch.where(runnable, (t_limit.to(_I64) - 1 - hot["time"]) // step, remaining // 2)
+    return max(min(int(room.min()), remaining // 2) - 1, 0)
 
 
 def slot_scan(cfg, quantum: int, st, outbox, t_limit, cim_seg, cim_slot):
@@ -181,14 +253,32 @@ def slot_scan(cfg, quantum: int, st, outbox, t_limit, cim_seg, cim_slot):
         "cim_seg": cim_seg,
         "cim_slot": cim_slot,
     }
-    for q in range(quantum):
+    polls = _poll_words(table)
+    q = 0
+    while q < quantum:
         cpu = hot["cpu"]
         live = cpu["present"] & ~cpu["halted"]
-        if not bool((live & ~cpu["waiting"] & (hot["time"] < t_limit)).any()):
+        runnable = live & ~cpu["waiting"] & (hot["time"] < t_limit)
+        if not bool(runnable.any()):
             hot["time"] = torch.where(live, torch.minimum(
                 hot["time"].to(_I64) + (quantum - q), t_limit.to(_I64)).to(_I32), hot["time"])
             break
+        k = _poll_skip(cfg, hot, table, polls, runnable, t_limit, quantum - q)
+        if k > 0:
+            t = cfg.timing
+            step = 2 * t.cpi + t.scratch
+            n = 2 * k
+            hot["time"] = torch.where(runnable, hot["time"] + k * step, torch.where(
+                live, torch.minimum(hot["time"].to(_I64) + n, t_limit.to(_I64)).to(_I32),
+                hot["time"]))
+            inc = runnable.to(_I32) * n
+            hot["cpu"] = {**cpu, "instret": cpu["instret"] + inc}
+            hot["icache"] = {**hot["icache"], "hits": hot["icache"]["hits"] + inc}
+            hot["instrs"] = hot["instrs"] + inc
+            q += n
+            continue
         hot = _slot(cfg, hot, table, dram_data, box, t_limit)
+        q += 1
 
     # the DRAM store log, in order: sequential semantics, the last store to
     # an address wins

@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import LOCK, build, count_launch
 from repro_torch.kernels.ssm_scan import ref
 
 MAX_N = 64  # the kernel keeps the N state values of a row in registers
@@ -32,12 +32,13 @@ _ARGTYPES = {
 
 
 def _launcher(name):
-    if name not in _fns:
-        fn = getattr(build.load("ssm_scan"), name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return _fns[name]
+    with LOCK:
+        if name not in _fns:
+            fn = getattr(build.load("ssm_scan"), name)
+            fn.argtypes = _ARGTYPES[name]
+            fn.restype = ctypes.c_int
+            _fns[name] = fn
+        return _fns[name]
 
 
 def _check(name, x, shape, device, who="selective_scan", contiguous=True):
@@ -84,7 +85,7 @@ def _scan(da, dbx, c, h0, want_h):
             _ptr(h_last), b, s, d, n, int(vec), stream)
     if err != 0:
         raise RuntimeError(f"ssm_scan kernel launch failed: CUDA error {err}")
-    selective_scan.launches += 1
+    count_launch(selective_scan, launches=1)
     return y, h_last
 
 
@@ -146,7 +147,7 @@ def selective_scan_fused(dt, x, b, c, a, h0=None, d_skip=None, chunk=None):
             y.data_ptr(), h_last.data_ptr(), bsz, s, d, n, int(vec), stream)
     if err != 0:
         raise RuntimeError(f"ssm_scan fused kernel launch failed: CUDA error {err}")
-    selective_scan_fused.launches += 1
+    count_launch(selective_scan_fused, launches=1)
     return y, h_last
 
 

@@ -1,7 +1,10 @@
 """Spiking-neural-network subsystem of the port (counterpart of
 ``repro.snn``): LIF pools, the SNN-to-VP mapping and the rate-coded
 inference jobs (feed-forward, wide, recurrent and skip) with their CPU
-oracle, spike-rate profiling and traffic-aware placement; ``FaultConfig`` and
+oracle, spike-rate profiling and traffic-aware placement, and hybrid jobs
+(live RISC-V CPUs injecting spikes and reading counts back beside a dense
+offload: ``hybrid_job`` -> ``build_hybrid`` -> ``Controller.run`` ->
+``hybrid_results``); ``FaultConfig`` and
 ``degradation_sweep`` (``repro_torch.faults``) are re-exported here, as the
 reference does."""
 from repro_torch.faults import FaultConfig, degradation_sweep
@@ -11,10 +14,12 @@ from repro_torch.snn.topology import (
     SNNLayer,
     StripeGroup,
     auto_segmentation_for,
+    build_hybrid,
     build_snn,
     connectivity,
     consumed_rates,
     edge_dsts,
+    hybrid_results,
     is_cyclic,
     layer_groups,
     measure_traffic,
@@ -25,7 +30,9 @@ from repro_torch.snn.topology import (
     total_spikes,
 )
 from repro_torch.snn.workloads import (
+    HybridJob,
     SNNJob,
+    hybrid_job,
     oracle_rates,
     oracle_run,
     random_recurrent_snn,

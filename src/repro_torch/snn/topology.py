@@ -14,8 +14,10 @@ grouped tick of ``vp/cim.snn_tick`` merges a group's charge), lateral,
 recurrent and skip edges ride the same AER wiring under a ``tick_limit``
 horizon, and ``auto_segmentation_for(traffic=...)`` places stripe groups
 to cut the spike traffic that ``profile_traffic`` or ``measure_traffic``
-gives (``core.segmentation.traffic_partition``).  Outside the port so far:
-hybrid jobs (ROADMAP module item 8).
+gives (``core.segmentation.traffic_partition``).  ``build_hybrid`` puts a
+network beside live RISC-V CPUs and a dense offload in one platform: a
+driver CPU injects the raster through tick-addressed ``CIM_REG_SPIKE``
+stores and reads the output counts back (``CIM_REG_COUNTS``).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from repro_torch.core import channel as ch
 from repro_torch.core import segmentation as sg
 from repro_torch.snn.neuron import LIFParams
 from repro_torch.vp import isa
+from repro_torch.vp import platform as pf
 from repro_torch.vp.cim import XBAR
 
 
@@ -660,6 +663,158 @@ def _inject_raster(pending, n_segments, in_tiles, raster, tick_period):
     out["routed_total"] = torch.zeros_like(out["count"])
     out["lost_total"] = torch.zeros_like(out["count"])
     return out
+
+
+def build_hybrid(job, strategy: str = "split", *, tick_period: int | None = None,
+                 channel_latency: int = 10_000, local_latency: int = 64,
+                 use_kernel: bool = False, in_cap: int | None = None,
+                 out_cap: int | None = None, store_log: int | None = None,
+                 faults=None, device=None):
+    """Assemble live RISC-V CPUs, dense-mode CIM units and spike-mode CIM
+    units in ONE platform on ``device`` (default: the GPU).
+
+    Segment 0's CPU drives the dense VMM offload over its two dense units
+    (the software-pipelined pair of ``vp.workloads.cim_workload``); a
+    second CPU injects the SNN raster through tick-addressed
+    ``CIM_REG_SPIKE`` stores, asks for the output layer's spike counts via
+    ``CIM_REG_COUNTS`` once the tick horizon is reached, and copies them to
+    shared DRAM (``vp.workloads.spike_driver_program``).  Injected spikes
+    carry the tick-grid ``t_avail`` of raster events, so the SNN side is
+    bit-identical to the pre-scheduled-raster path.
+
+    ``job``: a ``snn.hybrid_job(...)`` bundle (dense layer + SNNJob with an
+    explicit ``n_ticks`` horizon + oracle expectations for both).
+
+    strategy:
+      split  -- spike units in their own segments ({CPU0, DRAM, 2 dense},
+                {CPU1}, up to 2 spike-unit segments);
+      packed -- spike units beside the driver CPU (2 segments);
+      auto   -- CPU<->CIM MMIO traffic enters the placement cut: the
+                profiling pass (``profile_traffic(injector=True)``) costs the
+                injection and readback streams, ``traffic_partition`` pins
+                the injector pseudo-group to the driver CPU's segment, and
+                spike groups pack to cut cross-segment events.
+
+    Returns (cfg, states, pending, meta).  ``meta`` carries the SNN readback
+    map (``output_spike_counts`` works on it) plus ``o_word`` and
+    ``counts_word``: where the dense result and the CPU-published spike
+    counts sit in shared DRAM (``hybrid_results``).
+    """
+    from repro_torch.vp import workloads as vwl
+
+    layers, raster, edges = job.snn.layers, job.snn.raster, job.snn.edges
+    n_layers = len(layers)
+    n_ticks = job.snn.n_ticks
+    if n_ticks is None:
+        raise ValueError("hybrid jobs need an explicit tick horizon (the readback target)")
+    if len(raster) > n_ticks:
+        raise ValueError("raster outlives the tick horizon")
+    in_edges, out_edges, eff_n_in = connectivity(layers, edges)
+    groups = _tile(layers, eff_n_in)
+    widths = [g.width for g in groups]
+    n_snn = sum(widths)
+    in_gis = [gi for gi, g in enumerate(groups) if g.layer == 0]
+    out_gis = [gi for gi, g in enumerate(groups) if g.layer == n_layers - 1]
+    if len(in_gis) != 1 or groups[in_gis[0]].width != 1:
+        raise ValueError("the spike driver targets one input tile: keep layer 0 "
+                         "in one crossbar")
+    if len(out_gis) != 1:
+        raise ValueError("the readback loop reads one output stripe: keep n_out <= 256")
+
+    events = vwl.spike_events(raster)
+    if len(events) > pf.SCRATCH_WORDS - vwl.EV_TABLE:
+        raise ValueError("event table overflows the driver CPU's scratch: thin the raster")
+    if tick_period is None:
+        # the injection deadline sizes the tick pitch: every tick-k store must
+        # retire before (k+1)*period, and the driver injects the whole table
+        # at the head of its program, so one period covering the loop bounds
+        # every deadline (events are staged in timestep order)
+        tick_period = max(channel_latency, vwl.injection_cycles_bound(len(events)))
+
+    dense_desc = sg.SegmentDesc(cpu=True, dram=True, n_cims=2, cim_mgr=0)
+    if strategy == "split":
+        caps = [c for c in _chunk_widths(widths, 2) if c]
+        descs = [dense_desc, sg.SegmentDesc(cpu=True)] + [
+            sg.SegmentDesc(n_cims=c, cim_mgr=1) for c in caps]
+        placement = _default_placement(groups, descs, reserved={0: 2})
+    elif strategy == "packed":
+        descs = [dense_desc, sg.SegmentDesc(cpu=True, n_cims=n_snn, cim_mgr=1)]
+        placement = _default_placement(groups, descs, reserved={0: 2})
+    elif strategy == "auto":
+        _, traffic = profile_traffic(layers, raster, edges=edges, n_ticks=n_ticks,
+                                     injector=True)
+        costs = [float(g.n_rows * eff_n_in[g.layer]) for g in groups]
+        slots = max(max(widths), -(-n_snn // 2))
+        assign = sg.traffic_partition(
+            widths + [0], costs + [0.0], traffic, n_segments=3,
+            slots_per_seg=slots, pinned={len(groups): 0})
+        members = {v: [i for i in range(len(groups)) if assign[i] == v]
+                   for v in range(3)}
+        descs, placement, unit = [dense_desc], [0] * len(groups), 2
+        for v in range(3):  # virtual segment 0 = the driver CPU's segment
+            w = sum(widths[i] for i in members[v])
+            if v == 0:
+                descs.append(sg.SegmentDesc(cpu=True, n_cims=w, cim_mgr=1))
+            elif w:
+                descs.append(sg.SegmentDesc(n_cims=w, cim_mgr=1))
+            for i in members[v]:
+                placement[i] = unit
+                unit += widths[i]
+    else:
+        raise ValueError(strategy)
+
+    cim_seg, cim_slot = _unit_tables(descs)
+    crossbars, cim_init, placement, by_layer = _wire_spike_units(
+        layers, groups, placement, in_edges, out_edges, cim_seg, cim_slot,
+        tick_period, n_ticks)
+    assert 0 not in crossbars and 1 not in crossbars, \
+        "spike groups spilled into the reserved dense slots"
+
+    ords = sg.mailbox_ordinals(descs)
+    dense = vwl.cim_workload(job.dense, mgr_segments=[0], cim_ids_per_mgr={0: (0, 1)},
+                             seed=job.seed, ordinals=ords)
+    in_gid = placement[in_gis[0]]
+    out_gid = placement[out_gis[0]]
+    out_ord = ords[out_gid]
+    if sg.OUT0 + (out_ord + 1) * 256 > vwl.EV_TABLE:
+        raise ValueError("the output unit's mailbox OUT area would collide with "
+                         "the event table")
+    counts_word = dense["o_word"] + job.dense.h * job.dense.p
+    programs = dict(dense["programs"])
+    programs[1] = vwl.spike_driver_program(
+        sg.cim_global_base(in_gid), sg.cim_global_base(out_gid),
+        len(events), n_ticks, layers[-1].n_out, out_ord, counts_word * 4)
+    scratch = {s: dict(v) for s, v in dense["scratch"].items()}
+    scratch.setdefault(1, {})[vwl.EV_TABLE] = events
+
+    cfg, states, pending = sg.build(
+        descs, programs=programs, dram_words=dense["dram"],
+        crossbars={**dense["crossbars"], **crossbars},
+        scratch_init=scratch, cim_init=cim_init,
+        channel_latency=channel_latency, local_latency=local_latency,
+        use_kernel=use_kernel, in_cap=in_cap, out_cap=out_cap,
+        store_log=store_log, faults=faults,
+        fault_uids=_fault_uids(groups, placement), device=device)
+    meta = {
+        **_snn_meta(layers, groups, placement, by_layer, out_edges, n_ticks,
+                    cim_seg, cim_slot),
+        "o_word": dense["o_word"],
+        "counts_word": counts_word,
+        "dense_shape": (job.dense.h, job.dense.p),
+        "tick_period": tick_period,
+    }
+    return cfg, states, pending, meta
+
+
+def hybrid_results(states, meta):
+    """Both halves of a hybrid run, read from shared DRAM as an external
+    host would: (dense O matrix, CPU-published spike counts), numpy arrays.
+    ``states`` may lie on any device."""
+    h, p = meta["dense_shape"]
+    dram = states["dram"]["data"][0].cpu().numpy()
+    o = dram[meta["o_word"]: meta["o_word"] + h * p].reshape(h, p)
+    counts = dram[meta["counts_word"]: meta["counts_word"] + meta["n_out"]]
+    return o, counts
 
 
 def output_spike_counts(states, meta) -> np.ndarray:

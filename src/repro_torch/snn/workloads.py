@@ -147,6 +147,45 @@ def snn_inference_job(layer_sizes=(64, 48, 10), t_steps: int = 12,
     return SNNJob(layers, raster, counts, int(totals.sum()))
 
 
+@dataclasses.dataclass
+class HybridJob:
+    """One platform, two concurrent workloads: a dense VMM offload job and
+    a spiking network whose raster a live RISC-V CPU injects via MMIO
+    (``CIM_REG_SPIKE``) and whose output counts it reads back
+    (``CIM_REG_COUNTS``).  Oracle expectations for both halves ride along;
+    ``snn.build_hybrid(job, strategy)`` assembles the platform."""
+    dense: object  # vp.workloads.Layer
+    dense_expected: np.ndarray  # A @ B for the dense half
+    snn: SNNJob  # layers + raster + oracle counts over an explicit horizon
+    seed: int = 0
+
+
+def hybrid_job(layer_sizes=(32, 24, 10), t_steps: int = 8, rate: float = 0.5,
+               seed: int = 0, dense_layer=None, settle: int = 1) -> HybridJob:
+    """The canonical hybrid workload: the conformance dense layer plus a
+    rate-coded feed-forward SNN sized for CPU injection (layer 0 and the
+    output layer each within one crossbar: the driver program targets one
+    input tile and reads one output stripe).
+
+    The tick horizon is explicit (``t_steps + depth + settle``; with
+    ``settle=1`` exactly the feed-forward oracle's own window), because the
+    driver's count readback is tick-addressed: it asks for the counts as of
+    that horizon, which makes the DMA'd values a function of the tick grid
+    alone, not of round timing."""
+    from repro_torch.vp import workloads as vwl
+
+    dense = dense_layer or vwl.Layer("hybrid", "vmm", 8, 8, 4)
+    _, _, o = vwl.layer_data(dense, seed)
+    rng = np.random.default_rng(seed + 1)
+    layers = random_snn(layer_sizes, seed=seed)
+    x = rng.random(layer_sizes[0]) * rate * 2
+    raster = rate_encode(x, t_steps, seed=seed + 2)
+    n_ticks = t_steps + len(layers) + settle
+    counts, totals = oracle_run(layers, raster, n_ticks=n_ticks)
+    snn = SNNJob(layers, raster, counts, int(totals.sum()), n_ticks=n_ticks)
+    return HybridJob(dense, o, snn, seed)
+
+
 def snn_skip_job(layer_sizes=(32, 24, 16, 10), t_steps: int = 8,
                  rate: float = 0.5, seed: int = 0, w_lo: int = -4,
                  w_hi: int = 8) -> SNNJob:

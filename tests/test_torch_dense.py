@@ -202,7 +202,8 @@ def test_mmio_fallback_runs_the_full_step():
 
 def test_builder_rules_match_jax():
     """``has_cpu`` follows programmed CPUs, unprogrammed CPUs halt at build
-    time, and hybrid jobs stay outside the slice."""
+    time, and programs beside spike-mode units (a hybrid platform) build
+    the reference's tree."""
     descs = sg.uniform(2, 2)
     jdescs = jsg.uniform(2, 2)
     prog = {1: "    li t0, 5\n    halt"}
@@ -213,6 +214,9 @@ def test_builder_rules_match_jax():
         assert_tree_equal(st_j, st, "states")
     assert cfg.has_cpu and st["cpu"]["halted"].tolist() == [True, False]
     spike = {0: {"mode": 1, "tick_period": 10_000}}
-    with pytest.raises(NotImplementedError, match="ROADMAP module item 8"):
-        sg.build(descs, programs=prog, cim_init=spike, device="cpu")
+    cfg, st, _ = sg.build(descs, programs=prog, cim_init=spike, device="cpu")
+    cfg_j, st_j, _ = jsg.build(jdescs, programs=prog, cim_init=spike)
+    assert cfg.has_cpu and cfg.has_snn and cfg.snn_tick_period == 10_000
+    assert cfg_fields(cfg) == cfg_fields(cfg_j)
+    assert_tree_equal(st_j, st, "hybrid states")
     assert dataclasses.asdict(sg.SegmentDesc()) == dataclasses.asdict(jsg.SegmentDesc())

@@ -13,13 +13,14 @@ import pytest
 import torch
 
 from repro import snn as jsnn
+from repro.core import segmentation as jsg
 from repro.core.controller import Controller as JController
 from repro_torch import snn
 from repro_torch.core import channel as ch
 from repro_torch.core import segmentation as sg
 from repro_torch.core.controller import Controller
 from repro_torch.vp import isa
-from torch_parity import assert_tree_equal, cfg_fields
+from torch_parity import assert_tree_equal, carry_across, cfg_fields
 
 REPO = Path(__file__).resolve().parents[1]
 SIZES = (40, 32, 24, 10)
@@ -138,36 +139,86 @@ def _outside_the_slice():
     descs = snn.segmentation_for(len(job.layers), "uniform", n_segments=2)
     built = snn.build_snn(job.layers, descs, job.raster, device="cpu")[:3]
     ctl = lambda **kw: Controller(*built, device="cpu", **kw)
-    spike_units = {0: {"mode": 1, "tick_period": 10_000}}
-
-    def hybrid(kind, addr, live_cpu):
-        # a hand-injected message turns on the full step with every CPU
-        # halted; a COUNTS request or a live CPU makes a hybrid job (item 8)
-        cfg, states, pending, _ = snn.build_snn(job.layers, descs, job.raster, device="cpu")
-        for f, v in (("kind", kind), ("addr", addr), ("data", 3), ("t_avail", 0),
-                     ("valid", True)):
-            pending[f][0, -1] = v
-        assert states["cpu"]["present"][0] and states["cpu"]["halted"][0]
-        states["cpu"]["halted"][0] = not live_cpu
-        return Controller(cfg, states, pending, device="cpu")
-
     return {
-        "threads": lambda: ctl(backend="threads"),
         "shard_map": lambda: ctl(backend="shard_map"),
+        "mesh": lambda: ctl(mesh=object()),
         "obs": lambda: ctl(obs=object()),
-        # live CPUs beside spike-mode units: a hybrid job (ROADMAP item 8)
-        "programs": lambda: sg.build(descs, programs={0: "halt"},
-                                     cim_init=spike_units, device="cpu"),
-        "counts_request": lambda: hybrid(ch.MSG_W_CIM, isa.CIM_REG_COUNTS, False),
-        "live_cpu": lambda: hybrid(ch.MSG_W_SCRATCH, 7, True),
     }
 
 
-@pytest.mark.parametrize("option", ["threads", "shard_map", "obs", "programs",
-                                    "counts_request", "live_cpu"])
+@pytest.mark.parametrize("option", ["shard_map", "mesh", "obs"])
 def test_options_outside_the_slice_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _outside_the_slice()[option]()
+
+
+def _hand_injected(kind, addr, live_cpu):
+    """The small job with one message hand-injected into segment 0's inbox
+    and segment 0's CPU live or halted, built by the JAX package; returns
+    (the port's cfg, the JAX package's cfg, the JAX trees as numpy)."""
+    job = _job(jsnn, sizes=(16, 12, 8))
+    descs = jsnn.segmentation_for(len(job.layers), "uniform", n_segments=2)
+    cfg_j, states, pending, _ = jsnn.build_snn(job.layers, descs, job.raster)
+    states, pending = jax.tree.map(np.array, states), jax.tree.map(np.array, pending)
+    for f, v in (("kind", kind), ("addr", addr), ("data", 3), ("t_avail", 0),
+                 ("valid", True)):
+        pending[f][0, -1] = v
+    assert states["cpu"]["present"][0] and states["cpu"]["halted"][0]
+    states["cpu"]["halted"][0] = not live_cpu
+    pjob = _job(snn, sizes=(16, 12, 8))
+    cfg = snn.build_snn(pjob.layers, snn.segmentation_for(len(pjob.layers), "uniform",
+                                                          n_segments=2),
+                        pjob.raster, device="cpu")[0]
+    return cfg, cfg_j, states, pending
+
+
+@pytest.mark.parametrize("option", ["threads", "programs", "counts_request", "live_cpu"])
+def test_options_brought_into_the_slice_match_jax(option):
+    """What the slice refused before hybrid jobs and the threads backend
+    were ported: the threads backend, programs beside spike-mode units, a
+    CIM_REG_COUNTS readback on a spiking platform and a live CPU beside
+    ticking units now build and run as the reference does."""
+    if option == "programs":
+        descs = snn.segmentation_for(2, "uniform", n_segments=2)
+        spike = {0: {"mode": 1, "tick_period": 10_000}}
+        cfg, st, _ = sg.build(descs, programs={0: "halt"}, cim_init=spike, device="cpu")
+        cfg_j, st_j, _ = jsg.build(jsnn.segmentation_for(2, "uniform", n_segments=2),
+                                   programs={0: "halt"}, cim_init=spike)
+        assert cfg.has_cpu and cfg.has_snn and cfg_fields(cfg) == cfg_fields(cfg_j)
+        assert_tree_equal(st_j, st, "states")
+        return
+    if option == "threads":
+        job, jjob = _job(snn, sizes=(16, 12, 8)), _job(jsnn, sizes=(16, 12, 8))
+        built = _build(snn, job, "uniform", n_segments=2, device="cpu")
+        ctl = Controller(*built[:3], backend="threads", quantum=QUANTUM, device="cpu")
+        ctl_j = JController(*_build(jsnn, jjob, "uniform", n_segments=2)[:3],
+                            backend="vmap", quantum=QUANTUM)
+        rounds = None
+    else:
+        kind, addr, live = {"counts_request": (ch.MSG_W_CIM, isa.CIM_REG_COUNTS, False),
+                            "live_cpu": (ch.MSG_W_SCRATCH, 7, True)}[option]
+        cfg, cfg_j, states, pending = _hand_injected(kind, addr, live)
+        ctl = Controller(cfg, carry_across(states), carry_across(pending), quantum=QUANTUM,
+                         device="cpu")
+        ctl_j = JController(cfg_j, states, pending, quantum=QUANTUM)
+        assert ctl.cfg.has_cpu and ctl_j.cfg.has_cpu
+        # a live CPU over an empty program never halts: compare a few rounds
+        rounds = 6 if live else None
+    if rounds is None:
+        ctl.run(max_rounds=300, check_every=2)
+        ctl_j.run(max_rounds=300, check_every=2)
+    else:
+        for _ in range(rounds):
+            ctl.round()
+            ctl_j.round()
+    ctl.close()
+    assert ctl.rounds_run == ctl_j.rounds_run
+    assert_tree_equal(ctl_j.result_states(), ctl.result_states(), f"{option} states")
+    assert_tree_equal(ctl_j._pending_stacked(), ctl._pending_stacked(), f"{option} pending")
+    if option == "counts_request":  # the readback was served and its flag DMA'd
+        st = ctl.result_states()
+        assert int(st["cims"]["count_req"].max()) == -1
+        assert int(st["stats"]["snn_mmio_late"].sum()) == 0
 
 
 def test_port_imports_neither_jax_nor_repro():

@@ -4,8 +4,26 @@ import dataclasses
 
 import jax
 import numpy as np
+import pytest
+import torch
 
 from repro_torch import tree
+
+
+@pytest.fixture(scope="module")
+def single_torch_thread():
+    """Run a module's tests with one intra-op torch thread, restoring the
+    count after.  The VP's plain versions issue thousands of tiny ops: on a
+    host shared by several test workers, each worker's pool of intra-op
+    threads spinning over the others' cores slows such a module many times
+    over (three tests of tests/test_torch_hybrid.py: 22.8 s with one thread,
+    294.1 s with eight, beside five busy processes on eight cores), and
+    idle it gains nothing from them.
+    A module opts in with ``pytestmark = pytest.mark.usefixtures(...)``."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def assert_tree_equal(jax_tree, torch_tree, what="tree"):
