@@ -40,7 +40,10 @@ and fails (non-zero exit, no result line) unless every phase holds:
      segment of 8 slots: two of the kernel's stages) and at a segment of 40
      slots (members on both sides of slot 32), also at narrow tiles;
      the ptxas report of every ``snn_tick_kernel`` instantiation shows no
-     spill;
+     spill; the fused tick, clean and under every fault input, bit-equal to
+     its plain version at the job axis's flattened shape (phase 11c's
+     full-width fleet: 64 requests, 128 segments, a few rounds in), timed
+     there;
   2. ``fig5snn`` (128x96x64x10, T=24): 2045 spikes in 28 rounds under three
      placements and both backends, the oracle's output counts, one fused
      tick launch per round (per segment on ``sequential``), and a CPU rerun
@@ -125,6 +128,27 @@ and fails (non-zero exit, no result line) unless every phase holds:
      and fused, wall per round, trees leaf-equal, whether the ``threads``
      workers' kernels overlapped on the card (a profile's streams), and no
      ``vp-seg`` thread left after ``close()``;
+  11. (run before 8) observability and the job-axis server: (a)
+     ``stats()`` and ``metrics()`` after fused runs of fig5snn, fullxbar,
+     Googlenet-conv1's uniform offload and phase 10's two hybrid jobs
+     (split) equal the JAX package's dicts, keys, dtypes and values
+     (``OBS_TARGET``, made by ``scripts/obs_targets.py``); (b) traced runs
+     (``Controller(obs=TraceConfig(...))``, the rings riding the captured
+     dispatch) of ``benchmarks/bench_snn.py``'s telemetry job (16x12x8,
+     T=96: 644 events, 0 lost), fullxbar and the full-width hybrid give the
+     JAX package's event counts, per-kind counts and sha256, with one host
+     fetch per dispatch, trees minus the ring equal to the untraced runs',
+     tick events summing to the spikes and cim_done events to the OPs; the
+     fused wall per round traced against untraced in turns and the kernels
+     tracing adds per round (profiler) on fullxbar and the full-width
+     hybrid; (c) ``SnnServer`` over ``core/controller.job_mega_fn`` (a
+     captured graph per bucket width): BENCH_pr9's fleet (16 requests of
+     16x12x8, T=96) at buckets 2 and 8 and 64 requests of 256x256x256 at
+     buckets 8 and 64, every request leaf-equal to its solo fused run with
+     the oracle's counts, one ``snn_tick`` launch per round of the job loop,
+     req/s, p99 and the wall per round against the solo ``sequential`` and
+     fused ``vmap`` loops; one bucket served with telemetry, each request's
+     events equal to its solo traced stream;
   8. falcon-mamba-7b serving: ``ssm_scan`` (unfused) and
      ``ssm_scan_fused`` (the Mamba-1 expansion inside the scan) against
      their plain versions on the card (a prefill chunk, or the whole
@@ -139,7 +163,7 @@ and fails (non-zero exit, no result line) unless every phase holds:
      chunk, 1088 launches) and with the plain scan, profiles of a prefill
      and a decode step, and one decode step under sync-debug "error".
 
-A VP main path's kernel launches (phases 2, 3, 6, 7, 9 and 10) are counted on
+A VP main path's kernel launches (phases 2, 3, 6, 7, 9, 10 and 11) are counted on
 the card: the fused tick, the fused completion and the slot scan each add
 one to a device counter when they run (``kernels.card_counts``), since the
 captured dispatch replays them without calling their wrappers, whose
@@ -3246,6 +3270,654 @@ def backends_phase(card):
     print("threads backend: no vp-seg worker left after close()", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: observability (stats()/metrics(), trace rings riding the
+# captured dispatch) and the job-axis SNN server.  OBS_TARGET is the JAX
+# package's numbers, made on a CPU by
+#     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/obs_targets.py
+
+TELEMETRY = dict(sizes=(16, 12, 8), t_steps=96, rate=0.2, seed=2, in_cap=640, out_cap=128)
+OBS_COUNTED = ("snn_tick", "finish_ops", "slot_scan")
+# the fleets: benchmarks/bench_snn.py's run_serve (BENCH_pr9's 16x12x8 fleet)
+# and 64 requests of two full 256x256 crossbars each, on 2 segments, with
+# fullxbar's in_cap (a T=16 raster of 256 inputs at rate 0.5 is ~2150
+# events, more than half of the default 4096-slot inbox holds)
+SERVE_RUN = dict(quantum=32, check_every=4, max_rounds=400)
+SERVE_FLEETS = {
+    "bench_pr9": dict(n=16, buckets=(2, 8), kw=dict(
+        layer_sizes=(16, 12, 8), seed=6, t_steps_choices=(96,), rate=0.2, in_cap=1024,
+        out_cap=128)),
+    "full_width": dict(n=64, buckets=(8, 64), kw=dict(
+        layer_sizes=(256, 256, 256), t_steps_choices=(8, 12, 16), n_segments=2,
+        in_cap=8192)),
+}
+SERVE_TRACED = ("bench_pr9", 8)  # the fleet and bucket served once with telemetry on
+JOB_TICK_ROUNDS = 3  # rounds into the full-width bucket of phase 1b's job-axis state
+# the VP kernels each job's round launches once (fused, on the card)
+OBS_KERNELS = {"fig5snn": ("snn_tick",), "fullxbar": ("snn_tick",), "telemetry": ("snn_tick",),
+               "googlenet_conv1": ("finish_ops", "slot_scan"),
+               "hybrid_bench_snn": OBS_COUNTED, "hybrid_full_width": OBS_COUNTED}
+OBS_TARGET = {'stats': {'fig5snn': {'rounds': 28,
+                       'stats': {'instructions': ['<i4', [4], [0, 0, 0, 0]],
+                                 'messages': ['<i4', [4], [1202, 744, 0, 0]],
+                                 'txn_histogram': ['<i8', [8], [0, 0, 0, 0, 0, 3512, 0, 0]],
+                                 'cache': {'d_hits': ['<i4', [4], [0, 0, 0, 0]],
+                                           'd_misses': ['<i4', [4], [0, 0, 0, 0]]},
+                                 'dram': {'reads': ['<i4', [4], [0, 0, 0, 0]],
+                                          'writes': ['<i4', [4], [0, 0, 0, 0]]},
+                                 'cim_ops': ['<i4', [4, 2], [0, 0, 0, 0, 0, 0, 0, 0]],
+                                 'snn': {'spikes': ['<i4', [4, 2],
+                                                    [1202, 0, 744, 0, 99, 0, 0, 0]],
+                                         'ticks': ['<i4', [4, 2],
+                                                   [26, 0, 26, 0, 26, 0, 0, 0]]}},
+                       'metrics': {'cpu.instructions': ['<i4', [4], [0, 0, 0, 0]],
+                                   'channel.messages_emitted': ['<i4', [4], [1202, 744, 0, 0]],
+                                   'channel.txn_histogram': ['<i4', [4, 8],
+                                                             [0, 0, 0, 0, 0, 1566, 0, 0, 0, 0,
+                                                              0, 0, 0, 1202, 0, 0, 0, 0, 0, 0,
+                                                              0, 744, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                                                              0]],
+                                   'channel.outbox_watermark': ['<i4', [4], [76, 57, 0, 0]],
+                                   'channel.inbox_watermark': ['<i4', [4], [1566, 76, 57, 0]],
+                                   'channel.inbox_occupancy': ['<i8', [4], [0, 0, 0, 0]],
+                                   'channel.messages_routed': ['<i4', [4], [0, 1202, 744, 0]],
+                                   'mem.dcache_hits': ['<i4', [4], [0, 0, 0, 0]],
+                                   'mem.dcache_misses': ['<i4', [4], [0, 0, 0, 0]],
+                                   'mem.dram_reads': ['<i4', [4], [0, 0, 0, 0]],
+                                   'mem.dram_writes': ['<i4', [4], [0, 0, 0, 0]],
+                                   'mem.store_log_watermark': ['<i4', [4], [0, 0, 0, 0]],
+                                   'cim.dense_ops': ['<i4', [4, 2], [0, 0, 0, 0, 0, 0, 0, 0]],
+                                   'snn.ticks': ['<i4', [4, 2], [26, 0, 26, 0, 26, 0, 0, 0]],
+                                   'snn.spikes_emitted': ['<i4', [4, 2],
+                                                          [1202, 0, 744, 0, 99, 0, 0, 0]],
+                                   'snn.spikes_in': ['<i4', [4, 2],
+                                                     [1566, 0, 1202, 0, 744, 0, 0, 0]],
+                                   'snn.spikes_consumed': ['<i4', [4], [1566, 1202, 744, 0]],
+                                   'snn.mmio_late': ['<i4', [4], [0, 0, 0, 0]],
+                                   'channel.inbox_lost': ['<i4', [4], [0, 0, 0, 0]],
+                                   'faults.spikes_dropped': ['<i4', [4], [0, 0, 0, 0]],
+                                   'faults.spikes_duped': ['<i4', [4], [0, 0, 0, 0]],
+                                   'faults.outbox_lost': ['<i4', [4], [0, 0, 0, 0]]}},
+           'fullxbar': {'rounds': 34,
+                        'stats': {'instructions': ['<i4', [4], [0, 0, 0, 0]],
+                                  'messages': ['<i4', [4], [6195, 6121, 6102, 3042]],
+                                  'txn_histogram': ['<i8', [8], [0, 0, 0, 0, 0, 24603, 0, 0]],
+                                  'cache': {'d_hits': ['<i4', [4], [0, 0, 0, 0]],
+                                            'd_misses': ['<i4', [4], [0, 0, 0, 0]]},
+                                  'dram': {'reads': ['<i4', [4], [0, 0, 0, 0]],
+                                           'writes': ['<i4', [4], [0, 0, 0, 0]]},
+                                  'cim_ops': ['<i4', [4, 2], [0, 0, 0, 0, 0, 0, 0, 0]],
+                                  'snn': {'spikes': ['<i4', [4, 2],
+                                                     [3135, 3060, 3066, 3055, 3048, 3054, 3042,
+                                                      3042]],
+                                          'ticks': ['<i4', [4, 2],
+                                                    [32, 32, 32, 32, 32, 32, 32, 32]]}},
+                        'metrics': {'cpu.instructions': ['<i4', [4], [0, 0, 0, 0]],
+                                    'channel.messages_emitted': ['<i4', [4],
+                                                                 [6195, 6121, 6102, 3042]],
+                                    'channel.txn_histogram': ['<i4', [4, 8],
+                                                              [0, 0, 0, 0, 0, 6278, 0, 0, 0, 0,
+                                                               0, 0, 0, 6126, 0, 0, 0, 0, 0, 0,
+                                                               0, 6103, 0, 0, 0, 0, 0, 0, 0,
+                                                               6096, 0, 0]],
+                                    'channel.outbox_watermark': ['<i4', [4],
+                                                                 [341, 258, 256, 256]],
+                                    'channel.inbox_watermark': ['<i4', [4],
+                                                                [3143, 263, 257, 256]],
+                                    'channel.inbox_occupancy': ['<i8', [4], [0, 0, 0, 0]],
+                                    'channel.messages_routed': ['<i4', [4],
+                                                                [3135, 6126, 6103, 6096]],
+                                    'mem.dcache_hits': ['<i4', [4], [0, 0, 0, 0]],
+                                    'mem.dcache_misses': ['<i4', [4], [0, 0, 0, 0]],
+                                    'mem.dram_reads': ['<i4', [4], [0, 0, 0, 0]],
+                                    'mem.dram_writes': ['<i4', [4], [0, 0, 0, 0]],
+                                    'mem.store_log_watermark': ['<i4', [4], [0, 0, 0, 0]],
+                                    'cim.dense_ops': ['<i4', [4, 2], [0, 0, 0, 0, 0, 0, 0, 0]],
+                                    'snn.ticks': ['<i4', [4, 2],
+                                                  [32, 32, 32, 32, 32, 32, 32, 32]],
+                                    'snn.spikes_emitted': ['<i4', [4, 2],
+                                                           [3135, 3060, 3066, 3055, 3048, 3054,
+                                                            3042, 3042]],
+                                    'snn.spikes_in': ['<i4', [4, 2],
+                                                      [3143, 3135, 3060, 3066, 3055, 3048, 3054,
+                                                       3042]],
+                                    'snn.spikes_consumed': ['<i4', [4],
+                                                            [6278, 6126, 6103, 6096]],
+                                    'snn.mmio_late': ['<i4', [4], [0, 0, 0, 0]],
+                                    'channel.inbox_lost': ['<i4', [4], [0, 0, 0, 0]],
+                                    'faults.spikes_dropped': ['<i4', [4], [0, 0, 0, 0]],
+                                    'faults.spikes_duped': ['<i4', [4], [0, 0, 0, 0]],
+                                    'faults.outbox_lost': ['<i4', [4], [0, 0, 0, 0]]}},
+           'googlenet_conv1': {'rounds': 8,
+                               'stats': {'instructions': ['<i4', [2], [32891, 28499]],
+                                         'messages': ['<i4', [2], [1802, 2024]],
+                                         'txn_histogram': ['<i8', [8],
+                                                           [672, 1579, 1575, 0, 0, 0, 0, 0]],
+                                         'cache': {'d_hits': ['<i4', [2], [700, 0]],
+                                                   'd_misses': ['<i4', [2], [196, 0]]},
+                                         'dram': {'reads': ['<i4', [2], [0, 0]],
+                                                  'writes': ['<i4', [2], [868, 0]]},
+                                         'cim_ops': ['<i4', [2, 2], [2, 2, 2, 1]],
+                                         'snn': {'spikes': ['<i4', [2, 2], [0, 0, 0, 0]],
+                                                 'ticks': ['<i4', [2, 2], [0, 0, 0, 0]]}},
+                               'metrics': {'cpu.instructions': ['<i4', [2], [32891, 28499]],
+                                           'channel.messages_emitted': ['<i4', [2],
+                                                                        [1802, 2024]],
+                                           'channel.txn_histogram': ['<i4', [2, 8],
+                                                                     [672, 902, 900, 0, 0, 0, 0,
+                                                                      0, 0, 677, 675, 0, 0, 0,
+                                                                      0, 0]],
+                                           'channel.outbox_watermark': ['<i4', [2], [452, 673]],
+                                           'channel.inbox_watermark': ['<i4', [2], [814, 452]],
+                                           'channel.inbox_occupancy': ['<i8', [2], [0, 0]],
+                                           'channel.messages_routed': ['<i4', [2],
+                                                                       [2474, 1352]],
+                                           'mem.dcache_hits': ['<i4', [2], [700, 0]],
+                                           'mem.dcache_misses': ['<i4', [2], [196, 0]],
+                                           'mem.dram_reads': ['<i4', [2], [0, 0]],
+                                           'mem.dram_writes': ['<i4', [2], [868, 0]],
+                                           'mem.store_log_watermark': ['<i4', [2], [448, 0]],
+                                           'cim.dense_ops': ['<i4', [2, 2], [2, 2, 2, 1]],
+                                           'snn.ticks': ['<i4', [2, 2], [0, 0, 0, 0]],
+                                           'snn.spikes_emitted': ['<i4', [2, 2], [0, 0, 0, 0]],
+                                           'snn.spikes_in': ['<i4', [2, 2], [0, 0, 0, 0]],
+                                           'snn.spikes_consumed': ['<i4', [2], [0, 0]],
+                                           'snn.mmio_late': ['<i4', [2], [0, 0]],
+                                           'channel.inbox_lost': ['<i4', [2], [0, 0]],
+                                           'faults.spikes_dropped': ['<i4', [2], [0, 0]],
+                                           'faults.spikes_duped': ['<i4', [2], [0, 0]],
+                                           'faults.outbox_lost': ['<i4', [2], [0, 0]]}},
+           'hybrid_bench_snn': {'rounds': 80,
+                                'stats': {'instructions': ['<i4', [4], [2929, 52606, 0, 0]],
+                                          'messages': ['<i4', [4], [74, 304, 241, 17]],
+                                          'txn_histogram': ['<i8', [8],
+                                                            [16, 39, 53, 0, 0, 528, 0, 0]],
+                                          'cache': {'d_hits': ['<i4', [4], [28, 0, 0, 0]],
+                                                    'd_misses': ['<i4', [4], [4, 0, 0, 0]]},
+                                          'dram': {'reads': ['<i4', [4], [0, 0, 0, 0]],
+                                                   'writes': ['<i4', [4], [20, 0, 0, 0]]},
+                                          'cim_ops': ['<i4', [4, 2], [2, 2, 0, 0, 0, 0, 0, 0]],
+                                          'snn': {'spikes': ['<i4', [4, 2],
+                                                             [0, 0, 0, 0, 241, 0, 84, 0]],
+                                                  'ticks': ['<i4', [4, 2],
+                                                            [0, 0, 0, 0, 15, 0, 15, 0]]}},
+                                'metrics': {'cpu.instructions': ['<i4', [4],
+                                                                 [2929, 52606, 0, 0]],
+                                            'channel.messages_emitted': ['<i4', [4],
+                                                                         [74, 304, 241, 17]],
+                                            'channel.txn_histogram': ['<i4', [4, 8],
+                                                                      [16, 38, 36, 0, 0, 0, 0,
+                                                                       0, 0, 0, 17, 0, 0, 0, 0,
+                                                                       0, 0, 0, 0, 0, 0, 287, 0,
+                                                                       0, 0, 1, 0, 0, 0, 241, 0,
+                                                                       0]],
+                                            'channel.outbox_watermark': ['<i4', [4],
+                                                                         [20, 140, 28, 17]],
+                                            'channel.inbox_watermark': ['<i4', [4],
+                                                                        [20, 17, 261, 28]],
+                                            'channel.inbox_occupancy': ['<i8', [4],
+                                                                        [0, 0, 0, 0]],
+                                            'channel.messages_routed': ['<i4', [4],
+                                                                        [90, 17, 287, 242]],
+                                            'mem.dcache_hits': ['<i4', [4], [28, 0, 0, 0]],
+                                            'mem.dcache_misses': ['<i4', [4], [4, 0, 0, 0]],
+                                            'mem.dram_reads': ['<i4', [4], [0, 0, 0, 0]],
+                                            'mem.dram_writes': ['<i4', [4], [20, 0, 0, 0]],
+                                            'mem.store_log_watermark': ['<i4', [4],
+                                                                        [16, 0, 0, 0]],
+                                            'cim.dense_ops': ['<i4', [4, 2],
+                                                              [2, 2, 0, 0, 0, 0, 0, 0]],
+                                            'snn.ticks': ['<i4', [4, 2],
+                                                          [0, 0, 0, 0, 15, 0, 15, 0]],
+                                            'snn.spikes_emitted': ['<i4', [4, 2],
+                                                                   [0, 0, 0, 0, 241, 0, 84, 0]],
+                                            'snn.spikes_in': ['<i4', [4, 2],
+                                                              [0, 0, 0, 0, 287, 0, 241, 0]],
+                                            'snn.spikes_consumed': ['<i4', [4],
+                                                                    [0, 0, 287, 241]],
+                                            'snn.mmio_late': ['<i4', [4], [0, 0, 0, 0]],
+                                            'channel.inbox_lost': ['<i4', [4], [0, 0, 0, 0]],
+                                            'faults.spikes_dropped': ['<i4', [4], [0, 0, 0, 0]],
+                                            'faults.spikes_duped': ['<i4', [4], [0, 0, 0, 0]],
+                                            'faults.outbox_lost': ['<i4', [4], [0, 0, 0, 0]]}},
+           'hybrid_full_width': {'rounds': 400,
+                                 'stats': {'instructions': ['<i4', [4], [7065, 276646, 0, 0]],
+                                           'messages': ['<i4', [4], [1066, 1846, 1572, 257]],
+                                           'txn_histogram': ['<i8', [8],
+                                                             [256, 1031, 293, 0, 0, 3161, 0,
+                                                              0]],
+                                           'cache': {'d_hits': ['<i4', [4], [28, 0, 0, 0]],
+                                                     'd_misses': ['<i4', [4], [4, 0, 0, 0]]},
+                                           'dram': {'reads': ['<i4', [4], [0, 0, 0, 0]],
+                                                    'writes': ['<i4', [4], [260, 0, 0, 0]]},
+                                           'cim_ops': ['<i4', [4, 2], [2, 2, 0, 0, 0, 0, 0, 0]],
+                                           'snn': {'spikes': ['<i4', [4, 2],
+                                                              [0, 0, 0, 0, 1572, 0, 1535, 0]],
+                                                   'ticks': ['<i4', [4, 2],
+                                                             [0, 0, 0, 0, 15, 0, 15, 0]]}},
+                                 'metrics': {'cpu.instructions': ['<i4', [4],
+                                                                  [7065, 276646, 0, 0]],
+                                             'channel.messages_emitted': ['<i4', [4],
+                                                                          [1066, 1846, 1572,
+                                                                           257]],
+                                             'channel.txn_histogram': ['<i4', [4, 8],
+                                                                       [256, 1030, 36, 0, 0, 0,
+                                                                        0, 0, 0, 0, 257, 0, 0,
+                                                                        0, 0, 0, 0, 0, 0, 0, 0,
+                                                                        1589, 0, 0, 0, 1, 0, 0,
+                                                                        0, 1572, 0, 0]],
+                                             'channel.outbox_watermark': ['<i4', [4],
+                                                                          [149, 140, 222, 257]],
+                                             'channel.inbox_watermark': ['<i4', [4],
+                                                                         [232, 257, 1448, 222]],
+                                             'channel.inbox_occupancy': ['<i8', [4],
+                                                                         [0, 0, 0, 0]],
+                                             'channel.messages_routed': ['<i4', [4],
+                                                                         [1322, 257, 1589,
+                                                                          1573]],
+                                             'mem.dcache_hits': ['<i4', [4], [28, 0, 0, 0]],
+                                             'mem.dcache_misses': ['<i4', [4], [4, 0, 0, 0]],
+                                             'mem.dram_reads': ['<i4', [4], [0, 0, 0, 0]],
+                                             'mem.dram_writes': ['<i4', [4], [260, 0, 0, 0]],
+                                             'mem.store_log_watermark': ['<i4', [4],
+                                                                         [8, 0, 0, 0]],
+                                             'cim.dense_ops': ['<i4', [4, 2],
+                                                               [2, 2, 0, 0, 0, 0, 0, 0]],
+                                             'snn.ticks': ['<i4', [4, 2],
+                                                           [0, 0, 0, 0, 15, 0, 15, 0]],
+                                             'snn.spikes_emitted': ['<i4', [4, 2],
+                                                                    [0, 0, 0, 0, 1572, 0, 1535,
+                                                                     0]],
+                                             'snn.spikes_in': ['<i4', [4, 2],
+                                                               [0, 0, 0, 0, 1589, 0, 1572, 0]],
+                                             'snn.spikes_consumed': ['<i4', [4],
+                                                                     [0, 0, 1589, 1572]],
+                                             'snn.mmio_late': ['<i4', [4], [0, 0, 0, 0]],
+                                             'channel.inbox_lost': ['<i4', [4], [0, 0, 0, 0]],
+                                             'faults.spikes_dropped': ['<i4', [4],
+                                                                       [0, 0, 0, 0]],
+                                             'faults.spikes_duped': ['<i4', [4], [0, 0, 0, 0]],
+                                             'faults.outbox_lost': ['<i4', [4],
+                                                                    [0, 0, 0, 0]]}}},
+ 'traced': {'telemetry': {'capacity': 1024,
+                          'rounds': 100,
+                          'dispatches': 1,
+                          'events': 644,
+                          'lost': 0,
+                          'kinds': [200, 172, 196, 76, 0, 0, 0, 0, 0],
+                          'sha256': '3b2241e991946605393124a526ac361b6a9c4d3ff79b9b76d094a9c29a7a3f29'},
+            'fullxbar': {'capacity': 4096,
+                         'rounds': 34,
+                         'dispatches': 1,
+                         'events': 608,
+                         'lost': 0,
+                         'kinds': [136, 97, 256, 119, 0, 0, 0, 0, 0],
+                         'sha256': '660b52f897d5e2300d0bbd8bdac167d2ff8b7291fbee98feebf3f9896c385f26'},
+            'hybrid_full_width': {'capacity': 4096,
+                                  'rounds': 400,
+                                  'dispatches': 2,
+                                  'events': 1690,
+                                  'lost': 0,
+                                  'kinds': [1600, 40, 30, 12, 4, 4, 0, 0, 0],
+                                  'sha256': 'e2e2441f9b27d09ff542e4889fd36e97dd1f03a292bfe3ee95fa83471de582ee'}}}
+
+
+def decoded(d):
+    """``scripts/obs_targets.py``'s [dtype, shape, values] arrays as numpy."""
+    if isinstance(d, dict):
+        return {k: decoded(v) for k, v in d.items()}
+    dtype, shape, values = d
+    return np.array(values, dtype=np.dtype(dtype)).reshape(shape)
+
+
+def same_dict(what, want, got):
+    """Nested dicts of arrays: the same keys in the same order, dtypes,
+    shapes and values; returns the number of arrays."""
+    check(list(want) == list(got), f"{what}: keys {list(got)}, want {list(want)}")
+    n = 0
+    for k, w in want.items():
+        if isinstance(w, dict):
+            n += same_dict(f"{what}/{k}", w, got[k])
+            continue
+        g = got[k]
+        check(isinstance(g, np.ndarray) and (g.dtype, g.shape) == (w.dtype, w.shape)
+              and np.array_equal(g, w), f"{what}/{k}: {g!r}, want {w!r}")
+        n += 1
+    return n
+
+
+def obs_job(name, obs=None):
+    """Phase 11's jobs on the card as ``scripts/obs_targets.py`` runs them:
+    returns (controller, run() keywords)."""
+    from repro_torch import snn
+    from repro_torch.core.controller import Controller
+
+    spiking = dict(max_rounds=MAX_ROUNDS, check_every=CHECK_EVERY)
+    if name in ("fig5snn", "fullxbar"):
+        spec = FIG5SNN if name == "fig5snn" else FULLXBAR
+        job = snn.snn_inference_job(spec["sizes"], t_steps=24, rate=0.5, seed=2)
+        built = build(job, "uniform", spec["in_cap"], None)
+        return Controller(*built[:3], quantum=QUANTUM, obs=obs), spiking
+    if name == "telemetry":
+        t = TELEMETRY
+        job = snn.snn_inference_job(t["sizes"], t_steps=t["t_steps"], rate=t["rate"],
+                                    seed=t["seed"])
+        built = build(job, "uniform", t["in_cap"], None, n_segments=2, out_cap=t["out_cap"])
+        return Controller(*built[:3], quantum=QUANTUM, obs=obs), spiking
+    if name == "googlenet_conv1":
+        built = build_dense(dense_layer("Googlenet-conv1"), "uniform", "cim", DENSE_QUANTUM)
+        return (Controller(*built[:3], quantum=DENSE_QUANTUM, obs=obs),
+                dict(max_rounds=2000, check_every=CHECK_EVERY))
+    built = snn.build_hybrid(hybrid_job(name.removeprefix("hybrid_")), "split",
+                             channel_latency=HYBRID_LATENCY)
+    return (Controller(*built[:3], quantum=HYBRID_QUANTUM, obs=obs),
+            dict(max_rounds=2000, check_every=HYBRID_CHECK_EVERY))
+
+
+def check_launches(what, name, counts, rounds):
+    want = dict.fromkeys(COUNTED, 0)
+    want.update(dict.fromkeys(OBS_KERNELS[name], rounds))
+    check(counts == want, f"{what}: launches {counts} for {rounds} rounds, want {want}")
+
+
+def obs_stats_phase():
+    """11a: ``stats()`` and ``metrics()`` after a fused run of each job equal
+    the JAX package's dicts (keys, dtypes, values).  Returns the runs'
+    launches of the VP kernels."""
+    launches = dict.fromkeys(OBS_COUNTED, 0)
+    for name, target in OBS_TARGET["stats"].items():
+        ctl, run = obs_job(name)
+        cap = ready(ctl)
+        counts, secs = counted(lambda: ctl.run(**run))
+        check(ctl.rounds_run == target["rounds"],
+              f"11a {name}: {ctl.rounds_run} rounds, want {target['rounds']}")
+        check_launches(f"11a {name}", name, counts, ctl.rounds_run)
+        n = same_dict(f"11a {name} stats()", decoded(target["stats"]), ctl.stats())
+        n += same_dict(f"11a {name} metrics()", decoded(target["metrics"]), ctl.metrics())
+        for k in OBS_COUNTED:
+            launches[k] += counts[k]
+        print(f"11a {name}: {ctl.rounds_run} rounds fused in {secs:.6f} s"
+              f"{capture_note(cap)}; stats() and metrics() equal the JAX package's on all "
+              f"{n} arrays (keys, dtypes, values); launches "
+              f"{ {k: counts[k] for k in OBS_COUNTED} }", flush=True)
+    return launches
+
+
+def event_digest(events):
+    return hashlib.sha256(np.ascontiguousarray(events).tobytes()).hexdigest()
+
+
+def minus_ring(trees):
+    return {**trees, "states": {k: v for k, v in trees["states"].items() if k != "trace"}}
+
+
+def round_census(graph):
+    """A captured dispatch's round body: nodes, of them kernels, memcpys and
+    memsets (``DispatchGraph.census``), its static count per round."""
+    c = graph.census["round"]
+    return {k: c[k] for k in ("nodes", "kernels", "memcpys", "memsets")}
+
+
+def obs_traced_phase(card):
+    """11b: traced runs equal the JAX package's streams (events, lost, per
+    kind, sha256) with one host fetch per dispatch, and minus their rings
+    the untraced trees; the counters agree with the events; then the fused
+    wall and device span per round traced against untraced in turns, and
+    the kernels tracing adds to the round graph (its node census: a
+    profile of a long captured run loses events).  Returns the traced
+    runs' launches."""
+    from repro_torch import snn
+    from repro_torch.core import controller as ctl_mod
+    from repro_torch.obs import TraceConfig
+    from repro_torch.obs import trace as tr
+
+    launches = dict.fromkeys(OBS_COUNTED, 0)
+    real = ctl_mod._HOST_FETCH
+    for name, target in OBS_TARGET["traced"].items():
+        obs = TraceConfig(capacity=target["capacity"])
+        ctl, run = obs_job(name, obs)
+        cap = ready(ctl)
+        fetches = []
+
+        def fetch(x):
+            fetches.append(1)
+            return real(x)
+
+        ctl_mod._HOST_FETCH = fetch
+        try:
+            counts, secs = counted(lambda: ctl.run(**run))
+        finally:
+            ctl_mod._HOST_FETCH = real
+        ev = ctl.trace_events()
+        got = {"capacity": obs.capacity, "rounds": ctl.rounds_run,
+               "dispatches": ctl.dispatches, "events": len(ev), "lost": ctl.trace_lost,
+               "kinds": np.bincount(ev["kind"], minlength=len(tr.KIND_NAMES)).tolist(),
+               "sha256": event_digest(ev)}
+        check(got == target, f"11b {name} traced: {got}, want the JAX package's {target}")
+        check_launches(f"11b {name} traced", name, counts, ctl.rounds_run)
+        check(len(fetches) == ctl.dispatches == ctl.dispatch_syncs,
+              f"11b {name}: {len(fetches)} fetches for {ctl.dispatches} dispatches")
+        plain, _ = obs_job(name)
+        ready(plain)
+        plain.run(**run)
+        n, _ = equal_trees(f"11b {name} traced minus its ring vs untraced",
+                           minus_ring(final_trees(ctl)), final_trees(plain))
+        st = ctl.result_states()
+        ticks = int(ev["value"][ev["kind"] == tr.EV_TICK].sum())
+        done = int((ev["kind"] == tr.EV_CIM_DONE).sum())
+        check(ticks == snn.total_spikes(st) and done == int(st["cims"]["ops"].sum()),
+              f"11b {name}: tick events {ticks} vs spikes {snn.total_spikes(st)}, "
+              f"cim_done events {done} vs ops {int(st['cims']['ops'].sum())}")
+        for k in OBS_COUNTED:
+            launches[k] += counts[k]
+        print(f"11b {name} traced (ring of {obs.capacity}): {ctl.rounds_run} rounds in "
+              f"{ctl.dispatches} dispatches, {len(ev)} events, lost {ctl.trace_lost}, per kind "
+              f"{dict(zip(tr.KIND_NAMES, got['kinds']))}, sha256 {got['sha256'][:16]}: the "
+              f"JAX package's; {len(fetches)} host fetch(es), one a dispatch; minus the ring "
+              f"equal to the untraced run on all {n} leaves; tick events = {ticks} spikes, "
+              f"cim_done events = {done} ops; {secs:.6f} s{capture_note(cap)}", flush=True)
+    for name in ("fullxbar", "hybrid_full_width"):
+        target = OBS_TARGET["traced"][name]
+        walls, spans, census = {False: [], True: []}, {False: [], True: []}, {}
+        for traced in (False, True, True, False, False, True):
+            ctl, run = obs_job(name, TraceConfig(capacity=target["capacity"]) if traced else None)
+            ready(ctl)
+            census[traced] = round_census(ctl._graph)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            ctl.run(**run)
+            end.record()
+            walls[traced].append((time.perf_counter() - t0) / ctl.rounds_run * 1e6)
+            end.synchronize()
+            spans[traced].append(start.elapsed_time(end) * 1e3 / ctl.rounds_run)
+        w = {t: statistics.mean(x) for t, x in walls.items()}
+        sp = {t: statistics.mean(x) for t, x in spans.items()}
+        add = {k: census[True][k] - census[False][k] for k in census[True]}
+        print(f"11b {name} fused wall per round ({card}), in turns: traced {w[True]:.1f} us "
+              f"{[round(x, 1) for x in walls[True]]}, untraced {w[False]:.1f} us "
+              f"{[round(x, 1) for x in walls[False]]}, traced / untraced "
+              f"{w[True] / w[False]:.4f}; device span per round traced {sp[True]:.1f} us, "
+              f"untraced {sp[False]:.1f} us; round graph traced {census[True]}, untraced "
+              f"{census[False]}: tracing adds {add} per round", flush=True)
+    return launches
+
+
+_FLEETS = {}
+
+
+def serve_fleet(name):
+    """The fleet ``name`` of ``SERVE_FLEETS`` on the card, built once."""
+    from repro_torch.snn import workloads as swl
+
+    if name not in _FLEETS:
+        spec = SERVE_FLEETS[name]
+        _FLEETS[name] = swl.serve_fleet(spec["n"], **spec["kw"])
+    return _FLEETS[name]
+
+
+def job_tick_phase():
+    """Phase 1b's state at the job axis's flattened shape: the full-width
+    fleet's 64 requests (128 segments) ``JOB_TICK_ROUNDS`` rounds into their
+    bucket, this round's inbox applied, the fused tick clean and under every
+    fault input bit-equal to its plain version there, with its time."""
+    from repro_torch import tree
+    from repro_torch.core import controller as ctl_mod
+    from repro_torch.kernels.lif_step import ops as lops, ref as lref
+    from repro_torch.vp import platform as pf
+
+    reqs = serve_fleet("full_width")
+    cfg = reqs[0].cfg
+    j = len(reqs)
+    states = tree.stack([r.states for r in reqs])
+    pending = tree.stack([r.pending for r in reqs])
+    mega = ctl_mod.job_mega_fn(cfg, SERVE_RUN["quantum"])
+    zeros = torch.zeros(j, dtype=torch.int32, device="cuda")
+    caps = [torch.full((j,), c, dtype=torch.int32, device="cuda")
+            for c in (cfg.in_cap, cfg.out_cap, cfg.store_log)]
+    states, pending, *_ = mega(states, pending, zeros, zeros.bool(), zeros.bool(), *caps,
+                               0, JOB_TICK_ROUNDS, 1 << 20)
+    flat = lambda t: tree.tree_map(lambda x: x.reshape(-1, *x.shape[2:]).clone(), t)
+    st, pen = flat(states), flat(pending)
+    t_gate = st["time"]
+    cims = pf._apply_inbox(cfg, st, pen)[0]["cims"]
+    s, n = cims["present"].shape
+    errs = {}
+    for row, c in (("snn_tick", cims), ("snn_tick_faults", with_faults(cims, 61))):
+        label = "clean" if row == "snn_tick" else "under every fault input"
+        got, errs[row] = fused_check(f"snn_tick job axis {label}", lops.snn_tick,
+                                     lref.snn_tick, c, t_gate)
+        fire = got[2]
+        check(bool(fire.any()) and not bool(fire.all()),
+              f"snn_tick job axis {label}: the gate should take both branches")
+        ms = device_ms(lambda: lops.snn_tick(c, t_gate))
+        bound_ms, bound_by = tick_bound_ms(c, fire)
+        print(f"snn_tick at the job axis's shape, (S, n) = ({s}, {n}) (the full-width fleet "
+              f"of {j} requests, {JOB_TICK_ROUNDS} rounds in), {label}: bit-equal to its plain "
+              f"version, {int(fire.sum())} of {s * n} units firing; device time {ms:.6f} ms, "
+              f"bound {bound_ms:.6f} ms ({bound_by})", flush=True)
+    return errs
+
+
+def serve_once(reqs, bucket, obs=None):
+    """One flush of the whole fleet through a fresh server; returns
+    (seconds, results in submission order, server)."""
+    from repro_torch.serve.snn_serve import SnnServer
+
+    srv = SnnServer(bucket_size=bucket, obs=obs, **SERVE_RUN)
+    tickets = [srv.submit(r) for r in reqs]
+    t0 = time.perf_counter()
+    res = srv.flush()
+    return time.perf_counter() - t0, [res[t] for t in tickets], srv
+
+
+def serve_phase(card):
+    """11c: each fleet served at its buckets; every request leaf-equal to its
+    solo fused run, with the oracle's output counts; req/s and p99 against
+    the solo ``sequential`` and fused ``vmap`` loops, and the wall per round
+    of the job loop; one bucket served with telemetry, each request's events
+    equal to its solo traced stream.  Returns the served runs' launches."""
+    import dataclasses
+
+    from repro_torch.core import controller as ctl_mod
+    from repro_torch.core.controller import Controller
+    from repro_torch.obs import TraceConfig
+    from repro_torch.serve.snn_serve import _normalize
+
+    launches = dict.fromkeys(OBS_COUNTED, 0)
+    run = dict(max_rounds=SERVE_RUN["max_rounds"], check_every=SERVE_RUN["check_every"])
+    p99 = lambda lats: float(np.percentile(np.asarray(lats) * 1e3, 99))
+
+    def solo_run(r, backend="vmap", obs=None):
+        ctl = Controller(r.cfg, r.states, r.pending, backend=backend,
+                         quantum=SERVE_RUN["quantum"], obs=obs)
+        ctl.run(**run)
+        ctl.block_until_ready()
+        ctl.close()
+        return ctl
+
+    for name, spec in SERVE_FLEETS.items():
+        t0 = time.perf_counter()
+        reqs = serve_fleet(name)
+        solo = {}
+        for backend in ("vmap", "sequential"):
+            lats, ctls = [], []
+            t1 = time.perf_counter()
+            for r in reqs:
+                t2 = time.perf_counter()
+                ctls.append(solo_run(r, backend))
+                lats.append(time.perf_counter() - t2)
+            solo[backend] = (time.perf_counter() - t1, lats, ctls)
+        rounds = [c.rounds_run for c in solo["vmap"][2]]
+        check(rounds == [c.rounds_run for c in solo["sequential"][2]],
+              f"11c {name}: solo rounds differ between vmap and sequential")
+        print(f"11c {name}: {len(reqs)} requests of {spec['kw']['layer_sizes']} on "
+              f"{reqs[0].cfg.n_segments} segments, {min(rounds)}-{max(rounds)} rounds each; "
+              f"solo loops ({card}): vmap fused {len(reqs) / solo['vmap'][0]:.3f} req/s, p99 "
+              f"{p99(solo['vmap'][1]):.3f} ms (each controller's capture included), "
+              f"sequential {len(reqs) / solo['sequential'][0]:.3f} req/s, p99 "
+              f"{p99(solo['sequential'][1]):.3f} ms ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        want_trees = [c.result_states() for c in solo["vmap"][2]]
+        cfg = reqs[0].cfg  # the fleet's requests share their caps: the buckets' cfg
+        bucket_cfg = dataclasses.replace(_normalize(cfg), in_cap=cfg.in_cap,
+                                         out_cap=cfg.out_cap, store_log=cfg.store_log)
+        for bucket in spec["buckets"]:
+            serve_once(reqs, bucket)  # the first flush at a width captures its graph
+            got = {}
+            counts, _ = counted(lambda: got.update(zip(("secs", "res", "srv"),
+                                                       serve_once(reqs, bucket))))
+            again = serve_once(reqs, bucket)[0]
+            for k, (res, req) in enumerate(zip(got["res"], reqs)):
+                check(res.ok and res.rounds == rounds[k],
+                      f"11c {name} b{bucket} request {k}: ok {res.ok} ({res.error}), "
+                      f"rounds {res.rounds}, solo {rounds[k]}")
+                equal_trees(f"11c {name} b{bucket} request {k} vs its solo run",
+                            res.states, want_trees[k])
+                check(res.output_counts().tolist() == list(req.expected_counts),
+                      f"11c {name} b{bucket} request {k}: output counts differ from the oracle")
+            loop = sum(max(rounds[i:i + bucket]) for i in range(0, len(reqs), bucket))
+            want = dict.fromkeys(COUNTED, 0)
+            want["snn_tick"] = loop
+            check(counts == want, f"11c {name} b{bucket}: launches {counts}, want {want}")
+            check(got["srv"].dispatch_syncs == got["srv"].dispatches,
+                  f"11c {name} b{bucket}: {got['srv'].dispatch_syncs} fetches for "
+                  f"{got['srv'].dispatches} dispatches")
+            for k in OBS_COUNTED:
+                launches[k] += counts[k]
+            secs = min(got["secs"], again)
+            mega = ctl_mod.job_mega_fn(bucket_cfg, SERVE_RUN["quantum"])
+            census = round_census(mega._disp[(torch.device("cuda", 0), bucket)][1])
+            print(f"11c {name} b{bucket} ({card}): every request leaf-equal to its solo fused "
+                  f"run, the oracle's counts; {got['srv'].dispatches} dispatches, one fetch "
+                  f"each; {loop} rounds of the job loop, one snn_tick launch each over "
+                  f"{bucket * reqs[0].cfg.n_segments} segments, round graph {census}; "
+                  f"flush {got['secs']:.6f} / "
+                  f"{again:.6f} s: {len(reqs) / secs:.3f} req/s, p99 "
+                  f"{p99([r.latency_s for r in got['res']]):.3f} ms, "
+                  f"{secs / loop * 1e6:.1f} us per round; vs solo vmap fused "
+                  f"{solo['vmap'][0] / secs:.3f}x, vs sequential "
+                  f"{solo['sequential'][0] / secs:.3f}x", flush=True)
+    name, bucket = SERVE_TRACED
+    reqs = serve_fleet(name)
+    obs = TraceConfig()
+    _, res, srv = serve_once(reqs, bucket, obs)
+    n_events = 0
+    for k, (r, req) in enumerate(zip(res, reqs)):
+        traced = solo_run(req, obs=obs)
+        check(r.ok and r.trace_lost == 0 == traced.trace_lost
+              and np.array_equal(r.events, traced.trace_events()),
+              f"11c {name} b{bucket} traced request {k}: {len(r.events)} events, solo "
+              f"{len(traced.trace_events())}")
+        equal_trees(f"11c {name} b{bucket} traced request {k}", r.states,
+                    traced.result_states())
+        n_events += len(r.events)
+    print(f"11c {name} b{bucket} with telemetry: each request's {n_events // len(reqs)} events "
+          f"(mean) equal its solo traced stream, rings included in its leaf-equal state; "
+          f"{srv.dispatches} dispatches, one fetch each", flush=True)
+    return launches
+
+
 def global_loads(name):
     """The global-load instructions of ``csrc/<name>.cu``'s build, by SASS
     opcode (``cuobjdump -sass``): where ``slot_scan`` reads the DRAM backing
@@ -3301,6 +3973,9 @@ def main():
     phase("1 kernels against their plain versions")
     rows = [kernel_phase(), lif_faults_phase(), xbar_phase(), xbar_faults_phase()]
     rows += fused_phase("tick") + grouped_phase() + fused_phase("finish")
+    for name, err in job_tick_phase().items():
+        row = next(row for row in rows if row["name"] == name)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
     floor_ms = launch_floor_ms()
     print(f"launch floor: one elementwise torch op on an (8,) int32 tensor, device time "
           f"{floor_ms:.6f} ms in the same CUDA-graph harness ({card})", flush=True)
@@ -3329,6 +4004,16 @@ def main():
     for name, n in hybrid_phase().items():
         launches[name] += n
     backends_phase(card)
+    phase("11 observability and the job-axis server")
+    for part in (obs_stats_phase(), obs_traced_phase(card), serve_phase(card)):
+        for name, n in part.items():
+            launches[name] += n
+    from repro_torch.core import controller as ctl_mod
+
+    _FLEETS.clear()
+    ctl_mod._JOB_FN_CACHE.clear()  # the job axis's buffers and graphs
+    gc.collect()
+    torch.cuda.empty_cache()
     phase("8 falcon-mamba-7b serving through the ssm_scan kernel")
     rows.extend(ssm_scan_phase())
     falcon_jax_phase()

@@ -11,7 +11,8 @@ the dense VMM offload on live RISC-V CPUs (``core.segmentation.build(
 programs=...)``), and seeded fault injection on both (``faults``), with
 the LIF tick, the crossbar VMM (each with its fault variant) and the
 instruction-slot scan as hand-written CUDA kernels under ``kernels/csrc/``;
-and, from the LM stack, falcon-mamba-7b serving (``models.model.build`` ->
+telemetry (``obs``: trace rings, ``Controller.stats``/``metrics``) and fleet
+serving over a job axis (``serve.snn_serve``); and, from the LM stack, falcon-mamba-7b serving (``models.model.build`` ->
 ``serve.serve_step.greedy_generate``) with the Mamba-1 selective scan as a
 CUDA kernel (``kernels/csrc/ssm_scan.cu``).
 Options outside these paths raise ``NotImplementedError`` naming the

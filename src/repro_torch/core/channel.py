@@ -125,7 +125,11 @@ def route(outboxes, latency, in_cap: int):
     form ``t_avail``.  One batched compaction over an (S, S*cap) key: row
     ``d`` puts the lanes bound for segment ``d`` first, in source order,
     truncated to ``in_cap`` (the count still records the demand).
+    Outboxes ``(J, S, cap)`` of J independent platforms (the serving job
+    axis) route each platform's segments among themselves: ``_route_jobs``.
     """
+    if outboxes["valid"].dim() == 3:
+        return _route_jobs(outboxes, latency, in_cap)
     s, cap = outboxes["valid"].shape
     dev = outboxes["valid"].device
     n = s * cap
@@ -141,6 +145,31 @@ def route(outboxes, latency, in_cap: int):
     keep = (slots < cnt.unsqueeze(1)) & (slots < n)
     box = {f: torch.where(keep, flat[f][sel], 0) for f in ("kind", "addr", "data")}
     box["t_avail"] = torch.where(keep, t_avail[sel], 0)
+    box["valid"] = keep
+    box["count"] = cnt
+    return box
+
+
+def _route_jobs(outboxes, latency, in_cap: int):
+    """``route`` of each of J platforms at once: (J, S, cap) -> (J, S,
+    in_cap), one compaction over a (J, S, S*cap) key."""
+    j, s, cap = outboxes["valid"].shape
+    dev = outboxes["valid"].device
+    n = s * cap
+    src_ids = _arange(s, dev).unsqueeze(1).expand(s, cap).reshape(-1)
+    flat = {f: outboxes[f].reshape(j, n) for f in FIELDS}
+    dst = flat["dst"]
+    t_avail = flat["t_emit"] + latency[src_ids.long(), dst.clamp(0, s - 1).long()]
+    m = outboxes["valid"].reshape(j, 1, n) & (
+        dst.unsqueeze(1) == _arange(s, dev).reshape(1, s, 1))
+    order = _compaction_order(m)
+    slots = _arange(in_cap, dev)
+    sel = order[..., slots.clamp(0, n - 1).long()]
+    cnt = m.sum(-1, dtype=_I32)
+    keep = (slots < cnt.unsqueeze(-1)) & (slots < n)
+    take = lambda x: torch.where(keep, x.unsqueeze(1).expand(j, s, n).gather(-1, sel), 0)
+    box = {f: take(flat[f]) for f in ("kind", "addr", "data")}
+    box["t_avail"] = take(t_avail)
     box["valid"] = keep
     box["count"] = cnt
     return box

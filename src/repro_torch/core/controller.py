@@ -31,6 +31,13 @@ run eagerly.  ``sequential`` and ``threads``
 keep their per-round host loop, as the reference's host-loop backends do.
 Results, ``rounds_run`` and every watermark message equal the reference's
 on every path.
+
+Telemetry (``obs=TraceConfig(...)``): a trace ring per segment rides the
+state tree, so the step appends to it on every backend and the captured
+dispatch carries it; the dispatch's one fetch brings it back
+(``trace_events``, ``trace_lost``).  ``stats()``/``metrics()`` read the
+counters the state already holds.  ``job_mega_fn`` below is the serving
+job axis: J platforms in one dispatch (``serve/snn_serve.py``).
 """
 from __future__ import annotations
 
@@ -43,6 +50,8 @@ import torch
 
 from repro_torch import tree
 from repro_torch.core import channel as ch
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.vp import platform as pf
 
 _BIG = 2**30
@@ -51,13 +60,39 @@ _BIG = 2**30
 _FOREACH_DTYPES = (torch.int32, torch.bool, torch.int8, torch.int64, torch.float32)
 
 
+_PINNED = {}  # (leaf index, shape, dtype, device) -> the fetch's pinned host buffer
+
+
 def _device_get(x):
-    return x.cpu()
+    """The tensors of the tree ``x`` (tuples and dicts) on the host: on the
+    card, numpy copies, each leaf copied without blocking into a pinned host
+    buffer and the stream waited for once, however many leaves the fetch
+    holds; a CPU tensor comes back as itself (``.cpu()``), to be read
+    before the next dispatch."""
+    leaves, stream = [], None
+
+    def get(t):
+        nonlocal stream
+        if t.device.type != "cuda":
+            return t.cpu()
+        key = (len(leaves), tuple(t.shape), t.dtype, t.device)
+        leaves.append(key)
+        if key not in _PINNED:
+            _PINNED[key] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        stream = torch.cuda.current_stream(t.device)
+        return _PINNED[key].copy_(t, non_blocking=True)
+
+    out = tree.tree_map(get, x)
+    if stream is None:
+        return out
+    stream.synchronize()
+    return tree.tree_map(lambda b: b.numpy().copy(), out)
 
 
-# the single host-transfer primitive of the fused dispatch: one copy of the
-# (rounds run, done, over) tuple per dispatch, through ``Controller._fetch``,
-# so tests can monkeypatch it to count device syncs
+# the single host-transfer primitive of the fused dispatch: one fetch of the
+# (rounds run, done, over) tuple, and of the trace rings with telemetry on,
+# per dispatch, through ``Controller._fetch``, so tests can monkeypatch it
+# to count device syncs
 _HOST_FETCH = _device_get
 
 
@@ -132,12 +167,10 @@ class Controller:
     quantum: int = 10_000
     mesh: object = None  # shard_map backend only (not in this slice)
     rounds_run: int = 0
-    obs: object = None  # telemetry (not in this slice)
+    obs: object = None  # obs.trace.TraceConfig, or None = no telemetry op in the step
     device: object = None  # None = the GPU
 
     def __post_init__(self):
-        if self.obs is not None:
-            raise NotImplementedError("telemetry (obs=) comes with ROADMAP module item 10")
         self._pool = None  # the threads backend's workers, made below
         if self.backend == "shard_map" or self.mesh is not None:
             raise NotImplementedError(
@@ -147,12 +180,19 @@ class Controller:
         self.device = tree.resolve_device(self.device)
         self.dispatches = 0  # fused dispatches issued
         self.dispatch_syncs = 0  # _HOST_FETCH calls from the fused dispatch
+        self.trace_lost = 0  # telemetry records dropped to ring capacity
+        self._events = []  # drained batches (numpy EVENT_DTYPE arrays)
         self.capture_seconds = None  # warm-up and capture of the dispatch graph
         self._disp = None  # the fused dispatch's buffers, made at its first use
         self._graph = None  # its dispatch graph (on the card)
         # own the state: the caller's tensors are never shared with a run
         self.states = tree.tree_map(lambda x: x.to(self.device, copy=True), self.states)
         self.pending = tree.tree_map(lambda x: x.to(self.device, copy=True), self.pending)
+        if self.obs is not None and "trace" not in self.states:
+            # one ring per segment inside the state tree, so every backend
+            # and the captured dispatch carry it like any other leaf
+            self.states = {**self.states, "trace": obs_trace.ring_state(
+                int(self.obs.capacity), (self.cfg.n_segments,), self.device)}
         self._finished = False  # a run() observed clean termination
         self._closed = False  # close() was called
         # the CPU-free step is only valid while nothing but AER spikes can
@@ -326,10 +366,51 @@ class Controller:
 
     def _fetch(self, x):
         """The dispatch-boundary host sync: one ``_HOST_FETCH`` of the
-        (rounds run, done, over) tuple, counted so the one-sync-per-dispatch
-        contract is testable."""
+        (rounds run, done, over) tuple and, with telemetry on, the trace
+        rings, counted so the one-sync-per-dispatch contract is testable."""
         self.dispatch_syncs += 1
         return _HOST_FETCH(x)
+
+    def _ingest(self, host_ring, on_telemetry=None):
+        """Account a fetched (host-side) ring: collect events, track loss."""
+        events, lost = obs_trace.drain(host_ring)
+        self.trace_lost += lost
+        if len(events):
+            self._events.append(events)
+            if on_telemetry is not None:
+                on_telemetry(events)
+
+    def drain_telemetry(self, on_telemetry=None):
+        """Fetch and reset the trace rings; returns the drained batch (empty
+        without telemetry).  A host sync: ``run`` calls it on the per-round
+        path at ``check_every`` boundaries and at the end only; the fused
+        dispatch drains in its one fetch instead."""
+        if self.obs is None:
+            return np.empty(0, obs_trace.EVENT_DTYPE)
+        before = len(self._events)
+        if self._list_mode:
+            self._ingest(_HOST_FETCH(tree.cat([st["trace"] for st in self._states_l])),
+                         on_telemetry)
+            self._states_l = [{**st, "trace": obs_trace.reset(st["trace"])}
+                              for st in self._states_l]
+        else:
+            # drained before the reset: on the CPU the fetch is the ring itself
+            ring = self._states["trace"]
+            self._ingest(_HOST_FETCH(ring), on_telemetry)
+            if self._disp is not None and self._states is self._disp.states:
+                ring["count"].zero_()  # the dispatch's buffer: a device fill
+                self.states = self._states  # drops a copy read before
+            else:
+                self.states = {**self._states, "trace": obs_trace.reset(ring)}
+        return self._events[-1] if len(self._events) > before \
+            else np.empty(0, obs_trace.EVENT_DTYPE)
+
+    def trace_events(self):
+        """All telemetry drained so far, one structured array
+        (``obs.trace.EVENT_DTYPE``); batches are time-sorted per drain."""
+        if not self._events:
+            return np.empty(0, obs_trace.EVENT_DTYPE)
+        return np.concatenate(self._events)
 
     def _round_body(self, d):
         """One round over the buffers ``d``, copied back into them, and the
@@ -413,9 +494,10 @@ class Controller:
             self.states, self.pending = self._disp.states, self._disp.pending
         return self._disp
 
-    def _dispatch(self, r0, k, check_every):
+    def _dispatch(self, r0, k, check_every, on_telemetry=None):
         """One fused dispatch of up to ``k`` rounds; returns (rounds run,
-        done, over) after one host fetch."""
+        done, over) after one host fetch, which brings the trace rings too
+        when telemetry is on (their reset is a device fill, no sync)."""
         if self.device.type == "cuda":
             self.capture()
         d = self._buffers()
@@ -430,7 +512,13 @@ class Controller:
         else:
             self._eager(d)
         self.dispatches += 1
-        ran, done, over = self._fetch(d.out).tolist()
+        if self.obs is None:
+            ran, done, over = self._fetch(d.out).tolist()
+        else:
+            out, ring = self._fetch((d.out, d.states["trace"]))
+            ran, done, over = out.tolist()
+            self._ingest(ring, on_telemetry)
+            d.states["trace"]["count"].zero_()
         return ran, bool(done), bool(over)
 
     def run(self, max_rounds: int = 10_000, check_every: int = 4,
@@ -446,10 +534,14 @@ class Controller:
         ``threads`` always, run the per-round host loop with the flags read
         at the same rounds.
         Both give the reference's results, ``rounds_run`` and overflow
-        errors.  ``on_telemetry`` is accepted for the reference's signature
-        and unused: telemetry (``obs``) is refused at construction.
+        errors.
+
+        ``on_telemetry`` (with ``obs``) receives each drained batch of trace
+        events as it reaches the host: once per fused dispatch, in the
+        dispatch's one fetch, or at ``check_every`` boundaries on the
+        per-round path, where a watermark error is raised only after the
+        drain, so the telemetry before it is kept.
         """
-        del on_telemetry
         t0 = _time.perf_counter()
         self._require_open()
         if self._finished:
@@ -467,7 +559,8 @@ class Controller:
             ran = 0
             while ran < max_rounds:
                 i, done, over = self._dispatch(
-                    ran, min(rounds_per_dispatch, max_rounds - ran), check_every)
+                    ran, min(rounds_per_dispatch, max_rounds - ran), check_every,
+                    on_telemetry)
                 ran += i
                 self.rounds_run += i
                 if done or over:
@@ -481,11 +574,20 @@ class Controller:
             return self.rounds_run, _time.perf_counter() - t0
         for r in range(max_rounds):
             self.round()
-            if (r + 1) % check_every == 0 and self.done():
-                self._finished = True
-                break
+            if (r + 1) % check_every == 0:
+                try:
+                    finished = self.done()
+                finally:
+                    # drain even when done() raises on a watermark
+                    if self.obs is not None:
+                        self.drain_telemetry(on_telemetry)
+                if finished:
+                    self._finished = True
+                    break
         else:
             self._check_overflow()  # done() may never have seen the last rounds
+        if self.obs is not None:
+            self.drain_telemetry(on_telemetry)
         self.block_until_ready()
         return self.rounds_run, _time.perf_counter() - t0
 
@@ -496,6 +598,23 @@ class Controller:
 
     def sim_time(self):
         return self._stacked()["time"].cpu().numpy()
+
+    def _read(self, name):
+        """The stacked live tree ``name`` for a host read (no copy of the
+        dispatch's buffers: the reader copies each leaf it reads)."""
+        if self._list_mode:
+            return tree.cat(getattr(self, f"_{name}_l"))
+        return getattr(self, f"_{name}")
+
+    def stats(self):
+        """The reference's coarse stats dict (``obs/metrics.legacy_stats``):
+        the same keys, dtypes and values; prefer ``metrics()``."""
+        return obs_metrics.legacy_stats(self._read("states"))
+
+    def metrics(self):
+        """Typed metrics snapshot ``{name: ndarray}`` over every metric of
+        the ``obs/metrics.py`` registry."""
+        return obs_metrics.collect(self._read("states"), self._read("pending"))
 
 
 def overflow_error(states, pending, *, in_cap: int, out_cap: int,
@@ -565,3 +684,218 @@ def _tree_property(name):
 
 Controller.states = _tree_property("states")
 Controller.pending = _tree_property("pending")
+
+
+# ---------------------------------------------------------------------------
+# job-axis dispatch (fleet serving: serve/snn_serve.py)
+#
+# The Controller batches the segments of one platform; serving stacks a
+# second leading axis of J independent platforms ("jobs") and runs them in
+# one dispatch.  The jobs share a compiled shape (one VPConfig) but carry
+# their own rasters, weights, fault seeds and trace rings.  The step is
+# written over a segment axis and every per-segment op, the three VP
+# kernels among them, is independent across segments, so a round steps all
+# J*S segments as one flattened stack (the slot scan's wiring tables name
+# segments within a platform, by ``seg_id``, so they need no per-job
+# offset); the limits, ``route``, ``merge_pending`` and the flags take a
+# (J, S) view.  A finished job is frozen: every changed leaf becomes
+# ``where(active, new, old)``, so a job's final state is its state at the
+# first check round that saw it done, where its solo run stops.  Per-job
+# caps ride as (J,) tensors into ``platform.job_termination_flags``: a
+# cap-padded bucket still trips each job's watermark against its own cap.
+
+_JOB_FN_CACHE: dict = {}  # (cfg, quantum, obs) -> _JobMegaloop
+
+
+def _same(a, b):
+    """``a`` is ``b``'s memory, in the same layout (a view the step passed
+    through)."""
+    return a is b or (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+                      and a.stride() == b.stride() and a.dtype == b.dtype)
+
+
+class _JobDispatch:
+    """One (J, device) job-axis dispatch's buffers: the (J, S, ...) state and
+    pending trees, the per-job carries ``rounds``/``done``/``over`` (J,) and
+    caps (3, J), ``args`` = (r0, k, check_every), the iteration count ``i``
+    and the dispatch graph's predicates ``running`` and ``at``."""
+
+    def __init__(self, states, pending, rounds):
+        self.states = tree.tree_map(_own, states)
+        self.pending = tree.tree_map(_own, pending)
+        dev = rounds.device
+        j = rounds.shape[0]
+        self.rounds = torch.zeros(j, dtype=torch.int32, device=dev)
+        self.done = torch.zeros(j, dtype=torch.bool, device=dev)
+        self.over = torch.zeros(j, dtype=torch.bool, device=dev)
+        self.caps = torch.zeros(3, j, dtype=torch.int32, device=dev)
+        self.args = torch.zeros(3, dtype=torch.int32, device=dev)
+        self.i = torch.zeros((), dtype=torch.int32, device=dev)
+        self.running = torch.zeros((), dtype=torch.bool, device=dev)
+        self.at = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def carries(self):
+        return (self.rounds, self.done, self.over, self.caps)
+
+    def copy(self):
+        other = _JobDispatch(self.states, self.pending, self.rounds)
+        for dst, src in zip(other.carries() + (other.args,), self.carries() + (self.args,)):
+            dst.copy_(src)
+        return other
+
+
+class _JobMegaloop:
+    """The job-axis dispatch for one (cfg, quantum, obs): ``__call__`` runs
+    up to ``k`` rounds of every active job, with the reference's signature
+    and results.  On the card a dispatch is one replay of a graph captured
+    per (device, J) at its first call (``kernels/dispatch_graph``: a WHILE
+    node on "any job active and i < k" around a round, the check in an IF
+    node); on the CPU the same bodies run eagerly.  The trees and carries it
+    returns are its buffers, valid until its next call with the same J:
+    passed back in, they are not copied."""
+
+    def __init__(self, cfg, quantum, obs):
+        self.cfg, self.quantum = cfg, quantum
+        self._step = pf.make_segment_step(cfg, quantum, obs)
+        self._drop = cfg.faults is not None and cfg.faults.drop_overflow
+        self._dev = {}  # device -> (latency matrix, eye)
+        self._disp = {}  # (device, J) -> [_JobDispatch, dispatch graph or None]
+
+    def _tables(self, dev):
+        if dev not in self._dev:
+            self._step.prepare(dev)
+            s = self.cfg.n_segments
+            self._dev[dev] = (self.cfg.latency_matrix(dev),
+                              torch.eye(s, dtype=torch.bool, device=dev))
+        return self._dev[dev]
+
+    def _round(self, states, pending):
+        """One round of every job over (J, S, ...) trees."""
+        j, s = states["time"].shape
+        lat, eye = self._tables(states["time"].device)
+        times = states["time"]
+        if s == 1:
+            lim = times + self.quantum
+        else:
+            lim = torch.where(eye, _BIG, times.unsqueeze(-1) + lat).min(dim=-2).values
+        flat = lambda t: tree.tree_map(lambda x: x.reshape(j * s, *x.shape[2:]), t)
+        unflat = lambda t: tree.tree_map(lambda x: x.reshape(j, s, *x.shape[1:]), t)
+        st, outboxes, pen = self._step(flat(states), flat(pending), lim.reshape(-1))
+        fresh = ch.route(unflat(outboxes), lat, self.cfg.in_cap)
+        return unflat(st), ch.merge_pending(unflat(pen), fresh)
+
+    def _round_body(self, d):
+        """A round of the active jobs into the buffers ``d`` (finished jobs
+        frozen), ``rounds += active``, ``i += 1``, ``at`` = a check point,
+        ``running`` = any job active and ``i < k``."""
+        r0, k, check_every = d.args
+        active = ~(d.done | d.over)
+        states, pending = self._round(d.states, d.pending)
+
+        def freeze(new, old):
+            if _same(new, old):
+                return old
+            return torch.where(active.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+        _assign(d.states, tree.tree_map(freeze, states, d.states))
+        _assign(d.pending, tree.tree_map(freeze, pending, d.pending))
+        d.rounds.add_(active.to(torch.int32))
+        d.i.add_(1)
+        d.at.copy_((r0 + d.i) % check_every == 0)
+        d.running.copy_(active.any() & (d.i < k))
+
+    def _check_body(self, d):
+        """Each job's flags at a check point: ``done`` and ``over`` of the
+        active jobs, then ``running``."""
+        fin, in_o, out_o, st_o, late, _trace = pf.job_termination_flags(
+            d.states, d.pending, d.caps[0], d.caps[1], d.caps[2])
+        # under the drop policy channel overflow is counted loss
+        bad = st_o | late if self._drop else in_o | out_o | st_o | late
+        active = ~(d.done | d.over)
+        done = d.done | (active & fin & ~bad)
+        over = d.over | (active & bad)
+        d.done.copy_(done)
+        d.over.copy_(over)
+        d.running.copy_((~(done | over)).any() & (d.i < d.args[1]))
+
+    def _capture(self, d):
+        """Warm up on a throwaway copy (first loads, device tables, the
+        allocator settle outside the capture), then capture the round and
+        the check and build the dispatch graph.  A failure raises: there is
+        no eager fallback on the card."""
+        from repro_torch.kernels.dispatch_graph import DispatchGraph
+
+        dev = d.rounds.device
+        scratch = d.copy()
+        current = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self._round_body(scratch)
+            self._check_body(scratch)
+        current.wait_stream(side)
+        torch.cuda.synchronize(dev)
+        del scratch
+        graphs = [torch.cuda.CUDAGraph(keep_graph=True) for _ in range(2)]
+        with torch.cuda.graph(graphs[0]):
+            self._round_body(d)
+        with torch.cuda.graph(graphs[1]):
+            self._check_body(d)
+        graph = DispatchGraph(graphs[0], graphs[1], d.running, d.at)
+        torch.cuda.synchronize(dev)
+        return graph
+
+    def __call__(self, states, pending, rounds, done, over, in_cap, out_cap, store_log,
+                 r0, k, check_every):
+        """One dispatch of up to ``k`` rounds of the (J, S, ...) stacks.
+        ``rounds``/``done``/``over`` are the (J,) carries of the previous
+        dispatch (padding lanes enter with ``done=True``), the caps (J,)
+        int32 tensors, all on the states' device; ``r0`` is the active
+        jobs' shared round count and ``check_every`` the check period, as
+        in ``Controller.run``.  Returns ``(states, pending, rounds, done,
+        over)``."""
+        dev = rounds.device
+        key = (dev, rounds.shape[0])
+        if key not in self._disp:
+            self._disp[key] = [_JobDispatch(states, pending, rounds), None]
+        d = self._disp[key][0]
+        _assign(d.states, states)
+        _assign(d.pending, pending)
+        for dst, src in zip(d.carries(), (rounds, done, over)):
+            if src is not dst:
+                dst.copy_(src)
+        for row, cap in zip(d.caps, (in_cap, out_cap, store_log)):
+            row.copy_(cap)
+        for x, v in zip(d.args, (r0, k, check_every)):
+            x.fill_(v)
+        d.i.zero_()
+        if k > 0:
+            d.running.copy_((~(d.done | d.over)).any())
+        else:
+            d.running.fill_(False)
+        if dev.type == "cuda":
+            if self._disp[key][1] is None:
+                self._disp[key][1] = self._capture(d)
+            self._disp[key][1].replay()
+        else:
+            while bool(d.running):
+                self._round_body(d)
+                if bool(d.at):
+                    self._check_body(d)
+        return d.states, d.pending, d.rounds, d.done, d.over
+
+
+def job_mega_fn(cfg, quantum: int = 10_000, obs=None):
+    """The cached job-axis dispatch for ``cfg`` (one device).  One entry
+    serves every bucket width of a workload shape; on the card each width
+    is captured once, at its first dispatch."""
+    key = (cfg, quantum, obs)
+    if key not in _JOB_FN_CACHE:
+        _JOB_FN_CACHE[key] = _JobMegaloop(cfg, quantum, obs)
+    return _JOB_FN_CACHE[key]
+
+
+def sharded_job_mega_fn(cfg, mesh, quantum: int = 10_000, obs=None, axis: str = "jobs"):
+    """The job axis fanned across a device mesh: not in this port yet."""
+    raise NotImplementedError(
+        "sharded serving (sharded_job_mega_fn) comes with ROADMAP module item 12")

@@ -221,3 +221,44 @@ def snn_recurrent_job(layer_sizes=(48, 40, 12), t_steps: int = 10,
     counts, totals = oracle_run(layers, raster, edges=edges, n_ticks=n_ticks)
     return SNNJob(layers, raster, counts, int(totals.sum()),
                   edges=edges, n_ticks=n_ticks)
+
+
+def serve_request(layer_sizes=(16, 12, 8), *, t_steps: int = 6,
+                  rate: float = 0.5, seed: int = 0, n_segments: int = 2,
+                  strategy: str = "uniform", in_cap=None, out_cap=None,
+                  faults=None, device=None):
+    """One admission-ready serving request (``serve/snn_serve.SnnRequest``),
+    built as ``snn_inference_job`` + ``build_snn`` would, on ``device``
+    (default: the GPU), carrying the fault-free oracle's output counts.
+    Requests of the same ``layer_sizes``/``n_segments``/``strategy`` share
+    one compiled shape and so one serving bucket (docs/serving.md)."""
+    from repro_torch.serve.snn_serve import SnnRequest
+
+    job = snn_inference_job(layer_sizes, t_steps=t_steps, rate=rate, seed=seed)
+    descs = topology.segmentation_for(len(layer_sizes) - 1, strategy,
+                                      n_segments=n_segments)
+    cfg, states, pending, meta = topology.build_snn(
+        job.layers, descs, job.raster, n_ticks=job.n_ticks,
+        in_cap=in_cap, out_cap=out_cap, faults=faults, device=device)
+    return SnnRequest(cfg, states, pending, meta,
+                      expected_counts=tuple(int(c) for c in job.expected_counts))
+
+
+def serve_fleet(n_requests: int, layer_sizes=(16, 12, 8), *, seed: int = 0,
+                t_steps_choices=(4, 6, 8), rate: float = 0.5,
+                n_segments: int = 2, strategy: str = "uniform",
+                in_cap=None, out_cap=None, faults=None, device=None):
+    """A heterogeneous request fleet sharing one compiled shape: weights,
+    rasters and durations differ per request (the reference's numpy RNG
+    code, so a fleet equals the JAX package's).  Returns the requests in
+    submission order."""
+    rng = np.random.default_rng(seed)
+    return [
+        serve_request(layer_sizes,
+                      t_steps=int(rng.choice(t_steps_choices)),
+                      rate=rate, seed=seed + 7919 * (i + 1),
+                      n_segments=n_segments, strategy=strategy,
+                      in_cap=in_cap, out_cap=out_cap, faults=faults,
+                      device=device)
+        for i in range(n_requests)
+    ]

@@ -142,11 +142,10 @@ def _outside_the_slice():
     return {
         "shard_map": lambda: ctl(backend="shard_map"),
         "mesh": lambda: ctl(mesh=object()),
-        "obs": lambda: ctl(obs=object()),
     }
 
 
-@pytest.mark.parametrize("option", ["shard_map", "mesh", "obs"])
+@pytest.mark.parametrize("option", ["shard_map", "mesh"])
 def test_options_outside_the_slice_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _outside_the_slice()[option]()

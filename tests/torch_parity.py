@@ -38,6 +38,20 @@ def assert_tree_equal(jax_tree, torch_tree, what="tree"):
         np.testing.assert_array_equal(g, w, err_msg=f"{what}{path}")
 
 
+def assert_dict_equal(want, got, what="dict"):
+    """Nested dicts of numpy arrays (``stats()``, ``metrics()``): the same
+    keys in the same order, dtypes, shapes and values."""
+    assert list(want) == list(got), f"{what}: keys {list(want)} vs {list(got)}"
+    for k in want:
+        if isinstance(want[k], dict):
+            assert_dict_equal(want[k], got[k], f"{what}/{k}")
+            continue
+        w, g = np.asarray(want[k]), got[k]
+        assert isinstance(g, np.ndarray), f"{what}/{k}: {type(g)}"
+        assert (w.dtype, w.shape) == (g.dtype, g.shape), f"{what}/{k}: {w.dtype} {w.shape} vs {g.dtype} {g.shape}"
+        np.testing.assert_array_equal(g, w, err_msg=f"{what}/{k}")
+
+
 def cfg_fields(cfg):
     """A VPConfig's fields as plain values (timing as a dict)."""
     return {f.name: (dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v)
@@ -48,3 +62,26 @@ def cfg_fields(cfg):
 def carry_across(jax_tree, device="cpu"):
     """The JAX package's tree as the port's tensors (tree.from_numpy)."""
     return tree.from_numpy(jax.tree.map(np.asarray, jax_tree), device)
+
+
+def carry_cfg(jax_cfg):
+    """The JAX package's VPConfig as the port's (the same fields)."""
+    from repro_torch import faults
+    from repro_torch.vp import memory
+    from repro_torch.vp import platform as pf
+
+    kw = cfg_fields(jax_cfg)
+    kw["timing"] = memory.Timing(**kw["timing"])
+    if kw["faults"] is not None:
+        kw["faults"] = faults.FaultConfig(**kw["faults"])
+    return pf.VPConfig(**kw)
+
+
+def carry_request(jax_request, device="cpu"):
+    """The JAX package's ``SnnRequest`` as the port's: its cfg, its trees (a
+    trace ring among them, if it has one) and its meta."""
+    from repro_torch.serve.snn_serve import SnnRequest
+
+    return SnnRequest(carry_cfg(jax_request.cfg), carry_across(jax_request.states, device),
+                      carry_across(jax_request.pending, device), jax_request.meta,
+                      jax_request.expected_counts)
