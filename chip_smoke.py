@@ -10,8 +10,10 @@ dense VMM offload on live RISC-V CPUs built by
 spikes and read counts back (``snn.build_hybrid``), and both under seeded
 fault injection (``faults=FaultConfig(...)``), each run to completion by
 ``Controller.run`` through its captured round loop (and on the
-``sequential`` and ``threads`` backends); and falcon-mamba-7b
-served by ``greedy_generate`` —
+``sequential`` and ``threads`` backends); and falcon-mamba-7b and the
+dense decoders (qwen3-1.7b, internlm2-1.8b, stablelm-12b, granite-34b)
+served by ``greedy_generate``, with qwen3-1.7b's FFN tiled onto the VP's
+crossbars by ``vp/workloads.from_arch`` —
 and fails (non-zero exit, no result line) unless every phase holds:
 
   0. environment: the card's name and power limit, the kernels built from
@@ -161,9 +163,28 @@ and fails (non-zero exit, no result line) unless every phase holds:
      1024 fused scan launches), its times and peak memory, the same job on
      the unfused path (expansion ops and the unfused kernel per 256-token
      chunk, 1088 launches) and with the plain scan, profiles of a prefill
-     and a decode step, and one decode step under sync-debug "error".
+     and a decode step, and one decode step under sync-debug "error";
+  12. (run after 8) the dense LM family: (c) ``from_arch("qwen3-1.7b")``'s
+     eight 256x256x8 crossbar tiles (one job under eight names) through the
+     dense slice, each fused on ``vmap`` and the first on ``sequential``:
+     the JAX package's rounds, simulated cycles, instructions per segment
+     and CIM ops (``DENSE_TARGET``, made by ``scripts/dense_lm_targets.py``),
+     ``O == A @ B``, one ``finish_ops`` and one ``slot_scan`` launch per
+     round (per segment on ``sequential``); (a) qwen3-1.7b, internlm2-1.8b,
+     stablelm-12b and granite-34b at full width and depth 2 against the JAX
+     package's greedy tokens (where its top-1/top-2 margin clears the
+     tolerance) and sampled logits for the same weights and prompt; (b) the
+     main path, qwen3-1.7b at full width and all 28 layers serving 16
+     tokens after a 1024-token prompt (two 512-token chunks of the
+     triangular flash loop) into a KV cache padded to 1040, its prefill
+     and decode times, tokens/s and peak memory, the same tokens at
+     ``pad_to`` 1048, prefill(x[:511]) plus a decode step against
+     prefill(x[:512]), profiles of a prefill and a decode step, and one
+     decode step under sync-debug "error".  The LM path reaches no
+     hand-written kernel: the reference computes it in plain JAX, and its
+     matmuls stay bf16 torch calls.
 
-A VP main path's kernel launches (phases 2, 3, 6, 7, 9, 10 and 11) are counted on
+A VP main path's kernel launches (phases 2, 3, 6, 7, 9, 10, 11 and 12) are counted on
 the card: the fused tick, the fused completion and the slot scan each add
 one to a device counter when they run (``kernels.card_counts``), since the
 captured dispatch replays them without calling their wrappers, whose
@@ -426,6 +447,192 @@ HYBRID_TARGET = {'bench_snn': {'expected_total': 325,
 
 # 512-token prompt (two chunks of 256), greedy_generate(steps=16)
 FALCON_MAIN = dict(batch=4, prompt=512, steps=16, weight_seed=0, prompt_seed=1)
+
+# phase 12: the dense LM family.  12a: each architecture at full width,
+# depth 2, weights init_numpy(seed=0), B=2, a 256-token prompt from
+# default_rng(1), greedy_generate(steps=8, pad_to=264), against the JAX
+# package's tokens, margins and sampled logits; 12c: from_arch(QWEN)'s eight
+# 256x256x8 crossbar tiles, uniform offload in cim mode at quantum = latency
+# = DENSE_QUANTUM (as the dense benchmark builds them), against the JAX
+# package's (tile, rounds, max sim_time, instrs per segment, CIM ops).
+# DENSE_TARGET holds both, made on a CPU by
+#     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/dense_lm_targets.py
+DENSE_LM = ["qwen3-1.7b", "internlm2-1.8b", "stablelm-12b", "granite-34b"]
+DENSE_JAX = dict(layers=2, batch=2, prompt=256, steps=8, pad_to=264, weight_seed=0,
+                 prompt_seed=1)
+DENSE_TARGET = {'from_arch': [['ffn_tile_0_0', 8, 80000, [33807, 30403], 8],
+               ['ffn_tile_0_1', 8, 80000, [33807, 30403], 8],
+               ['ffn_tile_1_0', 8, 80000, [33807, 30403], 8],
+               ['ffn_tile_1_1', 8, 80000, [33807, 30403], 8],
+               ['ffn_tile_2_0', 8, 80000, [33807, 30403], 8],
+               ['ffn_tile_2_1', 8, 80000, [33807, 30403], 8],
+               ['ffn_tile_3_0', 8, 80000, [33807, 30403], 8],
+               ['ffn_tile_3_1', 8, 80000, [33807, 30403], 8]],
+ 'granite-34b': {'last_logits': [[-0.65625, 1.109375, -0.8984375, 0.0167236328125, -0.1943359375,
+                                  2.171875, -0.2041015625, 0.23828125, -0.5625, 0.419921875,
+                                  -0.80859375, -1.703125, -0.498046875, -1.6171875, 0.828125, 1.125,
+                                  -1.375, -0.431640625, -0.15625, 0.84375, -0.65234375, -1.90625,
+                                  0.96875, 0.73046875, -0.04150390625, 0.97265625, 1.25, 1.6484375,
+                                  -1.59375, -0.169921875, -0.6328125, -0.032470703125],
+                                 [0.322265625, -1.671875, 1.1171875, -1.296875, 1.1484375,
+                                  0.76171875, -1.4375, -1.0, -0.0206298828125, -1.3515625,
+                                  1.3359375, -0.3828125, -1.0703125, -0.51171875, 0.5625, -0.171875,
+                                  -0.57421875, 0.57421875, 0.82421875, -2.1875, -1.4375, 0.890625,
+                                  -1.7265625, -0.375, 0.3046875, 1.046875, 0.77734375,
+                                  -0.002899169921875, 2.109375, -0.423828125, -0.095703125,
+                                  -1.953125]],
+                 'margins': [[0.03125, 0.09375, 0.0, 0.546875, 0.46875, 0.0, 0.15625, 0.4375],
+                             [0.0625, 0.0, 0.5625, 0.1875, 0.125, 0.140625, 0.359375, 0.078125]],
+                 'prefill_logits': [[1.0703125, -0.61328125, 2.09375, -0.1376953125, -0.72265625,
+                                     -0.67578125, 1.5625, -0.322265625, -0.255859375, 0.7265625,
+                                     -0.5859375, 1.265625, 1.1328125, -1.390625, 2.328125,
+                                     -0.796875, 0.5546875, 1.0234375, -0.82421875, -0.96484375,
+                                     -1.734375, 0.5078125, -0.5625, 0.025634765625, 0.275390625,
+                                     0.1552734375, -0.53125, -1.75, -0.03564453125, -0.6953125,
+                                     -0.78515625, 0.384765625],
+                                    [-1.3671875, -1.6875, 0.21875, -0.232421875, -0.84375, -0.25,
+                                     0.73828125, -2.078125, -2.109375, 1.3671875, 1.0625, -1.0,
+                                     0.8125, 0.34765625, 0.2314453125, -1.8203125, -0.095703125,
+                                     1.296875, -0.67578125, 0.98828125, 0.189453125, 1.328125,
+                                     -0.5078125, -1.8046875, -0.458984375, -0.71484375, -1.1015625,
+                                     0.462890625, -1.2890625, 0.2265625, -1.7421875, 0.54296875]],
+                 'sample': [2709, 4515, 5369, 7374, 9232, 9894, 10800, 12785, 12850, 13511, 14663,
+                            15022, 16452, 20328, 20779, 21262, 22169, 27429, 27630, 29482, 31122,
+                            32306, 32894, 33356, 35795, 36818, 39952, 39999, 41142, 43250, 46457,
+                            48782],
+                 'tokens': [[20049, 18943, 4568, 44907, 36544, 10188, 20601, 24381],
+                            [5143, 31434, 19706, 22080, 34808, 45492, 46409, 35492]]},
+ 'internlm2-1.8b': {'last_logits': [[0.478515625, -1.734375, -0.380859375, 0.62890625, -1.15625,
+                                     0.392578125, 0.99609375, 0.33203125, 0.78515625, -2.859375,
+                                     1.5859375, 1.15625, 0.1455078125, 0.66015625, 0.9375,
+                                     0.103515625, 0.66796875, -1.703125, 1.0546875, 0.431640625,
+                                     0.408203125, -0.15234375, 0.2412109375, 0.69140625, 0.78125,
+                                     -2.03125, -0.057861328125, -0.55859375, 0.83984375, 0.65625,
+                                     -0.07177734375, 1.765625],
+                                    [0.703125, 0.271484375, 0.0240478515625, 1.53125, 0.7734375,
+                                     2.0625, -0.72265625, 0.83203125, 1.8984375, 0.150390625,
+                                     -0.6953125, -0.7265625, -0.400390625, 0.1845703125, -0.265625,
+                                     -0.54296875, 0.74609375, -0.7578125, 0.4453125, -0.283203125,
+                                     0.640625, -0.5859375, 1.9375, 0.404296875, -0.66796875,
+                                     -1.3671875, 1.484375, -0.384765625, 0.37890625, -0.466796875,
+                                     -2.625, -0.1201171875]],
+                    'margins': [[0.46875, 0.28125, 0.0625, 0.125, 0.28125, 0.34375, 0.28125,
+                                 0.40625],
+                                [0.09375, 0.125, 0.09375, 0.03125, 0.59375, 0.03125, 0.015625,
+                                 0.1875]],
+                    'prefill_logits': [[0.32421875, 0.9140625, -0.625, -0.9296875, 0.3203125,
+                                        1.4921875, 0.034912109375, -0.7890625, 0.185546875,
+                                        -0.91796875, 0.74609375, -0.296875, -0.546875, 1.890625,
+                                        -0.66796875, 1.1953125, 1.9921875, 1.1171875, 0.546875,
+                                        1.921875, -1.375, -0.578125, -0.314453125, -0.357421875,
+                                        -0.1396484375, -0.25, 0.5, -0.59375, -0.06005859375,
+                                        0.48828125, 1.0234375, -0.34375],
+                                       [0.064453125, -0.0012359619140625, 0.4765625, 0.3125,
+                                        0.2392578125, 1.1171875, 0.55859375, 1.859375, -0.73828125,
+                                        0.478515625, -1.1171875, -0.490234375, -0.73046875,
+                                        -0.57421875, 1.078125, -0.3203125, 0.8046875, 1.90625,
+                                        -1.3203125, 1.1171875, -1.3828125, 1.0, -0.359375,
+                                        0.0205078125, 0.79296875, 1.0390625, 2.109375, -1.5390625,
+                                        1.2734375, 0.52734375, 0.1611328125, 0.9921875]],
+                    'sample': [5102, 8504, 10112, 13886, 17385, 18631, 20335, 24073, 24202, 25442,
+                               27615, 28287, 30983, 38284, 39125, 40034, 41751, 51652, 52028, 55522,
+                               58597, 60833, 61936, 62807, 67409, 69326, 75238, 75330, 77486, 81444,
+                               87473, 91864],
+                    'tokens': [[43006, 53374, 68511, 7606, 23721, 12303, 34865, 55498],
+                               [62452, 19390, 31602, 24578, 80108, 1941, 77355, 22614]]},
+ 'qwen3-1.7b': {'last_logits': [[0.06787109375, 1.03125, 0.0908203125, 0.59375, -1.5703125,
+                                 0.8203125, -1.0234375, -0.216796875, -0.494140625, -0.8671875,
+                                 -2.375, -0.365234375, 0.9609375, 0.67578125, -2.109375, -0.5,
+                                 0.6015625, -0.64453125, 0.77734375, 1.359375, -1.28125,
+                                 -0.25390625, 0.140625, 0.0040283203125, -1.8515625, -1.4921875,
+                                 1.953125, -0.75390625, 1.53125, 0.21875, 0.54296875, -1.015625],
+                                [-0.265625, 1.2578125, 0.3515625, -0.64453125, 0.30078125,
+                                 -0.95703125, 1.09375, -1.625, -0.515625, 0.40625, -0.67578125,
+                                 1.3828125, 1.109375, -0.043701171875, -1.0234375, -0.58984375,
+                                 1.2734375, -1.5546875, 1.2890625, -0.88671875, -0.26953125,
+                                 0.90625, 0.52734375, -1.03125, 0.98046875, -0.007598876953125,
+                                 0.79296875, 0.146484375, 1.2109375, 0.18359375, -0.1220703125,
+                                 -1.78125]],
+                'margins': [[0.21875, 1.21875, 1.25, 1.21875, 1.203125, 1.15625, 1.09375, 0.96875],
+                            [0.25, 0.703125, 0.625, 0.59375, 0.625, 0.703125, 0.8125, 0.859375]],
+                'prefill_logits': [[0.388671875, 1.0078125, 0.0260009765625, 0.3046875, -1.375,
+                                    0.76171875, -0.91796875, -0.05224609375, -0.197265625,
+                                    -0.494140625, -2.265625, -0.265625, 1.046875, 0.78515625,
+                                    -2.078125, -0.55078125, 0.63671875, -1.125, 0.65234375, 0.59375,
+                                    -0.9765625, -0.361328125, 0.365234375, -0.46875, -1.6640625,
+                                    -1.46875, 1.875, -0.765625, 1.6171875, 0.1787109375,
+                                    0.294921875, -1.0390625],
+                                   [-0.054443359375, 0.87890625, 0.039306640625, -0.63671875,
+                                    0.33203125, -0.81640625, 0.85546875, -2.203125, -0.490234375,
+                                    0.2392578125, -0.76953125, 1.3125, 0.76953125, -0.12158203125,
+                                    -1.1796875, -0.70703125, 0.8828125, -1.7578125, 1.0,
+                                    -0.31640625, -0.2470703125, 1.0703125, 0.671875, -1.015625,
+                                    0.55859375, -0.1181640625, 0.38671875, 0.142578125, 1.625,
+                                    0.083984375, 0.2255859375, -1.734375]],
+                'sample': [8377, 13963, 16604, 22798, 28545, 30589, 33385, 39525, 39740, 41773,
+                           45343, 46443, 50873, 62862, 64235, 65729, 68552, 84806, 85422, 91163,
+                           96203, 99879, 101687, 103117, 110680, 113821, 123535, 123689, 127231,
+                           133723, 143613, 150832],
+                'tokens': [[68793, 68793, 68793, 68793, 68793, 68793, 68793, 68793],
+                           [115732, 115732, 115732, 115732, 115732, 115732, 115732, 115732]]},
+ 'stablelm-12b': {'last_logits': [[-0.44921875, -0.71484375, 0.283203125, -0.044677734375,
+                                   0.41015625, 0.97265625, -0.361328125, 0.328125, 0.8125, 1.5625,
+                                   -0.03173828125, 0.2734375, 0.388671875, 0.1318359375,
+                                   0.2353515625, 0.72265625, -0.91015625, -0.453125, 0.45703125,
+                                   -0.66015625, -3.1875, 0.59375, -1.90625, 0.484375, -1.953125,
+                                   -1.3046875, 0.1005859375, -0.306640625, -0.76953125, -1.0,
+                                   -0.01531982421875, -0.55078125],
+                                  [-0.458984375, 0.984375, -0.44140625, -1.9140625, 0.318359375,
+                                   1.2109375, -0.07177734375, 1.6171875, -0.10302734375, -0.359375,
+                                   0.08984375, -1.28125, 2.25, 0.59375, -0.490234375, 0.13671875,
+                                   -0.8671875, -1.609375, 0.53515625, -0.349609375, -0.8125,
+                                   -1.7421875, -0.1171875, 0.55078125, 0.345703125, -0.1611328125,
+                                   0.5546875, 1.2578125, 0.70703125, -0.859375, 1.03125,
+                                   0.7890625]],
+                  'margins': [[0.03125, 0.34375, 1.4375, 0.125, 0.125, 0.0625, 0.09375, 0.03125],
+                              [0.21875, 0.15625, 0.375, 0.21875, 0.4375, 0.46875, 0.09375,
+                               0.09375]],
+                  'prefill_logits': [[-0.82421875, -0.64453125, -0.67578125, -0.94140625,
+                                      -0.99609375, 3.0625, -0.2197265625, -0.6015625, 0.765625,
+                                      -0.1513671875, 1.125, -1.90625, 0.44921875, 0.7734375,
+                                      -0.275390625, 0.4296875, 0.0751953125, -1.484375, 1.3203125,
+                                      -0.208984375, 0.96875, 1.0859375, -0.291015625, 0.28125,
+                                      -0.4296875, 1.984375, -0.94140625, -0.1005859375, 1.7109375,
+                                      -0.12109375, 0.96875, -0.1259765625],
+                                     [0.52734375, 1.0625, 1.140625, -1.7109375, -0.9140625, 1.59375,
+                                      2.765625, -0.765625, 0.1318359375, 0.478515625, -0.3671875,
+                                      -0.30078125, -0.1884765625, 1.9296875, -0.06494140625,
+                                      -0.3828125, -0.1943359375, 0.361328125, 0.02685546875,
+                                      0.0947265625, 0.7109375, -0.73828125, 0.37890625, 0.65234375,
+                                      0.08544921875, -0.310546875, -0.42578125, 0.474609375,
+                                      -1.40625, -0.56640625, 0.390625, 1.328125]],
+                  'sample': [5533, 9221, 10965, 15057, 18852, 20203, 22050, 26105, 26245, 27589,
+                             29945, 30674, 33598, 41515, 42426, 43412, 45274, 56010, 56418, 60208,
+                             63541, 65966, 67162, 68106, 73097, 75176, 81588, 81688, 84026, 88317,
+                             94854, 99616],
+                  'tokens': [[47977, 41615, 64837, 28385, 29902, 23345, 61660, 95836],
+                             [36873, 1764, 77960, 51425, 82769, 35971, 71362, 23934]]}}
+# logits (bf16) held to the JAX package's at the sample at most DENSE_TOL
+# apart, twice the port's largest distance on a CPU over the whole vocab
+# (0.5625, internlm2's prefill; 0.2266 at the sample), and on average at
+# most DENSE_MEAN_TOL apart, three times the largest mean on the card
+# (0.0830, stablelm's last step; 0.0447 on a CPU).  With random weights the
+# bf16-rounded attention scores reach |s| ~ 1e4, where one ulp moves a
+# softmax weight by e^5.6, so a GEMM summed in another order can move a
+# full-width logit by a few tenths (the port on the CPU, the card and the
+# JAX package each sum differently).  A greedy position is compared where
+# the JAX package's top-1/top-2 margin is at least DENSE_TOL.
+DENSE_TOL = 1.125
+DENSE_MEAN_TOL = 0.25
+# 12b, the main path: qwen3-1.7b at full width and depth, weights from a seeded
+# torch.Generator, B=4, a 1024-token prompt (two 512-token chunks: the
+# triangular pair loop), 16 greedy tokens with pad_to = 1040, then 1048;
+# prefill(x[:511]) + one decode step against prefill(x[:512]) at
+# tests/test_models.py's tolerance
+QWEN = "qwen3-1.7b"
+QWEN_MAIN = dict(batch=4, prompt=1024, steps=16, pad_to=1040, pad_more=1048, split=511,
+                 weight_seed=0, prompt_seed=1)
+TEACHER_TOL = dict(rtol=0.2, atol=0.3)
 
 
 def check(cond, msg):
@@ -1862,13 +2069,14 @@ def scan_phase():
             "library_ms": None}
 
 
-def run_dense(target):
-    """Build, run and check one Table III target, its launches counted;
-    returns (controller, seconds, counts)."""
+def run_dense(target, layer=None):
+    """Build, run and check one dense target (a Table III layer unless
+    ``layer`` is given), its launches counted; returns (controller,
+    seconds, counts)."""
     from repro_torch.core.controller import Controller
 
     name, strategy, mode, backend, rounds, sim_time, instrs, n_ops = target
-    layer = dense_layer(name)
+    layer = layer or dense_layer(name)
     cfg, states, pending, job = build_dense(layer, strategy, mode, DENSE_QUANTUM)
     ctl = Controller(cfg, states, pending, backend=backend, quantum=DENSE_QUANTUM)
     cap = ready(ctl)
@@ -2500,6 +2708,28 @@ def ssm_scan_phase():
     return [unfused, fused_row]
 
 
+def same_greedy(label, toks, want_toks, margins, tol):
+    """Greedy tokens equal to the JAX package's at every position whose JAX
+    top-1/top-2 margin is at least ``tol``; a row is not compared past a
+    position below it where they differ (its later inputs differ).
+    Returns (compared, skipped)."""
+    compared = skipped = 0
+    rows, steps = want_toks.shape
+    for r in range(rows):
+        for i in range(steps):
+            if margins[r, i] < tol:
+                skipped += 1
+                if toks[r, i] != want_toks[r, i]:  # later inputs differ: skip the row's rest
+                    skipped += steps - 1 - i
+                    break
+                continue
+            check(toks[r, i] == want_toks[r, i],
+                  f"{label}: row {r} position {i} token {toks[r, i]} != JAX "
+                  f"{want_toks[r, i]} (JAX margin {margins[r, i]})")
+            compared += 1
+    return compared, skipped
+
+
 def falcon_jax_phase():
     """falcon-mamba-7b at full width, depth 2, against the JAX package's
     numbers for the same weights and prompt (FALCON_TARGET)."""
@@ -2522,19 +2752,7 @@ def falcon_jax_phase():
           f"and carried to the card in {time.perf_counter() - t0:.1f} s", flush=True)
     toks = greedy_generate(model, params, batch, steps=spec["steps"]).cpu().numpy()
     want_toks, margins = np.array(want["tokens"]), np.array(want["margins"])
-    compared = skipped = 0
-    for r in range(spec["batch"]):
-        for i in range(spec["steps"]):
-            if margins[r, i] < FALCON_TOL:
-                skipped += 1
-                if toks[r, i] != want_toks[r, i]:  # later inputs differ: skip the row's rest
-                    skipped += spec["steps"] - 1 - i
-                    break
-                continue
-            check(toks[r, i] == want_toks[r, i],
-                  f"falcon depth 2: row {r} position {i} token {toks[r, i]} != JAX "
-                  f"{want_toks[r, i]} (JAX margin {margins[r, i]})")
-            compared += 1
+    compared, skipped = same_greedy("falcon depth 2", toks, want_toks, margins, FALCON_TOL)
     # the logits at the sample: the prefill's, and the last decode step's fed
     # the JAX package's tokens
     sample = torch.tensor(want["sample"], device="cuda")
@@ -2689,6 +2907,181 @@ def falcon_main_path():
     torch.cuda.empty_cache()
     # the kernels line counts the main path's launches: the unfused scan's 0
     return {"ssm_scan_fused": main["launches"][0], "ssm_scan": main["launches"][1]}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the dense LM family and from_arch's crossbar tiles
+
+
+def from_arch_phase():
+    """from_arch(qwen3-1.7b)'s eight tiles through the dense VP slice, each
+    fused on ``vmap`` and the first once on ``sequential``; returns the
+    ``finish_ops`` and ``slot_scan`` launches, counted on the card."""
+    from repro_torch.vp import workloads as wl
+
+    tiles, want = wl.from_arch(QWEN), DENSE_TARGET["from_arch"]
+    check([t.layer for t in tiles] == [w[0] for w in want],
+          f"from_arch tiles {[t.layer for t in tiles]}")
+    check(len({wl.layer_data(t)[2].tobytes() for t in tiles}) == 1,
+          "from_arch tiles hold different data")
+    launches, walls = {"finish_ops": 0, "slot_scan": 0}, []
+    runs = [(t, w, "vmap") for t, w in zip(tiles, want)] + [(tiles[0], want[0], "sequential")]
+    for layer, (_, rounds, sim_time, instrs, n_ops), backend in runs:
+        ctl, secs, counts = run_dense(
+            (layer.name, "uniform", "cim", backend, rounds, sim_time, instrs, n_ops), layer)
+        for k in launches:
+            launches[k] += counts[k]
+        if backend == "vmap":
+            walls.append(secs / ctl.rounds_run * 1e6)
+    print(f"from_arch({QWEN}): {len(tiles)} tiles of 256x256x8 (one job under {len(tiles)} "
+          f"names), each {want[0][1]} rounds and {want[0][2]} simulated cycles as the JAX "
+          f"package; fused wall per round {min(walls):.1f}-{max(walls):.1f} us; launches "
+          f"finish_ops {launches['finish_ops']} slot_scan {launches['slot_scan']}", flush=True)
+    return launches
+
+
+def dense_lm_jax_phase():
+    """The four dense architectures at full width, depth 2, against the JAX
+    package's numbers for the same weights and prompt (DENSE_TARGET)."""
+    import dataclasses
+
+    from repro_torch.common import init_numpy
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build, params_from_numpy
+    from repro_torch.serve.serve_step import _pad_seq, greedy_generate
+
+    spec = DENSE_JAX
+    for arch in DENSE_LM:
+        want = DENSE_TARGET[arch]
+        cfg = dataclasses.replace(get_config(arch), n_layers=spec["layers"])
+        model = build(cfg)
+        t0 = time.perf_counter()
+        params = params_from_numpy(model.specs, init_numpy(model.specs,
+                                                           seed=spec["weight_seed"]))
+        prompt = np.random.default_rng(spec["prompt_seed"]).integers(
+            0, cfg.vocab_size, (spec["batch"], spec["prompt"])).astype(np.int32)
+        batch = {"tokens": torch.from_numpy(prompt).cuda()}
+        host_s = time.perf_counter() - t0
+        toks = greedy_generate(model, params, batch, steps=spec["steps"],
+                               pad_to=spec["pad_to"]).cpu().numpy()
+        want_toks, margins = np.array(want["tokens"]), np.array(want["margins"])
+        compared, skipped = same_greedy(f"{arch} depth 2", toks, want_toks, margins, DENSE_TOL)
+        # the logits at the sample: the prefill's, and the last decode step's
+        # fed the JAX package's tokens
+        sample = torch.tensor(want["sample"], device="cuda")
+        cache, lg = model.prefill(params, batch)
+        diffs = [(lg[:, -1, sample].float().cpu() - torch.tensor(want["prefill_logits"])).abs()]
+        cache = _pad_seq(cfg, cache, spec["prompt"], spec["batch"], spec["pad_to"])
+        for i in range(spec["steps"] - 1):
+            tok = torch.from_numpy(want_toks[:, i:i + 1].astype(np.int32)).cuda()
+            lg, cache = model.decode_step(params, cache, {"tokens": tok}, spec["prompt"] + i)
+        diffs.append((lg[:, -1, sample].float().cpu() - torch.tensor(want["last_logits"])).abs())
+        errs = [float(d.max()) for d in diffs]
+        means = [float(d.mean()) for d in diffs]
+        check(bool(torch.isfinite(lg).all()), f"{arch} depth 2: non-finite logits")
+        check(max(errs) <= DENSE_TOL and max(means) <= DENSE_MEAN_TOL,
+              f"{arch} depth 2: logits off the JAX package's by {errs} at most and {means} "
+              f"on average, tolerance {DENSE_TOL} and {DENSE_MEAN_TOL}")
+        print(f"{arch} depth {spec['layers']}, B={spec['batch']}, prompt {spec['prompt']}, "
+              f"{spec['steps']} greedy steps, pad_to {spec['pad_to']}: tokens equal the JAX "
+              f"package's at {compared} positions, {skipped} skipped (JAX margin < "
+              f"{DENSE_TOL}; the smallest margin is {margins.min()}; equal at "
+              f"{int((toks == want_toks).sum())} of {toks.size} in all); logits at "
+              f"{len(want['sample'])} vocab indices off the JAX package's by at most "
+              f"{errs[0]} (prefill) and {errs[1]} (last decode step), on average {means[0]} "
+              f"and {means[1]}, tolerances {DENSE_TOL} and {DENSE_MEAN_TOL}; weights made on "
+              f"the host in {host_s:.1f} s", flush=True)
+        del params, cache, lg
+        torch.cuda.empty_cache()
+
+
+def dense_lm_main_path(card):
+    """qwen3-1.7b at full width and depth: prefill (two 512-token chunks)
+    and greedy decode into a padded KV cache; its times, peak memory and
+    profiles.  The path reaches no hand-written kernel: as in the
+    reference, where it is plain JAX, its matmuls stay bf16 torch calls."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build
+    from repro_torch.serve.serve_step import _pad_seq, greedy_generate
+
+    spec = QWEN_MAIN
+    cfg = get_config(QWEN)
+    model = build(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator("cuda").manual_seed(spec["weight_seed"]))
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for _, x in tree.leaves(params))
+    print(f"{QWEN}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params} parameters "
+          f"(float32) made on the card in {time.perf_counter() - t0:.2f} s", flush=True)
+    b, steps = spec["batch"], spec["steps"]
+    tokens = torch.randint(0, cfg.vocab_size, (b, spec["prompt"]), dtype=torch.int32,
+                           device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(spec["prompt_seed"]))
+    batch = {"tokens": tokens}
+
+    greedy_generate(model, params, batch, steps=2, pad_to=spec["pad_to"])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    toks = greedy_generate(model, params, batch, steps=steps, pad_to=spec["pad_to"])
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(toks.shape) == (b, steps) and bool(
+        ((toks >= 0) & (toks < cfg.vocab_size)).all()), f"{QWEN}: tokens {toks.shape}")
+    t0 = time.perf_counter()
+    cache, lg = model.prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    check(tuple(lg.shape) == (b, 1, cfg.vocab_size) and bool(torch.isfinite(lg).all()),
+          f"{QWEN}: prefill logits")
+    decode_s = (total_s - prefill_s) / (steps - 1)
+    print(f"{QWEN} main path: B={b}, prompt {spec['prompt']}, {steps} greedy tokens, "
+          f"pad_to {spec['pad_to']}: {total_s:.6f} s in all; prefill {1e3 * prefill_s:.3f} "
+          f"ms, decode {1e3 * decode_s:.3f} ms per token (the remainder over {steps - 1} "
+          f"steps), {b * steps / total_s:.1f} generated tokens/s; peak allocated "
+          f"{peak / 2**30:.2f} GiB ({card})", flush=True)
+
+    more = greedy_generate(model, params, batch, steps=steps, pad_to=spec["pad_more"])
+    check(torch.equal(toks, more), f"{QWEN}: tokens differ at pad_to {spec['pad_more']}")
+    # teacher forcing: prefill(x[:t]) + one decode step against prefill(x[:t+1])
+    t = spec["split"]
+    short, lg_short = model.prefill(params, {"tokens": tokens[:, :t]})
+    short = _pad_seq(cfg, short, t, b, t + 1)
+    lg_step, _ = model.decode_step(params, short, {"tokens": tokens[:, t:t + 1]}, t)
+    _, lg_full = model.prefill(params, {"tokens": tokens[:, :t + 1]})
+    got, ref = lg_step[:, 0].float(), lg_full[:, 0].float()
+    err = float((got - ref).abs().max())
+    excess = float(((got - ref).abs() - TEACHER_TOL["atol"]
+                    - TEACHER_TOL["rtol"] * ref.abs()).max())
+    check(excess <= 0, f"{QWEN}: prefill({t}) + a decode step off prefill({t + 1}) by "
+          f"{err} (past rtol {TEACHER_TOL['rtol']} / atol {TEACHER_TOL['atol']} by {excess})")
+    print(f"{QWEN}: tokens equal at pad_to {spec['pad_to']} and {spec['pad_more']}; "
+          f"prefill(x[:{t}]) + one decode step against prefill(x[:{t + 1}]): logits max "
+          f"|diff| {err} (|logits| up to {float(ref.abs().max())}), within rtol "
+          f"{TEACHER_TOL['rtol']} / atol {TEACHER_TOL['atol']}", flush=True)
+    del short, lg_short, lg_full
+
+    profile_run(f"{QWEN} prefill", lambda: (model.prefill(params, batch),
+                                             torch.cuda.synchronize()),
+                lambda: 1, "prefill", prefill_s)
+    cache = _pad_seq(cfg, cache, spec["prompt"], b, spec["pad_to"])
+    tok, pos = toks[:, :1].contiguous(), spec["prompt"]
+    profile_run(f"{QWEN} decode step", lambda: (
+        model.decode_step(params, cache, {"tokens": tok}, pos), torch.cuda.synchronize()),
+        lambda: 1, "step", decode_s)
+    model.decode_step(params, cache, {"tokens": tok}, pos)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.decode_step(params, cache, {"tokens": tok}, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"{QWEN}: one Model.decode_step ran under set_sync_debug_mode('error')", flush=True)
+    del params, cache
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -4018,6 +4411,11 @@ def main():
     rows.extend(ssm_scan_phase())
     falcon_jax_phase()
     launches.update(falcon_main_path())
+    phase("12 the dense LM family and from_arch's crossbar tiles")
+    for name, n in from_arch_phase().items():
+        launches[name] += n
+    dense_lm_jax_phase()
+    dense_lm_main_path(card)
 
     for row in rows:
         row["launches"] = launches[row["name"]]

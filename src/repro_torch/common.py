@@ -110,6 +110,10 @@ def init_numpy(spec_tree, seed: int):
     return out
 
 
+def pad_to(x: int, multiple: int) -> int:
+    return ((x + multiple - 1) // multiple) * multiple
+
+
 def _set(tree: dict, path: str, value):
     *parents, last = path.strip("/").split("/")
     for k in parents:

@@ -5,8 +5,11 @@ from repro_torch.configs.base import (
     MoEConfig,
     ShapeConfig,
     SSMConfig,
+    all_cells,
+    cells,
     get_config,
     get_smoke_config,
+    skipped_cells,
 )
 
 __all__ = [
@@ -16,6 +19,9 @@ __all__ = [
     "MoEConfig",
     "ShapeConfig",
     "SSMConfig",
+    "all_cells",
+    "cells",
     "get_config",
     "get_smoke_config",
+    "skipped_cells",
 ]

@@ -2,10 +2,11 @@
 ``repro/configs/base.py``): the same dataclasses, fields and defaults, with
 dtypes as ``torch`` dtypes.
 
-Every architecture of the JAX package is named in ``ARCH_IDS``; the ones
-whose family the port runs have a module here that registers its full and
-smoke configurations.  ``get_config`` of any other architecture raises
-``NotImplementedError``.
+Every architecture of the JAX package has a module here that registers its
+full and smoke configurations, field for field the reference's; the shape
+cells (``cells``, ``all_cells``, ``skipped_cells``) are the reference's.
+``PORTED`` names the families that ``models.model.build`` accepts; building
+any other family raises ``NotImplementedError`` naming its ROADMAP step.
 """
 from __future__ import annotations
 
@@ -101,21 +102,21 @@ SHAPES: dict[str, ShapeConfig] = {
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
 
-# arch id -> family, for every architecture of the JAX package
-FAMILIES = {
-    "qwen3-1.7b": "dense",
-    "stablelm-12b": "dense",
-    "internlm2-1.8b": "dense",
-    "granite-34b": "dense",
-    "whisper-tiny": "encdec",
-    "kimi-k2-1t-a32b": "moe",
-    "llama4-scout-17b-a16e": "moe",
-    "falcon-mamba-7b": "ssm",
-    "qwen2-vl-72b": "vlm",
-    "zamba2-2.7b": "hybrid",
-}
-ARCH_IDS = list(FAMILIES)
-PORTED = {"falcon-mamba-7b"}  # the Mamba-1 serving slice
+ARCH_IDS = [
+    "qwen3-1.7b",
+    "stablelm-12b",
+    "internlm2-1.8b",
+    "granite-34b",
+    "whisper-tiny",
+    "kimi-k2-1t-a32b",
+    "llama4-scout-17b-a16e",
+    "falcon-mamba-7b",
+    "qwen2-vl-72b",
+    "zamba2-2.7b",
+]
+# the families models.model.build accepts: the ssm family's Mamba-1 blocks
+# and the dense decoders
+PORTED = {"ssm", "dense"}
 
 _REGISTRY: dict[str, ModelConfig] = {}
 _SMOKE: dict[str, ModelConfig] = {}
@@ -128,12 +129,8 @@ def register(cfg: ModelConfig, smoke: ModelConfig) -> ModelConfig:
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch not in FAMILIES:
+    if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"{arch} ({FAMILIES[arch]} family) is not ported yet: ROADMAP "
-            "module item 13 (LM stack); the port runs the Mamba-1 ssm family")
     if arch not in _REGISTRY:
         importlib.import_module("repro_torch.configs." + arch.replace("-", "_")
                                 .replace(".", "_"))
@@ -143,3 +140,27 @@ def get_config(arch: str) -> ModelConfig:
 def get_smoke_config(arch: str) -> ModelConfig:
     get_config(arch)
     return _SMOKE[arch]
+
+
+def cells(arch: str) -> list[str]:
+    """Runnable shape cells for an arch (long_500k only for sub-quadratic)."""
+    cfg = get_config(arch)
+    out = []
+    for s in SHAPES.values():
+        if s.name == "long_500k" and not cfg.sub_quadratic:
+            continue  # quadratic full attention at 524k: documented skip
+        out.append(s.name)
+    return out
+
+
+def all_cells() -> list[tuple[str, str]]:
+    return [(a, s) for a in ARCH_IDS for s in cells(a)]
+
+
+def skipped_cells() -> list[tuple[str, str, str]]:
+    out = []
+    for a in ARCH_IDS:
+        cfg = get_config(a)
+        if not cfg.sub_quadratic:
+            out.append((a, "long_500k", "pure full attention is quadratic at 524k ctx"))
+    return out

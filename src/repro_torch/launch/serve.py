@@ -1,12 +1,13 @@
-"""Serving entry point: batched prefill + greedy decode with a state cache
-(counterpart of ``repro/launch/serve.py``, plus ``--device``).
+"""Serving entry point: batched prefill + greedy decode with a KV/state
+cache (counterpart of ``repro/launch/serve.py``, plus ``--device``).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu [--arch ARCH]
 
 Runs an arch's smoke configuration with weights and prompt tokens drawn
 from seeded ``torch.Generator``s, on ``cuda`` unless ``--device`` says
-otherwise.  The port serves falcon-mamba-7b (the Mamba-1 ssm family); the
-other archs raise ``NotImplementedError``.
+otherwise.  The port serves the dense decoders (qwen3-1.7b, the default,
+internlm2-1.8b, stablelm-12b, granite-34b) and falcon-mamba-7b (the
+Mamba-1 ssm family); the other archs raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from repro_torch.tree import resolve_device
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_IDS, default="falcon-mamba-7b")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen3-1.7b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)

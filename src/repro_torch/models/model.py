@@ -1,6 +1,8 @@
 """Model API (counterpart of ``repro/models/model.py``): ``build(cfg)`` ->
 specs + functions, the decode-cache specs, and the weight carry function.
 
+The ssm and dense families build (``configs.base.PORTED``); any other
+family raises ``NotImplementedError`` naming its ROADMAP step.
 ``params_from_numpy`` takes parameters as numpy arrays — the JAX package's
 (``jax.tree.map(np.asarray, model.init(key))``) or ``common.init_numpy``'s —
 and returns the port's tensors after checking every key, shape and dtype
@@ -73,11 +75,22 @@ def params_from_numpy(specs, tree, device=None):
     return spec_map(lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device), tree)
 
 
+def _attn_cache_cell(cfg, batch, seq, n_stack):
+    """One stacked attention cache entry (k or v): bf16 (n_stack, batch,
+    seq, Hkv, Dh).  The reference's sharding is dropped."""
+    return ShapeDtype((n_stack, batch, seq, cfg.n_kv_heads, cfg.head_dim), torch.bfloat16)
+
+
 def cache_specs(cfg: ModelConfig, shape: ShapeConfig | str):
-    """Decode-cache shapes matching ``forward``'s layout (the ssm family)."""
+    """Decode-cache shapes matching ``forward``'s layout (the ssm and dense
+    families)."""
     shape = SHAPES[shape] if isinstance(shape, str) else shape
+    b, s = shape.global_batch, shape.seq_len
+    if cfg.family == "dense":
+        k = _attn_cache_cell(cfg, b, s, cfg.n_layers)
+        return {"layers": (k, k)}
     if cfg.family != "ssm":
-        raise TF._family_missing(f"the {cfg.family} family's cache")
-    per_layer = ssm_state_shape(cfg, shape.global_batch)
+        raise TF.family_missing(cfg.family, f"the {cfg.family} family's cache")
+    per_layer = ssm_state_shape(cfg, b)
     return {"layers": spec_map(
         lambda s: ShapeDtype((cfg.n_layers,) + s.shape, s.dtype), per_layer)}

@@ -10,7 +10,7 @@ hand-written kernel for the whole prompt, with the expansion in registers
 chunk as the JAX package does.  Decode (seq = 1, state given) is the same
 call from the carried state.
 
-Mamba-2 (SSD) is not ported yet: ROADMAP module item 13.
+Mamba-2 (SSD) is not ported yet: ROADMAP module item 13b step 4.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ def _dinner(cfg):
 
 def _mamba2_missing():
     return NotImplementedError("Mamba-2 (SSD) blocks are not ported yet: ROADMAP "
-                               "module item 13 (LM stack)")
+                               "module item 13b step 4 (the hybrid family)")
 
 
 # ---------------------------------------------------------------------------

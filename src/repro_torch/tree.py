@@ -32,13 +32,25 @@ def tree_map(fn, tree, *rest):
 
 
 def leaves(tree, prefix=""):
-    """``[(path, leaf), ...]`` in sorted-key order (JAX's dict order)."""
+    """``[(path, leaf), ...]`` in JAX's flattening order: dicts by sorted
+    key, tuples by position (path element ``/i``)."""
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
             out += leaves(tree[k], f"{prefix}/{k}")
         return out
+    if isinstance(tree, tuple):
+        return [x for i, t in enumerate(tree) for x in leaves(t, f"{prefix}/{i}")]
     return [(prefix, tree)]
+
+
+def map_with_path(fn, tree, prefix=""):
+    """``fn(path, leaf)`` over every leaf, with ``leaves``' paths."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, f"{prefix}/{k}") for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(map_with_path(fn, t, f"{prefix}/{i}") for i, t in enumerate(tree))
+    return fn(prefix, tree)
 
 
 def to_numpy(tree):

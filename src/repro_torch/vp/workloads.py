@@ -13,7 +13,7 @@ Modes:
 
 The hybrid dense+spiking half: the spike driver CPU's program
 (``spike_driver_program``) and its staged event table (``spike_events``).
-``from_arch`` comes with ROADMAP module item 13.
+``from_arch`` tiles an LM architecture's FFN GEMM onto 256x256 crossbars.
 """
 from __future__ import annotations
 
@@ -315,3 +315,22 @@ def spike_driver_program(in_base, out_base, n_events, n_ticks, n_out,
         "    halt",
     ]
     return "\n".join(src)
+
+
+def from_arch(arch: str, max_tiles: int = 8):
+    """Tile an assigned LM architecture's FFN GEMM onto 256×256 crossbars —
+    the paper's benchmark methodology applied to the LM configs.  Every
+    tile is a 256x256x8 layer; ``layer_data`` draws its matrices from seed
+    0, so the tiles are one job under several names, as in the reference."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    d = cfg.d_model
+    f = cfg.d_ff or (cfg.ssm.expand * d if cfg.ssm else d)
+    tiles_r = -(-min(d, 1024) // 256)
+    tiles_c = -(-min(f, 1024) // 256)
+    layers = []
+    for r in range(min(tiles_r, max_tiles)):
+        for c in range(min(tiles_c, max_tiles // max(tiles_r, 1) or 1)):
+            layers.append(Layer(arch, f"ffn_tile_{r}_{c}", 256, 256, 8))
+    return layers[:max_tiles]

@@ -59,6 +59,7 @@ def test_port_modules_import_no_jax_and_no_reference():
     for m in ("repro_torch.core.controller", "repro_torch.faults",
               "repro_torch.models.ssm", "repro_torch.serve.serve_step",
               "repro_torch.launch.serve", "repro_torch.configs.falcon_mamba_7b",
+              "repro_torch.configs.qwen3_1_7b", "repro_torch.configs.granite_34b",
               "repro_torch.kernels.ssm_scan.ops", "repro_torch.kernels.slot_scan.ops",
               "repro_torch.obs.trace", "repro_torch.obs.metrics", "repro_torch.obs.export",
               "repro_torch.serve.snn_serve"):

@@ -2,8 +2,9 @@
 smoke configuration (2 layers, d_model 64, N 8, chunk 16) with the same
 weights (``common.init_numpy``) fed to both: the Mamba-1 block in prefill
 and decode, ``Model.prefill`` logits and cache, eight decode steps,
-``greedy_generate``; the configs, spec trees and cache specs field for
-field; the weight carry function's refusals; the unported families.
+``greedy_generate``; the configs of all ten architectures, and this one's
+spec trees and cache specs, field for field; the weight carry function's
+refusals; the families the port does not build yet.
 
 Tolerances.  Both packages run the matmuls in bf16 and keep the residual
 stream, the conv state and the logits in bf16, rounding at different
@@ -153,11 +154,12 @@ def _config_fields(cfg, dtype_name):
 
 
 @pytest.mark.parametrize("which", ["full", "smoke"])
-def test_configs_equal_jax_field_for_field(which):
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_configs_equal_jax_field_for_field(arch, which):
     get, jget = ((get_config, jax_get_config) if which == "full"
                  else (get_smoke_config, jax_get_smoke_config))
-    assert (_config_fields(get(ARCH), lambda d: str(d).removeprefix("torch."))
-            == _config_fields(jget(ARCH), lambda d: np.dtype(d).name))
+    assert (_config_fields(get(arch), lambda d: str(d).removeprefix("torch."))
+            == _config_fields(jget(arch), lambda d: np.dtype(d).name))
 
 
 @pytest.mark.parametrize("which", ["full", "smoke"])
@@ -222,25 +224,28 @@ def test_params_from_numpy_refuses_mismatch(case):
         params_from_numpy(specs, trees[case], "cpu")
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a != ARCH])
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="module item 13"):
-        get_config(arch)
-
-
 def test_unported_paths_raise():
     cfg = get_smoke_config(ARCH)
     mamba2 = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, version=2))
-    dense = dataclasses.replace(cfg, family="dense")
     for fn in (lambda: ssm.mamba2_specs(mamba2), lambda: ssm.ssm_state_shape(mamba2, 1),
-               lambda: build(mamba2), lambda: build(dense),
-               lambda: cache_specs(dense, "decode_32k"),
+               lambda: build(mamba2),
                lambda: transformer.forward(cfg, {}, {}, DTypePolicy(), mode="train")):
         with pytest.raises(NotImplementedError, match="module item 13"):
             fn()
+    # each family the port does not build names its step of ROADMAP item 13b
+    steps = {"moe": "13b step 3", "hybrid": "13b step 4", "vlm": "13b step 5",
+             "encdec": "13b step 6"}
+    for arch in ARCH_IDS:
+        other = get_smoke_config(arch)
+        if other.family not in steps:
+            continue
+        for fn in (lambda: build(other), lambda: cache_specs(other, "decode_32k"),
+                   lambda: transformer.forward(other, {}, {}, DTypePolicy(), mode="prefill")):
+            with pytest.raises(NotImplementedError, match=f"module item {steps[other.family]}"):
+                fn()
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    assert base.PORTED == {ARCH}
+    assert base.PORTED == {"ssm", "dense"}
 
 
 @pytest.mark.parametrize("norm,fast", [("rmsnorm", False), ("rmsnorm", True),
@@ -258,8 +263,9 @@ def test_apply_norm_matches_jax(norm, fast):
     _close(got, want, BF16, f"{norm} fast={fast}")
 
 
-def test_launch_serve_runs_on_the_cpu(capsys):
-    toks = launch_serve.main(["--device", "cpu", "--batch", "2", "--prompt-len", "16",
-                              "--gen", "4"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", ARCH])  # the default, and the ssm family
+def test_launch_serve_runs_on_the_cpu(capsys, arch):
+    args = ["--device", "cpu", "--batch", "2", "--prompt-len", "16", "--gen", "4"]
+    toks = launch_serve.main(args + ([] if arch == "qwen3-1.7b" else ["--arch", arch]))
     assert tuple(toks.shape) == (2, 4) and toks.device.type == "cpu"
-    assert "falcon-mamba-7b-smoke" in capsys.readouterr().out
+    assert f"{arch}-smoke" in capsys.readouterr().out
