@@ -5,8 +5,8 @@ dtypes as ``torch`` dtypes.
 Every architecture of the JAX package has a module here that registers its
 full and smoke configurations, field for field the reference's; the shape
 cells (``cells``, ``all_cells``, ``skipped_cells``) are the reference's.
-``PORTED`` names the families that ``models.model.build`` accepts; building
-any other family raises ``NotImplementedError`` naming its ROADMAP step.
+``PORTED`` names the families that ``models.model.build`` accepts and
+serves: all six of the reference's.
 """
 from __future__ import annotations
 
@@ -114,9 +114,8 @@ ARCH_IDS = [
     "qwen2-vl-72b",
     "zamba2-2.7b",
 ]
-# the families models.model.build accepts: the ssm family's Mamba-1 blocks
-# and the dense decoders
-PORTED = {"ssm", "dense"}
+# the families models.model.build accepts: all six
+PORTED = {"dense", "moe", "ssm", "hybrid", "vlm", "encdec"}
 
 _REGISTRY: dict[str, ModelConfig] = {}
 _SMOKE: dict[str, ModelConfig] = {}

@@ -5,9 +5,10 @@ cache (counterpart of ``repro/launch/serve.py``, plus ``--device``).
 
 Runs an arch's smoke configuration with weights and prompt tokens drawn
 from seeded ``torch.Generator``s, on ``cuda`` unless ``--device`` says
-otherwise.  The port serves the dense decoders (qwen3-1.7b, the default,
-internlm2-1.8b, stablelm-12b, granite-34b) and falcon-mamba-7b (the
-Mamba-1 ssm family); the other archs raise ``NotImplementedError``.
+otherwise.  Every arch serves (qwen3-1.7b is the default); a vlm batch
+adds four zero vision embeddings and text positions on all three M-RoPE
+rows, an encdec batch zero frame embeddings as long as the prompt, as
+the reference's launcher does.
 """
 from __future__ import annotations
 
@@ -39,6 +40,14 @@ def main(argv=None):
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=torch.Generator().manual_seed(42), dtype=torch.int32)
     batch = {"tokens": tokens.to(device)}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = torch.zeros((args.batch, 4, cfg.d_model), dtype=torch.bfloat16,
+                                             device=device)
+        batch["mrope_pos"] = torch.arange(args.prompt_len, dtype=torch.int32,
+                                          device=device).expand(3, args.batch, -1)
+    if cfg.family == "encdec":
+        batch["enc_feats"] = torch.zeros((args.batch, args.prompt_len, cfg.d_model),
+                                         dtype=torch.bfloat16, device=device)
     t0 = time.time()
     toks = greedy_generate(model, params, batch, steps=args.gen,
                            pad_to=args.prompt_len + args.gen)

@@ -1,0 +1,138 @@
+"""Whisper-style encoder-decoder backbone (counterpart of
+``repro/models/encdec.py``).
+
+The audio conv frontend is a stub, as in the reference: the batch carries
+precomputed frame embeddings ``enc_feats (B, S_enc, d_model)``.  The
+encoder adds fixed sinusoidal positions and runs bidirectional attention;
+the decoder adds learned positions and runs causal self-attention and
+cross-attention to the encoded memory, whose K/V are computed once at
+prefill and cached beside the self-attention cache.  The reference's
+sequence sharding of the encoder is dropped (one card).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch import tree as T
+from repro_torch.common import ParamSpec
+from repro_torch.models import layers as L
+from repro_torch.models.transformer import (_grouped_decode_attention, _layer, attn_apply,
+                                            residual, stack_specs)
+
+MAX_DEC_POS = 32768  # decode_32k needs 32k learned decoder positions
+
+
+def _enc_layer_specs(cfg):
+    return {
+        "ln1": L.norm_specs(cfg),
+        "attn": L.attn_specs(cfg),
+        "ln2": L.norm_specs(cfg),
+        "mlp": L.mlp_specs(cfg),
+    }
+
+
+def _dec_layer_specs(cfg):
+    return {
+        "ln1": L.norm_specs(cfg),
+        "attn": L.attn_specs(cfg),
+        "ln_x": L.norm_specs(cfg),
+        "xattn": L.attn_specs(cfg),
+        "ln2": L.norm_specs(cfg),
+        "mlp": L.mlp_specs(cfg),
+    }
+
+
+def encdec_specs(cfg):
+    return {
+        "embed": L.embed_specs(cfg),
+        "dec_pos": ParamSpec((MAX_DEC_POS, cfg.d_model), cfg.params_dtype, init="small"),
+        "enc_layers": stack_specs(_enc_layer_specs(cfg), cfg.n_enc_layers),
+        "enc_norm": L.norm_specs(cfg),
+        "dec_layers": stack_specs(_dec_layer_specs(cfg), cfg.n_layers),
+        "final_norm": L.norm_specs(cfg),
+    }
+
+
+def _bidir_attn(cfg, p, x, policy, x_kv=None):
+    q, k, v = L.qkv_project(cfg, p, x, policy, angles=None, x_kv=x_kv)
+    o = L.dense_attention(q, L.expand_kv(k, cfg.n_heads), L.expand_kv(v, cfg.n_heads),
+                          causal=False)
+    return L.attn_out(p, o, policy)
+
+
+def enc_layer(cfg, lp, x, policy):
+    """One encoder layer: pre-norm bidirectional attention and MLP, each
+    added to the residual stream; ``ln2`` reads the first sum in float32
+    (``transformer.residual``)."""
+    a = _bidir_attn(cfg, lp["attn"], L.apply_norm(cfg, lp["ln1"], x), policy)
+    x, xf = residual(x, a)
+    return x + L.apply_mlp(cfg, lp["mlp"], L.apply_norm(cfg, lp["ln2"], xf).to(x.dtype), policy)
+
+
+def encoder_input(cfg, enc_feats, policy):
+    """The frame embeddings in the compute dtype plus the sinusoidal
+    positions."""
+    h = enc_feats.to(policy.compute)
+    return h + L.sinusoidal_positions(h.shape[1], cfg.d_model, h.device).to(h.dtype)[None]
+
+
+def encode(cfg, params, enc_feats, policy):
+    """enc_feats (B, S_enc, d) -> memory (B, S_enc, d)."""
+    h = encoder_input(cfg, enc_feats, policy)
+    for i in range(cfg.n_enc_layers):
+        h = enc_layer(cfg, _layer(params["enc_layers"], i), h, policy)
+    return L.apply_norm(cfg, params["enc_norm"], h)
+
+
+def cross_kv(cfg, params, memory, policy):
+    """Each decoder layer's cross K/V of the encoder memory, stacked:
+    (k, v), each (L_dec, B, S_enc, Hkv, Dh) — part of the cache."""
+    cdt = policy.compute
+    m = memory.to(cdt)
+    xattn = params["dec_layers"]["xattn"]
+    ks = [torch.einsum("bsd,dhk->bshk", m, xattn["wk"][i].to(cdt)) for i in range(cfg.n_layers)]
+    vs = [torch.einsum("bsd,dhk->bshk", m, xattn["wv"][i].to(cdt)) for i in range(cfg.n_layers)]
+    return torch.stack(ks), torch.stack(vs)
+
+
+def _dec_layer(cfg, lp, x, policy, *, mode, cache, xkv, pos):
+    a, self_c = attn_apply(cfg, lp, L.apply_norm(cfg, lp["ln1"], x), policy,
+                           mode=mode, angles=None, cache=cache, pos=pos)
+    x, xf = residual(x, a)
+    # cross attention against the fixed memory K/V
+    cdt = policy.compute
+    xq = L.apply_norm(cfg, lp["ln_x"], xf).to(x.dtype)
+    q = torch.einsum("bsd,dhk->bshk", xq.to(cdt), lp["xattn"]["wq"].to(cdt))
+    xk, xv = xkv
+    if q.shape[1] == 1:
+        o = _grouped_decode_attention(q, xk, xv, xk.shape[1])
+    else:
+        o = L.dense_attention(q, L.expand_kv(xk, cfg.n_heads), L.expand_kv(xv, cfg.n_heads),
+                              causal=False)
+    x, xf = residual(x, L.attn_out(lp["xattn"], o, policy))
+    x = x + L.apply_mlp(cfg, lp["mlp"], L.apply_norm(cfg, lp["ln2"], xf).to(x.dtype), policy)
+    return x, self_c
+
+
+def decode_forward(cfg, params, tokens, policy, *, mode, cache=None, xkv=None, pos=0):
+    """The decoder stack. tokens (B, S_dec); mode prefill|decode.  ``cache``
+    is the stacked self-attention (k, v) for decode, ``xkv`` the stacked
+    cross (k, v).  Returns (hidden, the self-attention cache)."""
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(f"mode {mode!r} (training, train/*) is not ported yet: "
+                                  "ROADMAP module item 13c")
+    s = tokens.shape[1]
+    h = L.embed(params["embed"], tokens, policy) * L.as_constant(math.sqrt(cfg.d_model),
+                                                                 policy.compute)
+    # the reference's dynamic_slice clamps its start so the slice fits
+    start = min(pos if mode == "decode" else 0, MAX_DEC_POS - s)
+    h = h + params["dec_pos"][start:start + s].to(h.dtype)[None]
+    outs = []
+    for i in range(cfg.n_layers):
+        c = _layer(cache, i) if mode == "decode" else None
+        h, c_out = _dec_layer(cfg, _layer(params["dec_layers"], i), h, policy, mode=mode,
+                              cache=c, xkv=_layer(xkv, i), pos=pos)
+        outs.append(c_out)
+    return L.apply_norm(cfg, params["final_norm"], h), T.stack(outs)

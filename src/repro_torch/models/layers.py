@@ -1,4 +1,4 @@
-"""Model building blocks of the ssm and dense families: norms, RoPE, GQA
+"""Model building blocks: norms, RoPE and M-RoPE, sinusoidal positions, GQA
 attention, the MLP, embeddings, logits (counterpart of the same functions
 in ``repro/models/layers.py``).
 
@@ -14,8 +14,8 @@ multiply.  ``torch.nn.functional.scaled_dot_product_attention`` rounds at
 none of these places, so attention is written out as the reference's.
 
 The specs are the reference's at tp = 1 (one card): no head padding, no
-sharding.  M-RoPE, sinusoidal positions and the training flash attention
-are not ported (ROADMAP module item 13b steps 5-6, 13c).
+sharding.  The training path (``flash_attention_train``, ``cross_entropy``)
+is ROADMAP module item 13c.
 """
 from __future__ import annotations
 
@@ -64,15 +64,32 @@ def rms_head_norm(x, scale, eps=1e-6):
 # rotary embeddings
 
 
-def rope_angles(positions, head_dim, theta):
-    """positions (..., S) int -> angles (..., S, head_dim//2) float32.  The
-    frequencies are float32 powers rounded correctly (from float64), as
-    XLA's float32 ``pow`` gives them; torch's float32 ``pow`` is an ulp off
-    for some."""
+def _inv_freq(head_dim, theta, device):
+    """RoPE's frequencies ``theta ** (-i / half)``: float32 powers rounded
+    correctly (from float64), as XLA's float32 ``pow`` gives them; torch's
+    float32 ``pow`` is an ulp off for some."""
     half = head_dim // 2
-    expo = -torch.arange(0, half, dtype=_F32, device=positions.device) / half
-    inv = (theta ** expo.to(torch.float64)).to(_F32)
-    return positions[..., None].to(_F32) * inv
+    expo = -torch.arange(0, half, dtype=_F32, device=device) / half
+    return (theta ** expo.to(torch.float64)).to(_F32)
+
+
+def rope_angles(positions, head_dim, theta):
+    """positions (..., S) int -> angles (..., S, head_dim//2) float32."""
+    return positions[..., None].to(_F32) * _inv_freq(head_dim, theta, positions.device)
+
+
+def mrope_angles(positions3, head_dim, theta, sections):
+    """M-RoPE (Qwen2-VL): positions3 (3, B, S) -> angles (B, S, head_dim//2),
+    the frequency axis split into ``sections``, section i rotated by the
+    positions of row i (time, height, width)."""
+    half = head_dim // 2
+    assert sum(sections) == half, (sections, half)
+    ang = positions3[..., None].to(_F32) * _inv_freq(head_dim, theta, positions3.device)
+    parts, off = [], 0
+    for i, sec in enumerate(sections):
+        parts.append(ang[i, ..., off:off + sec])
+        off += sec
+    return torch.cat(parts, dim=-1)
 
 
 def apply_rope(x, angles):
@@ -82,6 +99,16 @@ def apply_rope(x, angles):
     cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
     sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def sinusoidal_positions(seq, d_model, device=None):
+    """Whisper-style fixed sinusoidal embeddings (seq, d_model) float32: the
+    reference's ``exp``, product, ``sin`` and ``cos`` in float32."""
+    half = d_model // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(half, dtype=_F32, device=device)
+                     / (half - 1))
+    ang = torch.arange(seq, dtype=_F32, device=device)[:, None] * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -124,15 +151,15 @@ def mask_pad_heads(cfg, o):
     return o * mask[None, None, :, None]
 
 
-def qkv_project(cfg, p, x, policy, angles=None):
-    """Self-attention's q (B,S,Hq,Dh) and k/v (B,S,Hkv,Dh); qk-norm before
-    RoPE.  (The reference's cross-attention form, ``x_kv``, comes with the
-    encdec family.)"""
+def qkv_project(cfg, p, x, policy, angles=None, x_kv=None):
+    """q (B,Sq,Hq,Dh) from x and k/v (B,Skv,Hkv,Dh) from ``x_kv`` (x itself
+    unless given); qk-norm before RoPE."""
     cdt = policy.compute
-    x = x.to(cdt)
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cdt))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(cdt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(cdt))
+    xq = x.to(cdt)
+    xkv = (x if x_kv is None else x_kv).to(cdt)
+    q = torch.einsum("bsd,dhk->bshk", xq, p["wq"].to(cdt))
+    k = torch.einsum("bsd,dhk->bshk", xkv, p["wk"].to(cdt))
+    v = torch.einsum("bsd,dhk->bshk", xkv, p["wv"].to(cdt))
     if cfg.qk_norm:
         q = rms_head_norm(q, p["q_norm"])
         k = rms_head_norm(k, p["k_norm"])
@@ -215,8 +242,8 @@ def flash_prefill_attention(q, k, v, *, chunk_q=512, chunk_k=512):
 # MLP
 
 
-def mlp_specs(cfg):
-    d, f, dtype = cfg.d_model, cfg.d_ff, cfg.params_dtype
+def mlp_specs(cfg, d_ff=None):
+    d, f, dtype = cfg.d_model, d_ff or cfg.d_ff, cfg.params_dtype
     s = {"w_in": ParamSpec((d, f), dtype), "w_out": ParamSpec((f, d), dtype)}
     if cfg.act == "swiglu":
         s["w_gate"] = ParamSpec((d, f), dtype)
@@ -230,11 +257,16 @@ def as_constant(v: float, dtype) -> float:
     return float(torch.tensor(v, dtype=dtype))
 
 
+def logistic(x):
+    """``jax.nn.sigmoid`` as the reference computes it: ``1 / (1 + exp(-x))``,
+    every op rounded to x's dtype."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
 def silu(x):
     """``jax.nn.silu`` as the reference computes it: ``x * logistic(x)``,
-    the logistic expanded to ``1 / (1 + exp(-x))``, every op rounded to x's
-    dtype (``F.silu`` rounds once)."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    every op rounded to x's dtype (``F.silu`` rounds once)."""
+    return x * logistic(x)
 
 
 def gelu(x):

@@ -1,4 +1,5 @@
-"""State-space blocks: Mamba-1 (counterpart of ``repro/models/ssm.py``).
+"""State-space blocks: Mamba-1 and Mamba-2 (counterpart of
+``repro/models/ssm.py``).
 
 The JAX package expands the decay ``da = exp(dt * A)`` and drive
 ``dbx = dt * x * B`` to transient (B, chunk, d_inner, N) tiles chunk by
@@ -10,7 +11,10 @@ hand-written kernel for the whole prompt, with the expansion in registers
 chunk as the JAX package does.  Decode (seq = 1, state given) is the same
 call from the carried state.
 
-Mamba-2 (SSD) is not ported yet: ROADMAP module item 13b step 4.
+Mamba-2 (SSD, the hybrid family's blocks) is the reference's chunked form
+in float32 torch ops: per chunk the (B, i, j, H) decay matrix, the
+intra-chunk product and the carried state's contribution, chunks in
+order; the reference computes it in plain JAX (no Pallas kernel).
 """
 from __future__ import annotations
 
@@ -19,17 +23,13 @@ import torch.nn.functional as F
 
 from repro_torch.common import DTypePolicy, ParamSpec, ShapeDtype
 from repro_torch.kernels.ssm_scan import ops as scan_ops
+from repro_torch.models import layers as L
 
 _F32 = torch.float32
 
 
 def _dinner(cfg):
     return cfg.ssm.expand * cfg.d_model
-
-
-def _mamba2_missing():
-    return NotImplementedError("Mamba-2 (SSD) blocks are not ported yet: ROADMAP "
-                               "module item 13b step 4 (the hybrid family)")
 
 
 # ---------------------------------------------------------------------------
@@ -105,15 +105,91 @@ def mamba1_block(cfg, p, x, policy: DTypePolicy, state=None):
 
 
 # ---------------------------------------------------------------------------
-# Mamba-2 (SSD): not ported
+# Mamba-2 (SSD)
 
 
 def mamba2_specs(cfg):
-    raise _mamba2_missing()
+    s = cfg.ssm
+    d, din, n = cfg.d_model, _dinner(cfg), s.d_state
+    nh = din // s.head_dim
+    dt = cfg.params_dtype
+    return {
+        "in_proj": ParamSpec((d, 2 * din), dt),
+        "bcdt_proj": ParamSpec((d, 2 * n + nh), dt),
+        "conv_x_w": ParamSpec((s.d_conv, din), dt, init="small"),
+        "conv_x_b": ParamSpec((din,), _F32, init="zeros"),
+        "conv_bc_w": ParamSpec((s.d_conv, 2 * n), dt, init="small"),
+        "conv_bc_b": ParamSpec((2 * n,), _F32, init="zeros"),
+        "a_log": ParamSpec((nh,), _F32, init="ones"),
+        "dt_bias": ParamSpec((nh,), _F32, init="zeros"),
+        "d_skip": ParamSpec((nh,), _F32, init="ones"),
+        "norm_scale": ParamSpec((din,), _F32, init="ones"),
+        "out_proj": ParamSpec((din, d), dt),
+    }
 
 
-def mamba2_block(cfg, p, x, policy, state=None):
-    raise _mamba2_missing()
+def _ssd_core(cfg, xh, bmat, cmat, dt, a_log, h0):
+    """Chunked SSD, chunk by chunk as the reference's ``lax.scan``.  xh
+    (B,S,H,P), bmat/cmat (B,S,N), dt (B,S,H), h0 (B,H,N,P), all float32.
+    Returns y (B,S,H,P) and the last state."""
+    b, seq, nh, pd = xh.shape
+    chunk = min(cfg.ssm.chunk, seq)
+    assert seq % chunk == 0
+    la = -torch.exp(a_log) * dt  # (B,S,H) log decay per step (negative)
+    ii = torch.arange(chunk, device=xh.device)
+    causal = (ii[:, None] >= ii[None, :])[None, :, :, None]
+    h, ys = h0, []
+    for c in range(seq // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        xc, bc, cc, dtc = xh[:, sl], bmat[:, sl], cmat[:, sl], dt[:, sl]
+        cs = torch.cumsum(la[:, sl], dim=1)  # (B,c,H) cumulative log decay
+        # intra-chunk: Y[i] = sum_{j<=i} C_i.B_j dt_j exp(cs_i - cs_j) x_j
+        decay = cs[:, :, None, :] - cs[:, None, :, :]  # (B,i,j,H)
+        gate = torch.where(causal, torch.exp(decay), 0.0)
+        scores = torch.einsum("bin,bjn->bij", cc, bc)[..., None] * gate
+        y = torch.einsum("bijh,bjh,bjhp->bihp", scores, dtc, xc)
+        # inter-chunk: the carried state's contribution
+        y = y + torch.einsum("bin,bih,bhnp->bihp", cc, torch.exp(cs), h)
+        dec_end = torch.exp(cs[:, -1:, :] - cs)  # (B,c,H)
+        st = torch.einsum("bjn,bjh,bjhp->bhnp", bc, dtc * dec_end, xc)
+        h = torch.exp(cs[:, -1])[:, :, None, None] * h + st
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
+
+
+def mamba2_block(cfg, p, x, policy: DTypePolicy, state=None):
+    """Full block. state = None (prefill, zero carries) or the decode carry
+    ``{"conv_x", "conv_bc", "ssm"}``."""
+    s = cfg.ssm
+    cdt = policy.compute
+    b, seq, _ = x.shape
+    din, n = _dinner(cfg), s.d_state
+    nh, pd = din // s.head_dim, s.head_dim
+    xz = x.to(cdt) @ p["in_proj"].to(cdt)
+    xin, z = torch.split(xz, [din, din], dim=-1)
+    bcdt = x.to(cdt) @ p["bcdt_proj"].to(cdt)
+    bc, dt_in = bcdt[..., :2 * n], bcdt[..., 2 * n:]
+    xin, new_conv_x = _causal_conv(xin, p["conv_x_w"].to(cdt), p["conv_x_b"],
+                                   None if state is None else state["conv_x"])
+    bc, new_conv_bc = _causal_conv(bc, p["conv_bc_w"].to(cdt), p["conv_bc_b"],
+                                   None if state is None else state["conv_bc"])
+    # silu(xin) meets only its float32 cast: XLA drops the product's
+    # rounding to bf16 there (the logistic is still rounded per op)
+    xh = (xin.to(_F32) * L.logistic(xin).to(_F32)).reshape(b, seq, nh, pd)
+    bc = L.silu(bc)
+    bmat, cmat = torch.split(bc, [n, n], dim=-1)
+    dt = F.softplus(dt_in.to(_F32) + p["dt_bias"])  # (B,S,H)
+    h0 = (torch.zeros((b, nh, n, pd), dtype=_F32, device=x.device)
+          if state is None else state["ssm"])
+    y, h_last = _ssd_core(cfg, xh, bmat.to(_F32), cmat.to(_F32), dt, p["a_log"], h0)
+    y = y + xh * (dt * p["d_skip"])[..., None]  # dt-scaled skip (Mamba-2's D term)
+    y = y.reshape(b, seq, din)
+    # gated RMSNorm, then the out-projection
+    yz = y * L.silu(z.to(_F32))
+    var = (yz * yz).mean(-1, keepdim=True)
+    yz = yz * torch.rsqrt(var + 1e-6) * p["norm_scale"]
+    out = yz.to(cdt) @ p["out_proj"].to(cdt)
+    return out, {"conv_x": new_conv_x, "conv_bc": new_conv_bc, "ssm": h_last}
 
 
 def ssm_block(cfg, p, x, policy, state=None):
@@ -125,10 +201,14 @@ def ssm_block(cfg, p, x, policy, state=None):
 def ssm_state_shape(cfg, batch: int):
     """Decode-state shapes and dtypes for one layer."""
     s = cfg.ssm
-    if s.version != 1:
-        raise _mamba2_missing()
     din = _dinner(cfg)
+    if s.version == 1:
+        return {
+            "conv": ShapeDtype((batch, s.d_conv - 1, din), torch.bfloat16),
+            "ssm": ShapeDtype((batch, din, s.d_state), _F32),
+        }
     return {
-        "conv": ShapeDtype((batch, s.d_conv - 1, din), torch.bfloat16),
-        "ssm": ShapeDtype((batch, din, s.d_state), _F32),
+        "conv_x": ShapeDtype((batch, s.d_conv - 1, din), torch.bfloat16),
+        "conv_bc": ShapeDtype((batch, s.d_conv - 1, 2 * s.d_state), torch.bfloat16),
+        "ssm": ShapeDtype((batch, din // s.head_dim, s.d_state, s.head_dim), _F32),
     }

@@ -1,16 +1,23 @@
-"""Decoder-only LM assembly, the ssm and dense families (counterpart of
-``repro/models/transformer.py``).
+"""Decoder-only LM assembly: the dense, moe, ssm, hybrid and vlm families
+(counterpart of ``repro/models/transformer.py``).
 
 Parameters keep the JAX package's stacked layout (a leading layer axis on
 every leaf of ``params["layers"]``), and ``forward`` walks that axis with a
-Python loop where the JAX code runs ``lax.scan``.  The cache is stacked the
-same way:
-  ssm:   ``{"layers": {"conv": (L, B, K-1, d_inner), "ssm": (L, B, d_inner, N)}}``
-  dense: ``{"layers": (k, v)}``, each (L, B, S, Hkv, Dh) bf16.
+Python loop where the JAX code runs ``lax.scan``:
+  - moe: ``first_k_dense`` dense layers (``params["dense_layers"]``), then
+    the MoE layers;
+  - hybrid: groups of (the one shared attention block, then ``attn_every``
+    Mamba-2 layers), ``params["layers"]`` stacked (G, attn_every);
+  - vlm: dense layers, the vision embeddings merged at the leading
+    positions and M-RoPE angles when the batch has ``mrope_pos``.
+The cache is stacked the same way:
+  ssm:       ``{"layers": {"conv": (L, B, K-1, d_inner), "ssm": (L, B, d_inner, N)}}``
+  dense/vlm: ``{"layers": (k, v)}``, each (L, B, S, Hkv, Dh) bf16
+  moe:       ``{"dense_layers": (k, v), "layers": (k, v)}``
+  hybrid:    ``{"groups": {"attn": (k, v), "ssm": state}}``, (G, ...) / (G, E, ...)
 Modes ``prefill`` (chunked flash attention, returns the KV entries) and
 ``decode`` (grouped-query attention against the cache).  Training is
-ROADMAP module item 13c; the moe, hybrid and vlm families are item 13b's
-steps 3-5.
+ROADMAP module item 13c.
 """
 from __future__ import annotations
 
@@ -20,23 +27,11 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.common import ParamSpec, spec_map
-from repro_torch.configs.base import PORTED
 from repro_torch.models import layers as L
-from repro_torch.models.ssm import mamba1_specs, mamba2_specs, ssm_block
+from repro_torch.models.moe import apply_moe, moe_specs
+from repro_torch.models.ssm import mamba1_specs, mamba2_specs, ssm_block, ssm_state_shape
 
 _F32 = torch.float32
-# the ROADMAP step that brings each family the port does not build
-FAMILY_STEPS = {"moe": "13b step 3 (models/moe.py)",
-                "hybrid": "13b step 4 (Mamba-2/SSD)",
-                "vlm": "13b step 5 (M-RoPE)",
-                "encdec": "13b step 6 (models/encdec.py)"}
-
-
-def family_missing(family, what=None):
-    step = FAMILY_STEPS.get(family, "13b")
-    return NotImplementedError(f"{what or f'the {family} family'} is not ported yet: "
-                               f"ROADMAP module item {step}; the port runs the ssm "
-                               "(Mamba-1) and dense families' prefill and decode")
 
 
 def stack_specs(tree, n: int):
@@ -44,12 +39,25 @@ def stack_specs(tree, n: int):
     return spec_map(lambda s: ParamSpec((n,) + s.shape, s.dtype, init=s.init), tree)
 
 
-def _dense_layer_specs(cfg):
+def _attn_block_specs(cfg):
+    return {"ln": L.norm_specs(cfg), "attn": L.attn_specs(cfg)}
+
+
+def _dense_layer_specs(cfg, d_ff=None):
     return {
         "ln1": L.norm_specs(cfg),
         "attn": L.attn_specs(cfg),
         "ln2": L.norm_specs(cfg),
-        "mlp": L.mlp_specs(cfg),
+        "mlp": L.mlp_specs(cfg, d_ff=d_ff),
+    }
+
+
+def _moe_layer_specs(cfg):
+    return {
+        "ln1": L.norm_specs(cfg),
+        "attn": L.attn_specs(cfg),
+        "ln2": L.norm_specs(cfg),
+        "moe": moe_specs(cfg),
     }
 
 
@@ -58,15 +66,30 @@ def _ssm_layer_specs(cfg):
     return {"ln": L.norm_specs(cfg), "ssm": sfn(cfg)}
 
 
+def n_groups(cfg):
+    return cfg.n_layers // cfg.attn_every
+
+
 def decoder_specs(cfg):
-    if cfg.family not in PORTED:
-        raise family_missing(cfg.family)
     s = {"embed": L.embed_specs(cfg), "final_norm": L.norm_specs(cfg)}
     s.update(L.logits_specs(cfg))  # adds "w" unless tied
-    if cfg.family == "dense":
+    fam = cfg.family
+    if fam in ("dense", "vlm"):
         s["layers"] = stack_specs(_dense_layer_specs(cfg), cfg.n_layers)
-    else:
+    elif fam == "moe":
+        m = cfg.moe
+        if m.first_k_dense:
+            s["dense_layers"] = stack_specs(_dense_layer_specs(cfg, d_ff=m.d_ff_dense),
+                                            m.first_k_dense)
+        s["layers"] = stack_specs(_moe_layer_specs(cfg), cfg.n_layers - m.first_k_dense)
+    elif fam == "ssm":
         s["layers"] = stack_specs(_ssm_layer_specs(cfg), cfg.n_layers)
+    elif fam == "hybrid":
+        s["shared_attn"] = _attn_block_specs(cfg)
+        s["layers"] = stack_specs(stack_specs(_ssm_layer_specs(cfg), cfg.attn_every),
+                                  n_groups(cfg))
+    else:
+        raise ValueError(fam)
     return s
 
 
@@ -113,19 +136,34 @@ def attn_apply(cfg, p, x, policy, *, mode, angles, cache=None, pos=None):
     raise ValueError(mode)
 
 
-def dense_layer(cfg, p, x, policy, *, mode, angles, cache=None, pos=None):
-    """Pre-norm attention and MLP, each added to the residual stream.
+def residual(x, a):
+    """The residual add ``x + a`` as the reference's next norm reads it:
+    returns the sum rounded to x's dtype and the float32 sum.  XLA fuses the
+    bf16 add into the following norm's float32 reduction and drops the
+    round trip through bf16 there, while the next residual add reads the
+    rounded sum."""
+    h = x.to(_F32) + a.to(_F32)
+    return h.to(x.dtype), h
 
-    ``ln2`` reads the first residual sum in float32, before its rounding to
-    the stream's dtype, as the reference computes it: XLA fuses the bf16
-    add into the norm's float32 reduction and drops the round trip through
-    bf16 there, while the second residual add reads the rounded sum."""
+
+def dense_layer(cfg, p, x, policy, *, mode, angles, cache=None, pos=None):
+    """Pre-norm attention and MLP, each added to the residual stream;
+    ``ln2`` reads the first sum in float32 (``residual``)."""
     a, new_cache = attn_apply(cfg, p, L.apply_norm(cfg, p["ln1"], x), policy,
                               mode=mode, angles=angles, cache=cache, pos=pos)
-    h = x.to(_F32) + a.to(_F32)
-    x = h.to(x.dtype)
+    x, h = residual(x, a)
     y = L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], h).to(x.dtype), policy)
     return x + y, new_cache
+
+
+def moe_layer(cfg, p, x, policy, *, mode, angles, cache=None, pos=None):
+    """``dense_layer`` with the MoE block in the MLP's place.  Returns (x,
+    new_cache, aux)."""
+    a, new_cache = attn_apply(cfg, p, L.apply_norm(cfg, p["ln1"], x), policy,
+                              mode=mode, angles=angles, cache=cache, pos=pos)
+    x, h = residual(x, a)
+    y, aux = apply_moe(cfg, p["moe"], L.apply_norm(cfg, p["ln2"], h).to(x.dtype), policy)
+    return x + y, new_cache, aux
 
 
 def ssm_layer(cfg, p, x, policy, state=None):
@@ -142,10 +180,14 @@ def _embed_and_angles(cfg, params, batch, policy, mode, pos):
     tokens = batch["tokens"]
     h = L.embed(params["embed"], tokens, policy) * L.as_constant(math.sqrt(cfg.d_model),
                                                                  policy.compute)
+    if cfg.family == "vlm" and "vision_embeds" in batch and mode != "decode":
+        nv = batch["vision_embeds"].shape[1]
+        h = torch.cat([batch["vision_embeds"].to(h.dtype), h[:, nv:]], dim=1)
     if cfg.attn_free:
         return h, None
-    if cfg.mrope:
-        raise family_missing("vlm", "M-RoPE angles")
+    if cfg.mrope and "mrope_pos" in batch:
+        return h, L.mrope_angles(batch["mrope_pos"], cfg.head_dim, cfg.rope_theta,
+                                 cfg.mrope_sections)
     b, s = tokens.shape
     if mode == "decode":
         positions = torch.full((b, 1), pos, dtype=torch.int32, device=tokens.device)
@@ -154,29 +196,86 @@ def _embed_and_angles(cfg, params, batch, policy, mode, pos):
     return h, L.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
 
 
+def _layer(tree, i):
+    return T.tree_map(lambda x: x[i], tree)
+
+
 def forward(cfg, params, batch, policy, *, mode, cache=None, pos=None):
-    """Core forward.  Returns (hidden, new_cache, aux_loss).  For decode,
+    """Core forward.  Returns (hidden, new_cache, aux_loss): aux sums the MoE
+    layers' load-balance losses (zero for the other families).  For decode,
     ``cache`` is the stacked cache of the layout above and ``pos`` the
     position written (an int)."""
-    if cfg.family not in PORTED:
-        raise family_missing(cfg.family)
     if mode not in ("prefill", "decode"):
         raise NotImplementedError(f"mode {mode!r} (training, train/*) is not ported yet: "
                                   "ROADMAP module item 13c")
     h, angles = _embed_and_angles(cfg, params, batch, policy, mode, pos)
-    outs = []
-    for i in range(cfg.n_layers):
-        lp = T.tree_map(lambda x: x[i], params["layers"])
-        c = None if cache is None else T.tree_map(lambda x: x[i], cache["layers"])
-        if cfg.family == "dense":
-            h, c_out = dense_layer(cfg, lp, h, policy, mode=mode, angles=angles,
-                                   cache=c if mode == "decode" else None,
-                                   pos=0 if mode == "prefill" else pos)
-        else:
-            h, c_out = ssm_layer(cfg, lp, h, policy, state=c)
-        outs.append(c_out)
     aux = torch.zeros((), dtype=_F32, device=h.device)
-    return _finish(cfg, params, h), {"layers": T.stack(outs)}, aux
+    decode = mode == "decode"
+    kw = dict(mode=mode, angles=angles, pos=pos if decode else 0)
+    fam = cfg.family
+    new_cache = {}
+    if fam in ("dense", "vlm", "moe"):
+        stacks = ["layers"]
+        if fam == "moe" and cfg.moe.first_k_dense:
+            stacks = ["dense_layers", "layers"]
+        for name in stacks:
+            outs = []
+            for i in range(params[name]["ln1"]["scale"].shape[0]):
+                c = _layer(cache[name], i) if decode else None
+                if fam == "moe" and name == "layers":
+                    h, c_out, a = moe_layer(cfg, _layer(params[name], i), h, policy, cache=c,
+                                            **kw)
+                    aux = aux + a
+                else:
+                    h, c_out = dense_layer(cfg, _layer(params[name], i), h, policy, cache=c,
+                                           **kw)
+                outs.append(c_out)
+            new_cache[name] = T.stack(outs)
+    elif fam == "ssm":
+        outs = []
+        for i in range(cfg.n_layers):
+            c = None if cache is None else _layer(cache["layers"], i)
+            h, c_out = ssm_layer(cfg, _layer(params["layers"], i), h, policy, state=c)
+            outs.append(c_out)
+        new_cache["layers"] = T.stack(outs)
+    elif fam == "hybrid":
+        h, new_cache["groups"] = _hybrid_groups(cfg, params, h, policy, cache, kw)
+    else:
+        raise ValueError(fam)
+    return _finish(cfg, params, h), new_cache, aux
+
+
+def _hybrid_groups(cfg, params, h, policy, cache, kw):
+    """The hybrid walk: before each group of ``attn_every`` Mamba-2 layers
+    the one shared attention block, its KV cache per group.  Prefill starts
+    the Mamba-2 layers from zero states, as the reference does."""
+    shared = params["shared_attn"]
+    if cache is not None:
+        gc_in = cache["groups"]
+    else:
+        gc_in = {"attn": None, "ssm": _zero_ssm_states(cfg, h.shape[0], n_groups(cfg),
+                                                       inner=cfg.attn_every,
+                                                       device=h.device)}
+    outs = []
+    for g in range(n_groups(cfg)):
+        gp = _layer(params["layers"], g)
+        attn_c = None if gc_in["attn"] is None else _layer(gc_in["attn"], g)
+        a, attn_c = attn_apply(cfg, shared, L.apply_norm(cfg, shared["ln"], h), policy,
+                               cache=attn_c, **kw)
+        h = h + a
+        states = []
+        for j in range(cfg.attn_every):
+            h, st = ssm_layer(cfg, _layer(gp, j), h, policy,
+                              state=_layer(_layer(gc_in["ssm"], g), j))
+            states.append(st)
+        outs.append({"attn": attn_c, "ssm": T.stack(states)})
+    return h, T.stack(outs)
+
+
+def _zero_ssm_states(cfg, batch, n, inner=None, device=None):
+    lead = (n,) if inner is None else (n, inner)
+    return {k: torch.zeros(lead + s.shape, dtype=s.dtype, device=device)
+            for k, s in ssm_state_shape(cfg, batch).items()}
 
 
 def _finish(cfg, params, h):

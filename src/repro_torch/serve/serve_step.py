@@ -2,11 +2,12 @@
 (counterpart of ``repro/serve/serve_step.py``).
 
 All slots of a batch advance one position per step (aligned continuous
-batching).  The dense family's KV cache comes out of the prefill as long
-as the prompt; ``greedy_generate(pad_to=)`` pads its sequence axis, found
-by ``cache_seq_axes``, so decode appends.  The ssm family's cache is a
-fixed per-layer state with no sequence axis, so there ``pad_to`` has
-nothing to pad.
+batching).  A KV cache (dense, vlm, moe, the hybrid family's shared
+attention, the encdec self-attention) comes out of the prefill as long as
+the prompt; ``greedy_generate(pad_to=)`` pads its sequence axis, found by
+``cache_seq_axes``, so decode appends.  An ssm state has no sequence axis
+and the encdec cross cache is fixed-length memory, so ``pad_to`` leaves
+both as they are.
 """
 from __future__ import annotations
 
@@ -76,6 +77,17 @@ def _pad_seq(cfg, cache, seq, batch, pad_to):
     return T.map_with_path(pad, cache)
 
 
+def decode_batch(cfg, tokens, pos: int):
+    """One decode step's batch: ``tokens`` (B, 1), and for M-RoPE every
+    row at the text position ``pos``, as the reference's
+    ``greedy_generate`` builds it."""
+    db = {"tokens": tokens}
+    if cfg.mrope:
+        db["mrope_pos"] = torch.full((3, tokens.shape[0], 1), pos, dtype=torch.int32,
+                                     device=tokens.device)
+    return db
+
+
 def greedy_generate(model, params, batch, steps: int, pad_to: int | None = None):
     """Prefill, then ``steps - 1`` greedy decode steps -> tokens (B, steps)
     int32, the first from the prefill's logits.  Without ``pad_to`` a dense
@@ -87,6 +99,8 @@ def greedy_generate(model, params, batch, steps: int, pad_to: int | None = None)
         cache = _pad_seq(model.cfg, cache, seq, b, pad_to)
     toks = [torch.argmax(lg[:, -1], dim=-1).to(torch.int32)]
     for i in range(steps - 1):
-        lg, cache = model.decode_step(params, cache, {"tokens": toks[-1][:, None]}, seq + i)
+        lg, cache = model.decode_step(params, cache,
+                                      decode_batch(model.cfg, toks[-1][:, None], seq + i),
+                                      seq + i)
         toks.append(torch.argmax(lg[:, -1], dim=-1).to(torch.int32))
     return torch.stack(toks, dim=1)

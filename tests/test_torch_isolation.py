@@ -57,7 +57,8 @@ def test_port_modules_import_no_jax_and_no_reference():
     names = set(got["imported"])
     # the walk reached every slice, the LM stack and every kernel wrapper
     for m in ("repro_torch.core.controller", "repro_torch.faults",
-              "repro_torch.models.ssm", "repro_torch.serve.serve_step",
+              "repro_torch.models.ssm", "repro_torch.models.moe", "repro_torch.models.encdec",
+              "repro_torch.serve.serve_step",
               "repro_torch.launch.serve", "repro_torch.configs.falcon_mamba_7b",
               "repro_torch.configs.qwen3_1_7b", "repro_torch.configs.granite_34b",
               "repro_torch.kernels.ssm_scan.ops", "repro_torch.kernels.slot_scan.ops",

@@ -85,3 +85,108 @@ def carry_request(jax_request, device="cpu"):
     return SnnRequest(carry_cfg(jax_request.cfg), carry_across(jax_request.states, device),
                       carry_across(jax_request.pending, device), jax_request.meta,
                       jax_request.expected_counts)
+
+
+# ---------------------------------------------------------------------------
+# the LM families: the same weights and inputs on both sides
+
+
+def jax_params(weights):
+    """``common.init_numpy``'s tree as the JAX package's parameters: float32
+    leaves as they are, a bf16 leaf's uint16 bits viewed as bfloat16."""
+    import jax.numpy as jnp
+
+    return tree.map_with_path(
+        lambda _, x: jnp.asarray(x).view(jnp.bfloat16) if x.dtype == np.uint16
+        else jnp.asarray(x), weights)
+
+
+def lm_batches(batch):
+    """A batch of numpy arrays as the port's tensors and the JAX package's
+    arrays: float32 arrays (embeddings) in bf16 on both sides, integer
+    arrays (tokens, positions) as they are."""
+    import jax.numpy as jnp
+
+    def both(x):
+        if x.dtype == np.float32:
+            return torch.from_numpy(x).to(torch.bfloat16), jnp.asarray(x, jnp.bfloat16)
+        return torch.from_numpy(x), jnp.asarray(x)
+
+    pairs = {k: both(v) for k, v in batch.items()}
+    return {k: t for k, (t, _) in pairs.items()}, {k: j for k, (_, j) in pairs.items()}
+
+
+def pad_jax_cache(jcfg, jcache, seq, batch, pad_to):
+    """The JAX package's ``greedy_generate(pad_to=)`` padding of a cache:
+    each leaf's sequence axis (its ``cache_seq_axes``) zero-padded."""
+    import jax.numpy as jnp
+    from repro.serve.serve_step import cache_seq_axes
+
+    axes = cache_seq_axes(jcfg, jcache, seq, batch)
+    flat, treedef = jax.tree.flatten(jcache)
+
+    def pad(x, ax):
+        if ax is None:
+            return x
+        width = [(0, 0)] * x.ndim
+        width[ax] = (0, pad_to - x.shape[ax])
+        return jnp.pad(x, width)
+
+    return jax.tree.unflatten(treedef, [pad(x, ax) for x, ax in zip(flat, axes)])
+
+
+def decode_batch(cfg, tokens, pos):
+    """One decode step's batch on both sides (``serve_step.decode_batch``'s):
+    the tokens (B, 1), and for M-RoPE every row at ``pos``."""
+    import jax.numpy as jnp
+
+    from repro_torch.serve.serve_step import decode_batch as ours
+
+    db = ours(cfg, torch.from_numpy(tokens), pos)
+    return db, {k: jnp.asarray(v.numpy()) for k, v in db.items()}
+
+
+def jax_greedy_margins(jmodel, jparams, jbatch, steps, pad_to, prefill=None):
+    """The JAX package's greedy tokens and top-1/top-2 logit margins, from
+    its own loop (``greedy_generate``'s, with ``pad_to``; ``prefill`` in
+    place of ``jmodel.prefill`` if given)."""
+    import jax.numpy as jnp
+
+    b, seq = jbatch["tokens"].shape
+    cache, lg = (prefill or jmodel.prefill)(jparams, jbatch)
+    cache = pad_jax_cache(jmodel.cfg, cache, seq, b, pad_to)
+    step = jax.jit(jmodel.decode_step)
+    toks, margins = [], []
+    for i in range(steps):
+        last = np.asarray(lg[:, -1], np.float32)
+        top2 = np.sort(last, axis=-1)[:, -2:]
+        toks.append(np.argmax(last, axis=-1).astype(np.int32))
+        margins.append(top2[:, 1] - top2[:, 0])
+        if i < steps - 1:
+            _, db = decode_batch(jmodel.cfg, toks[-1][:, None], seq + i)
+            lg, cache = step(jparams, cache, db, jnp.int32(seq + i))
+    return np.stack(toks, 1), np.stack(margins, 1)
+
+
+def same_tokens(got, want, margins, tol):
+    """Tokens equal wherever the JAX margin exceeds ``tol``; a row is not
+    compared past a position where they differ.  Returns the count compared."""
+    compared = 0
+    for r in range(want.shape[0]):
+        for i in range(want.shape[1]):
+            if margins[r, i] <= tol:
+                if got[r, i] != want[r, i]:
+                    break
+                continue
+            assert got[r, i] == want[r, i], (r, i, got[r], want[r], margins[r])
+            compared += 1
+    assert compared >= want.size // 2, (compared, margins)
+    return compared
+
+
+def to_np(x):
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+
+
+def close(got, want, tol, what):
+    np.testing.assert_allclose(to_np(got), to_np(want), err_msg=what, **tol)
