@@ -19,9 +19,12 @@ selective scan as a CUDA kernel (``kernels/csrc/ssm_scan.cu``), the dense
 decoders (qwen3, internlm2, stablelm, granite), the MoE decoders
 (llama4-scout, kimi-k2: ``models.moe``), zamba2 (Mamba-2 and a shared
 attention block), qwen2-vl (M-RoPE, vision embeddings) and whisper-tiny
-(``models.encdec``), in bf16 torch rounded where the reference rounds; and
-``vp.workloads.from_arch``, which tiles an architecture's FFN GEMM onto
-the VP's crossbars.
+(``models.encdec``), in bf16 torch rounded where the reference rounds;
+training of all ten (``models.model.Model.loss`` ->
+``train.train_step.make_train_step``, AdamW with int8 moments,
+checkpoints, compression, decoupled pod rounds; ``launch.train``), the
+Mamba-1 scan's gradient a CUDA kernel too; and ``vp.workloads.from_arch``,
+which tiles an architecture's FFN GEMM onto the VP's crossbars.
 Options outside these paths raise ``NotImplementedError`` naming the
 ROADMAP item that brings them.
 

@@ -10,7 +10,9 @@ expansion inside the kernel.  A CPU tensor runs the plain version
 ``kernels/csrc/ssm_scan.cu`` on the current stream, or raises — there is no
 fallback.  ``selective_scan.launches`` counts launches of the unfused
 kernel (both of its functions), ``selective_scan_fused.launches`` of the
-fused one, so a run can show that its scans went through the kernels.
+fused one and ``selective_scan_fused_bwd.launches`` of its backward, so a
+run can show that its scans went through the kernels.
+``selective_scan_fused`` is differentiable (``SelectiveScanFused``).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "ssm_scan_launch": [_P] * 6 + [_I] * 5 + [_P],
     "ssm_scan_fused_launch": [_P] * 4 + [_L] * 4 + [_P] * 5 + [_I] * 5 + [_P],
+    "ssm_scan_fused_bwd_launch": [_P] * 4 + [_L] * 4 + [_P] * 12 + [_I] * 5 + [_P],
 }
 
 
@@ -100,19 +103,7 @@ def ssm_scan(da, dbx, c):
     return _scan(da, dbx, c, None, want_h=False)[0]
 
 
-def selective_scan_fused(dt, x, b, c, a, h0=None, d_skip=None, chunk=None):
-    """The scan of a Mamba-1 block with its expansion fused in:
-    ``da = exp(dt * a)`` and ``dbx = (dt * x) * b`` per state element, the
-    recurrence from ``h0``, ``y + x * d_skip``.
-
-    dt, x (B, S, D) float32, contiguous; b, c (B, S, N) float32 at any row
-    strides with the last stride 1 (the slices of one projection's output;
-    any other layout is made contiguous); a (D, N); h0 (B, D, N) or None
-    (zeros); d_skip (D,) or None -> (y (B, S, D), h_last (B, D, N)).  One
-    launch covers the whole sequence; ``chunk`` bounds the plain version's
-    transient (B, chunk, D, N) tiles on the CPU and is not used on the
-    card."""
-    who = "selective_scan_fused"
+def _check_fused(who, dt, x, b, c, a, h0, d_skip):
     if dt.dim() != 3 or b.dim() != 3:
         raise ValueError(f"{who}: dt must be (B, S, D) and b (B, S, N), got "
                          f"{tuple(dt.shape)} and {tuple(b.shape)}")
@@ -129,12 +120,46 @@ def selective_scan_fused(dt, x, b, c, a, h0=None, d_skip=None, chunk=None):
     if d_skip is not None:
         _check("d_skip", d_skip, (d,), dev, who)
     _check_range(who, bsz, s, d, n)
-    if dev.type == "cpu":  # the plain expansion, each chunk through selective_scan
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{who} runs on cpu or cuda, not {dev}")
+    return bsz, s, d, n
+
+
+def _unit_rows(t):
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def selective_scan_fused(dt, x, b, c, a, h0=None, d_skip=None, chunk=None):
+    """The scan of a Mamba-1 block with its expansion fused in:
+    ``da = exp(dt * a)`` and ``dbx = (dt * x) * b`` per state element, the
+    recurrence from ``h0``, ``y + x * d_skip``.
+
+    dt, x (B, S, D) float32, contiguous; b, c (B, S, N) float32 at any row
+    strides with the last stride 1 (the slices of one projection's output;
+    any other layout is made contiguous); a (D, N); h0 (B, D, N) or None
+    (zeros); d_skip (D,) or None -> (y (B, S, D), h_last (B, D, N)).  One
+    launch covers the whole sequence; ``chunk`` bounds the plain version's
+    transient (B, chunk, D, N) tiles on the CPU and is not used on the
+    card.
+
+    Differentiable: when grad mode is on and an input requires a gradient,
+    the call goes through ``SelectiveScanFused``, whose backward is
+    ``selective_scan_fused_bwd``; otherwise nothing is saved."""
+    _check_fused("selective_scan_fused", dt, x, b, c, a, h0, d_skip)
+    args = (dt, x, b, c, a, h0, d_skip)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args):
+        return SelectiveScanFused.apply(*args, chunk)
+    return _fused(*args, chunk)
+
+
+def _fused(dt, x, b, c, a, h0, d_skip, chunk):
+    if dt.device.type == "cpu":  # the plain expansion, each chunk through selective_scan
         return ref.selective_scan_fused(dt, x, b, c, a, h0, d_skip, chunk,
                                         scan=selective_scan)
-    if dev.type != "cuda":
-        raise ValueError(f"{who} runs on cpu or cuda, not {dev}")
-    b, c = (t if t.stride(-1) == 1 else t.contiguous() for t in (b, c))
+    bsz, s, d = dt.shape
+    n = b.shape[-1]
+    dev = dt.device
+    b, c = _unit_rows(b), _unit_rows(c)
     y = torch.empty((bsz, s, d), dtype=_F32, device=dev)
     h_last = torch.empty((bsz, d, n), dtype=_F32, device=dev)
     vec = n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (a, h0, h_last)
@@ -151,5 +176,88 @@ def selective_scan_fused(dt, x, b, c, a, h0=None, d_skip=None, chunk=None):
     return y, h_last
 
 
+class SelectiveScanFused(torch.autograd.Function):
+    """``selective_scan_fused`` with a gradient: the forward is the fused
+    scan (the kernel on the card, the plain version on the CPU) and saves
+    only its inputs; the backward recomputes the states from them
+    (``selective_scan_fused_bwd``: the kernel on the card, the plain
+    reverse recurrence on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, dt, x, b, c, a, h0, d_skip, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.chunk = chunk
+        ctx.save_for_backward(dt, x, b, c, a, h0, d_skip)
+        return _fused(dt, x, b, c, a, h0, d_skip, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        dt, x, b, c, a, h0, d_skip = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(dt)
+        return (*_fused_bwd(dt, x, b, c, a, h0, d_skip, dy.contiguous(),
+                            None if dh_last is None else dh_last.contiguous(), ctx.chunk),
+                None)
+
+
+def bwd_tile(n):
+    """Steps between the backward kernel's saved states, for N = ``n``."""
+    with LOCK:
+        if "ssm_scan_bwd_tile" not in _fns:
+            fn = build.load("ssm_scan").ssm_scan_bwd_tile
+            fn.argtypes, fn.restype = [_I], _I
+            _fns["ssm_scan_bwd_tile"] = fn
+        return _fns["ssm_scan_bwd_tile"](n)
+
+
+def selective_scan_fused_bwd(dt, x, b, c, a, h0, d_skip, dy, dh_last=None, chunk=None):
+    """The gradient of ``selective_scan_fused(dt, x, b, c, a, h0, d_skip)``
+    given ``dy`` (B, S, D) and ``dh_last`` (B, D, N) or None (zero), float32
+    and contiguous -> (d_dt, d_x, d_b, d_c, d_a, d_h0, d_skip's gradient),
+    d_b and d_c contiguous, the last two None where ``h0`` or ``d_skip`` is.
+    On the card one launch of ``ssm_scan_fused_bwd_launch`` computes every
+    per-step gradient, d_b and d_c as partial sums over each 128-row block
+    of D and d_a per batch row, which one torch sum each finishes (a fixed
+    order: no atomics); the plain version on the CPU (``ref.py``)."""
+    who = "selective_scan_fused_bwd"
+    bsz, s, d, n = _check_fused(who, dt, x, b, c, a, h0, d_skip)
+    _check("dy", dy, (bsz, s, d), dt.device, who)
+    if dh_last is not None:
+        _check("dh_last", dh_last, (bsz, d, n), dt.device, who)
+    return _fused_bwd(dt, x, b, c, a, h0, d_skip, dy, dh_last, chunk)
+
+
+def _fused_bwd(dt, x, b, c, a, h0, d_skip, dy, dh_last, chunk):
+    if dt.device.type == "cpu":
+        return ref.selective_scan_fused_bwd(dt, x, b, c, a, h0, d_skip, dy, dh_last, chunk)
+    bsz, s, d = dt.shape
+    n = b.shape[-1]
+    dev = dt.device
+    b, c = _unit_rows(b), _unit_rows(c)
+    tile = bwd_tile(n)
+    n_blk = -(-d // 128)
+    empty = lambda *shape: torch.empty(shape, dtype=_F32, device=dev)
+    states = empty(bsz, -(-s // tile), d, n)  # the state entering each tile
+    d_dt, d_x = empty(bsz, s, d), empty(bsz, s, d)
+    d_b_part, d_c_part = empty(bsz, s, n_blk, n), empty(bsz, s, n_blk, n)
+    d_a_part = empty(bsz, d, n)
+    d_h0 = None if h0 is None else empty(bsz, d, n)
+    vec = n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (a, h0, dh_last) if t is not None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _launcher("ssm_scan_fused_bwd_launch")(
+            dt.data_ptr(), x.data_ptr(), b.data_ptr(), c.data_ptr(), b.stride(0),
+            b.stride(1), c.stride(0), c.stride(1), a.data_ptr(), _ptr(h0), _ptr(d_skip),
+            dy.data_ptr(), _ptr(dh_last), states.data_ptr(), d_dt.data_ptr(), d_x.data_ptr(),
+            d_b_part.data_ptr(), d_c_part.data_ptr(), d_a_part.data_ptr(), _ptr(d_h0),
+            bsz, s, d, n, int(vec), stream)
+    if err != 0:
+        raise RuntimeError(f"ssm_scan backward kernel launch failed: CUDA error {err}")
+    count_launch(selective_scan_fused_bwd, launches=1)
+    return (d_dt, d_x, d_b_part.sum(2), d_c_part.sum(2), d_a_part.sum(0), d_h0,
+            None if d_skip is None else (dy * x).sum((0, 1)))
+
+
 selective_scan.launches = 0
 selective_scan_fused.launches = 0
+selective_scan_fused_bwd.launches = 0

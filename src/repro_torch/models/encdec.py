@@ -6,8 +6,11 @@ precomputed frame embeddings ``enc_feats (B, S_enc, d_model)``.  The
 encoder adds fixed sinusoidal positions and runs bidirectional attention;
 the decoder adds learned positions and runs causal self-attention and
 cross-attention to the encoded memory, whose K/V are computed once at
-prefill and cached beside the self-attention cache.  The reference's
-sequence sharding of the encoder is dropped (one card).
+prefill and cached beside the self-attention cache.  Training
+(``encdec_loss_forward``) encodes, computes the cross K/V and runs the
+decoder in ``train`` mode (no cache), without remat, as the reference
+does.  The reference's sequence sharding of the encoder is dropped (one
+card).
 """
 from __future__ import annotations
 
@@ -18,8 +21,8 @@ import torch
 from repro_torch import tree as T
 from repro_torch.common import ParamSpec
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import (_grouped_decode_attention, _layer, attn_apply,
-                                            residual, stack_specs)
+from repro_torch.models.transformer import (_grouped_decode_attention, _layer, _layers,
+                                            attn_apply, residual, stack_specs)
 
 MAX_DEC_POS = 32768  # decode_32k needs 32k learned decoder positions
 
@@ -81,8 +84,8 @@ def encoder_input(cfg, enc_feats, policy):
 def encode(cfg, params, enc_feats, policy):
     """enc_feats (B, S_enc, d) -> memory (B, S_enc, d)."""
     h = encoder_input(cfg, enc_feats, policy)
-    for i in range(cfg.n_enc_layers):
-        h = enc_layer(cfg, _layer(params["enc_layers"], i), h, policy)
+    for lp in _layers(params["enc_layers"]):
+        h = enc_layer(cfg, lp, h, policy)
     return L.apply_norm(cfg, params["enc_norm"], h)
 
 
@@ -92,8 +95,8 @@ def cross_kv(cfg, params, memory, policy):
     cdt = policy.compute
     m = memory.to(cdt)
     xattn = params["dec_layers"]["xattn"]
-    ks = [torch.einsum("bsd,dhk->bshk", m, xattn["wk"][i].to(cdt)) for i in range(cfg.n_layers)]
-    vs = [torch.einsum("bsd,dhk->bshk", m, xattn["wv"][i].to(cdt)) for i in range(cfg.n_layers)]
+    ks = [torch.einsum("bsd,dhk->bshk", m, w.to(cdt)) for w in xattn["wk"].unbind(0)]
+    vs = [torch.einsum("bsd,dhk->bshk", m, w.to(cdt)) for w in xattn["wv"].unbind(0)]
     return torch.stack(ks), torch.stack(vs)
 
 
@@ -117,12 +120,12 @@ def _dec_layer(cfg, lp, x, policy, *, mode, cache, xkv, pos):
 
 
 def decode_forward(cfg, params, tokens, policy, *, mode, cache=None, xkv=None, pos=0):
-    """The decoder stack. tokens (B, S_dec); mode prefill|decode.  ``cache``
-    is the stacked self-attention (k, v) for decode, ``xkv`` the stacked
-    cross (k, v).  Returns (hidden, the self-attention cache)."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode {mode!r} (training, train/*) is not ported yet: "
-                                  "ROADMAP module item 13c")
+    """The decoder stack. tokens (B, S_dec); mode train|prefill|decode.
+    ``cache`` is the stacked self-attention (k, v) for decode, ``xkv`` the
+    stacked cross (k, v).  Returns (hidden, the self-attention cache; None
+    for train)."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(mode)
     s = tokens.shape[1]
     h = L.embed(params["embed"], tokens, policy) * L.as_constant(math.sqrt(cfg.d_model),
                                                                  policy.compute)
@@ -130,9 +133,17 @@ def decode_forward(cfg, params, tokens, policy, *, mode, cache=None, xkv=None, p
     start = min(pos if mode == "decode" else 0, MAX_DEC_POS - s)
     h = h + params["dec_pos"][start:start + s].to(h.dtype)[None]
     outs = []
-    for i in range(cfg.n_layers):
+    for i, lp in enumerate(_layers(params["dec_layers"])):
         c = _layer(cache, i) if mode == "decode" else None
-        h, c_out = _dec_layer(cfg, _layer(params["dec_layers"], i), h, policy, mode=mode,
-                              cache=c, xkv=_layer(xkv, i), pos=pos)
+        h, c_out = _dec_layer(cfg, lp, h, policy, mode=mode, cache=c, xkv=_layer(xkv, i),
+                              pos=pos)
         outs.append(c_out)
-    return L.apply_norm(cfg, params["final_norm"], h), T.stack(outs)
+    h = L.apply_norm(cfg, params["final_norm"], h)
+    return h, (None if mode == "train" else T.stack(outs))
+
+
+def encdec_loss_forward(cfg, params, batch, policy):
+    """Training forward: the final decoder hidden states (B, S_dec, d)."""
+    memory = encode(cfg, params, batch["enc_feats"], policy)
+    xkv = cross_kv(cfg, params, memory, policy)
+    return decode_forward(cfg, params, batch["tokens"], policy, mode="train", xkv=xkv)[0]

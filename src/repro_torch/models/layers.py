@@ -14,8 +14,10 @@ multiply.  ``torch.nn.functional.scaled_dot_product_attention`` rounds at
 none of these places, so attention is written out as the reference's.
 
 The specs are the reference's at tp = 1 (one card): no head padding, no
-sharding.  The training path (``flash_attention_train``, ``cross_entropy``)
-is ROADMAP module item 13c.
+sharding.  Training adds ``cross_entropy`` and ``flash_attention_train``
+(the reference's custom VJP as a ``torch.autograd.Function``); the train
+path's dense attention is ``dense_attention(causal=True)``, differentiated
+by autograd.
 """
 from __future__ import annotations
 
@@ -206,17 +208,13 @@ def decode_attention(q, k_cache, v_cache, length):
     return torch.einsum("bhqk,bkhd->bqhd", w, v_cache)
 
 
-def flash_prefill_attention(q, k, v, *, chunk_q=512, chunk_k=512):
-    """Causal chunked-flash attention for long prefill: the reference's
-    triangular (i, j) chunk-pair online softmax, pairs in its order (i
-    outer), each query chunk's running max, sum and float32 accumulator
-    carried across its key chunks."""
+def _flash_fwd_core(q, k, v, cq, ck):
+    """The reference's triangular chunk-pair loop (pairs (i, j <= i), i
+    outer) with an online softmax per query chunk.  Returns (o float32
+    (B, H, Sq, Dh), lse float32 (B, H, Sq))."""
     b, sq, h, dh = q.shape
-    sk = k.shape[1]
-    cq, ck = min(chunk_q, sq), min(chunk_k, sk)
-    assert sq % cq == 0 and sk % ck == 0
     dev = q.device
-    out = []
+    outs, lses = [], []
     for i in range(sq // cq):
         qc = q[:, i * cq:(i + 1) * cq]
         qpos = i * cq + torch.arange(cq, device=dev)[:, None]
@@ -234,8 +232,79 @@ def flash_prefill_attention(q, k, v, *, chunk_q=512, chunk_k=512):
             l = l * alpha + pexp.sum(-1)
             acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", pexp, vc.to(_F32))
             m = m_new
-        out.append(acc / torch.clamp(l[..., None], min=1e-30))
-    return torch.cat(out, dim=2).transpose(1, 2).to(q.dtype)
+        l = torch.clamp(l, min=1e-30)
+        outs.append(acc / l[..., None])
+        lses.append(m + torch.log(l))
+    return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
+
+
+class FlashAttentionTrain(torch.autograd.Function):
+    """The reference's ``flash_attention_train`` custom VJP: the forward
+    saves (q, k, v, o, lse); the backward recomputes each (i, j) tile's
+    scores and accumulates dq, dk, dv in float32 (``_flash_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cq, ck):
+        o, lse = _flash_fwd_core(q, k, v, cq, ck)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.chunks = (cq, ck)
+        return o.transpose(1, 2).to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        cq, ck = ctx.chunks
+        dev = q.device
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        do_f = do.to(_F32).transpose(1, 2)  # (B, H, S, Dh)
+        delta = (do_f * o).sum(-1)  # (B, H, S)
+        dq = torch.zeros(q.shape, dtype=_F32, device=dev)
+        dk = torch.zeros(k.shape, dtype=_F32, device=dev)
+        dv = torch.zeros(v.shape, dtype=_F32, device=dev)
+        for i in range(q.shape[1] // cq):
+            qs = slice(i * cq, (i + 1) * cq)
+            qc, lse_c, dlt_c, do_c = q[:, qs], lse[:, :, qs], delta[:, :, qs], do_f[:, :, qs]
+            qpos = i * cq + torch.arange(cq, device=dev)[:, None]
+            for j in range((i + 1) * cq // ck):
+                ks = slice(j * ck, (j + 1) * ck)
+                kc, vc = k[:, ks], v[:, ks]
+                s = scores(qc, kc, "bqhd,bkhd->bhqk")
+                kpos = j * ck + torch.arange(ck, device=dev)[None, :]
+                p = torch.where(qpos >= kpos, torch.exp(s - lse_c[..., None]), 0.0)
+                dv[:, ks] += torch.einsum("bhqk,bhqd->bkhd", p, do_c)
+                dp = torch.einsum("bhqd,bkhd->bhqk", do_c, vc.to(_F32))
+                ds = p * (dp - dlt_c[..., None]) * scale
+                dq[:, qs] += torch.einsum("bhqk,bkhd->bqhd", ds, kc.to(_F32))
+                dk[:, ks] += torch.einsum("bhqk,bqhd->bkhd", ds, qc.to(_F32))
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+def flash_prefill_attention(q, k, v, *, chunk_q=512, chunk_k=512):
+    """Causal chunked-flash attention for long prefill: the reference's
+    triangular (i, j) chunk-pair online softmax (``_flash_fwd_core``), with
+    no gradient path."""
+    sq, sk = q.shape[1], k.shape[1]
+    cq, ck = min(chunk_q, sq), min(chunk_k, sk)
+    assert sq % cq == 0 and sk % ck == 0
+    return _flash_fwd_core(q, k, v, cq, ck)[0].transpose(1, 2).to(q.dtype)
+
+
+def flash_attention_train(q, k, v, chunk_q=512, chunk_k=512):
+    """Causal flash attention with a flash backward, q/k/v (B, S, H, Dh):
+    forward and backward stream (chunk_q, chunk_k) tiles of the causal
+    triangle, O(S * Dh) saved besides the inputs."""
+    return FlashAttentionTrain.apply(q, k, v, min(chunk_q, q.shape[1]),
+                                     min(chunk_k, k.shape[1]))
+
+
+def cross_entropy(lg, targets, mask=None):
+    """Mean next-token cross-entropy of (B, S, V) logits in float32
+    (logsumexp minus the target's logit); with ``mask``, its weighted mean."""
+    lg = lg.to(_F32)
+    nll = torch.logsumexp(lg, dim=-1) - lg.gather(-1, targets[..., None].long())[..., 0]
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()
 
 
 # ---------------------------------------------------------------------------

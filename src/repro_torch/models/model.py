@@ -1,10 +1,11 @@
 """Model API (counterpart of ``repro/models/model.py``): ``build(cfg)`` ->
 specs + functions, the decode-cache specs, and the weight carry function.
 
-Every family builds (``configs.base.PORTED``) and serves: the decoders
-through ``transformer.forward``, the encoder-decoder through
-``encdec.encode``/``cross_kv``/``decode_forward``.  Training (``loss``) is
-ROADMAP module item 13c.  The reference's ``needs_fsdp`` and
+Every family builds (``configs.base.PORTED``), serves and trains: the
+decoders through ``transformer.forward``, the encoder-decoder through
+``encdec.encode``/``cross_kv``/``decode_forward``; ``loss`` is the
+training objective (``train/train_step.py`` differentiates it with
+autograd).  The reference's ``needs_fsdp`` and
 ``fsdp_params`` choose a sharding of the weights over a mesh and change
 no value; on one card they have no counterpart.
 ``params_from_numpy`` takes parameters as numpy arrays — the JAX package's
@@ -25,6 +26,7 @@ from repro_torch import tree as T
 from repro_torch.common import DTypePolicy, ShapeDtype, bf16_tensor, init_params, numpy_dtype
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.models import encdec as ED
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as TF
 from repro_torch.models.ssm import ssm_state_shape
 
@@ -37,6 +39,19 @@ class Model:
 
     def init(self, generator: torch.Generator, device=None):
         return init_params(self.specs, generator, device)
+
+    def loss(self, params, batch):
+        """Next-token cross-entropy plus the MoE load-balance loss: returns
+        (ce + aux, {"ce", "aux"}), float32 scalars."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            h = ED.encdec_loss_forward(cfg, params, batch, self.policy)
+            aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        else:
+            h, _, aux = TF.forward(cfg, params, batch, self.policy, mode="train")
+        lg = TF.lm_logits(cfg, params, h, self.policy)
+        ce = L.cross_entropy(lg[:, :-1], batch["tokens"][:, 1:])
+        return ce + aux, {"ce": ce, "aux": aux}
 
     def prefill(self, params, batch):
         """Returns (cache, last-token logits)."""
@@ -79,7 +94,9 @@ def build(cfg: ModelConfig) -> Model:
 def params_from_numpy(specs, tree, device=None):
     """Numpy parameters -> the port's tensors on ``device`` (``cuda`` unless
     given).  Raises ``ValueError`` on a missing or extra key or a leaf whose
-    shape or dtype differs from its spec: nothing is broadcast or cast."""
+    shape or dtype differs from its spec: nothing is broadcast or cast.  On
+    the CPU the tensors share the arrays' memory: an in-place update (the
+    train step's) writes into the arrays."""
     device = T.resolve_device(device)
     want = dict(T.leaves(specs))
     got = dict(T.leaves(tree))

@@ -14,7 +14,10 @@ call from the carried state.
 Mamba-2 (SSD, the hybrid family's blocks) is the reference's chunked form
 in float32 torch ops: per chunk the (B, i, j, H) decay matrix, the
 intra-chunk product and the carried state's contribution, chunks in
-order; the reference computes it in plain JAX (no Pallas kernel).
+order; the reference computes it in plain JAX (no Pallas kernel).  Both
+blocks are differentiable: the fused scan through its autograd Function
+(``ops.SelectiveScanFused``, a CUDA backward on the card), the SSD
+through autograd.
 """
 from __future__ import annotations
 
@@ -145,7 +148,10 @@ def _ssd_core(cfg, xh, bmat, cmat, dt, a_log, h0):
         cs = torch.cumsum(la[:, sl], dim=1)  # (B,c,H) cumulative log decay
         # intra-chunk: Y[i] = sum_{j<=i} C_i.B_j dt_j exp(cs_i - cs_j) x_j
         decay = cs[:, :, None, :] - cs[:, None, :, :]  # (B,i,j,H)
-        gate = torch.where(causal, torch.exp(decay), 0.0)
+        # the reference's where(causal, exp(decay), 0), with the mask on the
+        # exponent: the same values, but above the diagonal decay > 0 may
+        # overflow exp, whose gradient 0 * inf is NaN (ROADMAP F4)
+        gate = torch.exp(torch.where(causal, decay, -torch.inf))
         scores = torch.einsum("bin,bjn->bij", cc, bc)[..., None] * gate
         y = torch.einsum("bijh,bjh,bjhp->bihp", scores, dtc, xc)
         # inter-chunk: the carried state's contribution

@@ -15,15 +15,19 @@ The cache is stacked the same way:
   dense/vlm: ``{"layers": (k, v)}``, each (L, B, S, Hkv, Dh) bf16
   moe:       ``{"dense_layers": (k, v), "layers": (k, v)}``
   hybrid:    ``{"groups": {"attn": (k, v), "ssm": state}}``, (G, ...) / (G, E, ...)
-Modes ``prefill`` (chunked flash attention, returns the KV entries) and
-``decode`` (grouped-query attention against the cache).  Training is
-ROADMAP module item 13c.
+Modes ``train`` (causal dense attention, or ``flash_attention_train``
+when ``cfg.attn_impl == "flash"`` and S >= 512; no cache; each layer, or
+each hybrid group, under ``torch.utils.checkpoint`` as ``cfg.remat``
+says), ``prefill`` (chunked flash attention, returns the KV entries) and
+``decode`` (grouped-query attention against the cache).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import tree as T
 from repro_torch.common import ParamSpec, spec_map
@@ -113,8 +117,9 @@ def _grouped_decode_attention(q, k_cache, v_cache, length):
 
 
 def attn_apply(cfg, p, x, policy, *, mode, angles, cache=None, pos=None):
-    """Attention sub-block body. Returns (out, new_cache): the (k, v) new
-    entries for prefill, the updated (k_cache, v_cache) for decode.
+    """Attention sub-block body. Returns (out, new_cache): None for train,
+    the (k, v) new entries for prefill, the updated (k_cache, v_cache) for
+    decode.
 
     The decode write goes to ``min(pos, Smax - 1)``: the reference's
     ``dynamic_update_slice`` clamps its start so the update fits, so a
@@ -122,6 +127,13 @@ def attn_apply(cfg, p, x, policy, *, mode, angles, cache=None, pos=None):
     overwritten while attention reads ``pos + 1`` positions (all of them)."""
     q, k, v = L.qkv_project(cfg, p["attn"], x, policy, angles=angles)
     nh = q.shape[2]
+    if mode == "train":
+        ke, ve = L.expand_kv(k, nh), L.expand_kv(v, nh)
+        if cfg.attn_impl == "flash" and q.shape[1] >= 512:
+            o = L.flash_attention_train(q, ke, ve)
+        else:
+            o = L.dense_attention(q, ke, ve, causal=True)
+        return L.attn_out(p["attn"], L.mask_pad_heads(cfg, o), policy), None
     if mode == "prefill":
         o = L.flash_prefill_attention(q, L.expand_kv(k, nh), L.expand_kv(v, nh))
         return L.attn_out(p["attn"], L.mask_pad_heads(cfg, o), policy), (k, v)
@@ -200,18 +212,59 @@ def _layer(tree, i):
     return T.tree_map(lambda x: x[i], tree)
 
 
+def _layers(tree):
+    """The per-layer trees of a stacked parameter tree, as views: ``unbind``
+    along the layer axis, whose backward stacks the layers' gradients in one
+    copy (indexing layer by layer would give each layer's gradient a
+    zero-filled tensor of the whole stack, all of them summed)."""
+    if isinstance(tree, dict):
+        parts = {k: _layers(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return tree.unbind(0)
+
+
+# matmul ops whose outputs ``remat="save_dots"`` keeps: the reference's
+# dots_with_no_batch_dims_saveable (a bmm counts when its batch is 1)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if op in _DOTS or (op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg, fn, *args):
+    """``fn(*args)`` under the train path's remat policy: ``"none"`` keeps
+    every activation, ``"full"`` only the inputs (the body is recomputed in
+    the backward), ``"save_dots"`` the matmul outputs too.  Non-reentrant
+    checkpoints: tensors reached through closures get their gradients."""
+    if cfg.remat == "none":
+        return fn(*args)
+    kw = {}
+    if cfg.remat == "save_dots":
+        kw["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                             _save_dots)
+    elif cfg.remat != "full":
+        raise ValueError(f"remat {cfg.remat!r}: none, full or save_dots")
+    # nothing on the path draws random numbers: no RNG state to keep
+    return ckpt.checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+
 def forward(cfg, params, batch, policy, *, mode, cache=None, pos=None):
     """Core forward.  Returns (hidden, new_cache, aux_loss): aux sums the MoE
     layers' load-balance losses (zero for the other families).  For decode,
     ``cache`` is the stacked cache of the layout above and ``pos`` the
-    position written (an int)."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode {mode!r} (training, train/*) is not ported yet: "
-                                  "ROADMAP module item 13c")
+    position written (an int); train returns no cache (None) and runs each
+    layer (hybrid: each group) through ``_remat``."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(mode)
     h, angles = _embed_and_angles(cfg, params, batch, policy, mode, pos)
     aux = torch.zeros((), dtype=_F32, device=h.device)
-    decode = mode == "decode"
+    decode, train = mode == "decode", mode == "train"
     kw = dict(mode=mode, angles=angles, pos=pos if decode else 0)
+    run = functools.partial(_remat, cfg) if train else (lambda fn, *args: fn(*args))
     fam = cfg.family
     new_cache = {}
     if fam in ("dense", "vlm", "moe"):
@@ -220,35 +273,36 @@ def forward(cfg, params, batch, policy, *, mode, cache=None, pos=None):
             stacks = ["dense_layers", "layers"]
         for name in stacks:
             outs = []
-            for i in range(params[name]["ln1"]["scale"].shape[0]):
+            for i, lp in enumerate(_layers(params[name])):
                 c = _layer(cache[name], i) if decode else None
                 if fam == "moe" and name == "layers":
-                    h, c_out, a = moe_layer(cfg, _layer(params[name], i), h, policy, cache=c,
-                                            **kw)
+                    h, c_out, a = run(lambda lp, h, c: moe_layer(cfg, lp, h, policy, cache=c,
+                                                                 **kw), lp, h, c)
                     aux = aux + a
                 else:
-                    h, c_out = dense_layer(cfg, _layer(params[name], i), h, policy, cache=c,
-                                           **kw)
+                    h, c_out = run(lambda lp, h, c: dense_layer(cfg, lp, h, policy, cache=c,
+                                                                **kw), lp, h, c)
                 outs.append(c_out)
-            new_cache[name] = T.stack(outs)
+            new_cache[name] = None if train else T.stack(outs)
     elif fam == "ssm":
         outs = []
-        for i in range(cfg.n_layers):
+        for i, lp in enumerate(_layers(params["layers"])):
             c = None if cache is None else _layer(cache["layers"], i)
-            h, c_out = ssm_layer(cfg, _layer(params["layers"], i), h, policy, state=c)
+            h, c_out = run(lambda lp, h, c: ssm_layer(cfg, lp, h, policy, state=c), lp, h, c)
             outs.append(c_out)
-        new_cache["layers"] = T.stack(outs)
+        new_cache["layers"] = None if train else T.stack(outs)
     elif fam == "hybrid":
-        h, new_cache["groups"] = _hybrid_groups(cfg, params, h, policy, cache, kw)
+        h, new_cache["groups"] = _hybrid_groups(cfg, params, h, policy, cache, kw, run)
     else:
         raise ValueError(fam)
-    return _finish(cfg, params, h), new_cache, aux
+    return _finish(cfg, params, h), (None if train else new_cache), aux
 
 
-def _hybrid_groups(cfg, params, h, policy, cache, kw):
+def _hybrid_groups(cfg, params, h, policy, cache, kw, run):
     """The hybrid walk: before each group of ``attn_every`` Mamba-2 layers
-    the one shared attention block, its KV cache per group.  Prefill starts
-    the Mamba-2 layers from zero states, as the reference does."""
+    the one shared attention block, its KV cache per group.  Prefill and
+    train start the Mamba-2 layers from zero states, as the reference does;
+    train keeps no cache and runs each group through ``run``."""
     shared = params["shared_attn"]
     if cache is not None:
         gc_in = cache["groups"]
@@ -256,20 +310,24 @@ def _hybrid_groups(cfg, params, h, policy, cache, kw):
         gc_in = {"attn": None, "ssm": _zero_ssm_states(cfg, h.shape[0], n_groups(cfg),
                                                        inner=cfg.attn_every,
                                                        device=h.device)}
-    outs = []
-    for g in range(n_groups(cfg)):
-        gp = _layer(params["layers"], g)
-        attn_c = None if gc_in["attn"] is None else _layer(gc_in["attn"], g)
+
+    def group(gp, h, attn_c, states_in):
         a, attn_c = attn_apply(cfg, shared, L.apply_norm(cfg, shared["ln"], h), policy,
                                cache=attn_c, **kw)
         h = h + a
         states = []
-        for j in range(cfg.attn_every):
-            h, st = ssm_layer(cfg, _layer(gp, j), h, policy,
-                              state=_layer(_layer(gc_in["ssm"], g), j))
+        for j, lp in enumerate(_layers(gp)):
+            h, st = ssm_layer(cfg, lp, h, policy, state=_layer(states_in, j))
             states.append(st)
-        outs.append({"attn": attn_c, "ssm": T.stack(states)})
-    return h, T.stack(outs)
+        return h, attn_c, states
+
+    outs = []
+    for g, gp in enumerate(_layers(params["layers"])):
+        attn_c = None if gc_in["attn"] is None else _layer(gc_in["attn"], g)
+        h, attn_c, states = run(group, gp, h, attn_c, _layer(gc_in["ssm"], g))
+        if kw["mode"] != "train":
+            outs.append({"attn": attn_c, "ssm": T.stack(states)})
+    return h, (T.stack(outs) if outs else None)
 
 
 def _zero_ssm_states(cfg, batch, n, inner=None, device=None):

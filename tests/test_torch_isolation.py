@@ -63,7 +63,10 @@ def test_port_modules_import_no_jax_and_no_reference():
               "repro_torch.configs.qwen3_1_7b", "repro_torch.configs.granite_34b",
               "repro_torch.kernels.ssm_scan.ops", "repro_torch.kernels.slot_scan.ops",
               "repro_torch.obs.trace", "repro_torch.obs.metrics", "repro_torch.obs.export",
-              "repro_torch.serve.snn_serve"):
+              "repro_torch.serve.snn_serve", "repro_torch.train.optimizer",
+              "repro_torch.train.train_step", "repro_torch.train.data",
+              "repro_torch.train.checkpoint", "repro_torch.train.compression",
+              "repro_torch.train.decoupled", "repro_torch.launch.train"):
         assert m in names, m
 
 

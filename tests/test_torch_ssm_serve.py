@@ -225,11 +225,14 @@ def test_params_from_numpy_refuses_mismatch(case):
 
 
 def test_unported_paths_raise():
-    """What the port still refuses names its ROADMAP item: training (13c)
-    and the expert-parallel MoE over a mesh (12).  Every family builds."""
+    """What the port still refuses names its ROADMAP item: a train step and
+    the expert-parallel MoE over a mesh (12).  Every family builds."""
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import make_train_step
+
     cfg = get_smoke_config(ARCH)
-    with pytest.raises(NotImplementedError, match="module item 13c"):
-        transformer.forward(cfg, {}, {}, DTypePolicy(), mode="train")
+    with pytest.raises(NotImplementedError, match="module item 12"):
+        make_train_step(build(cfg), OptConfig(), mesh=object())
     moe_cfg = get_smoke_config("llama4-scout-17b-a16e")
     with pytest.raises(NotImplementedError, match="module item 12"):
         moe.apply_moe(moe_cfg, {}, torch.zeros(1, 1, moe_cfg.d_model), DTypePolicy(),
