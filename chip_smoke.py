@@ -1056,7 +1056,11 @@ FAMILIES_MAIN = {
 # phase 14: training on the card
 # 14a: the scan's backward kernel against its plain version: (shape, h0 and
 # d_skip given, dh_last given, exp(dt * a) span); ragged (S not a multiple of
-# the kernel's tile, D not of 128), slow decay, N = 8, 32, 64, and the
+# the kernel's tile, D not of 128), slow decay, N = 8, 32, 64; ragged for the
+# kernel's tiling (8-step tiles, a state saved every 32 steps, 64 rows a
+# block at N = 16, a row's N lanes over N/4 threads): S = 1, S a few steps
+# past a multiple of the stride (the last chunk one tile), D past a block,
+# and N = 4, 5, 12, 33, whose row groups are partly empty; and the
 # falcon-mamba-7b training shape (no h0, no dh_last, as training calls it)
 BWD_CASES = [((1, 5, 7, 4), False, False, (0.5, 0.999)),
              ((2, 37, 200, 16), True, True, (0.5, 0.999)),
@@ -1064,6 +1068,13 @@ BWD_CASES = [((1, 5, 7, 4), False, False, (0.5, 0.999)),
              ((2, 64, 256, 8), False, True, (0.5, 0.999)),
              ((2, 23, 130, 32), True, True, (0.5, 0.999)),
              ((2, 9, 64, 64), False, True, (0.5, 0.999)),
+             ((1, 1, 9, 16), True, True, (0.5, 0.999)),  # S = 1
+             ((1, 70, 70, 16), False, True, (0.5, 0.999)),  # the last chunk one tile
+             ((1, 130, 65, 12), True, True, (0.999, 0.99999)),  # N = 12, slow decay
+             ((2, 19, 33, 5), True, False, (0.5, 0.999)),  # N = 5
+             ((2, 64, 40, 4), True, True, (0.5, 0.999)),  # N = 4, S = two strides
+             ((1, 66, 20, 33), True, True, (0.5, 0.999)),  # N = 33
+             ((3, 200, 129, 16), False, True, (0.5, 0.999)),  # 6 chunks and a tile
              ((4, 1024, 8192, 16), False, False, (0.5, 0.999))]
 BWD_MAIN = (4, 1024, 8192, 16)
 # the kernel sums over n and d in another order than the plain version:
@@ -1448,6 +1459,10 @@ QWEN_TRAIN = dict(batch=4, seq=1024, steps=11, fall=0.95,
 ACCUM_TOL = dict(loss=1e-4, lr_units=2.05)
 # falcon-mamba-7b at full width, depth cut from 64 to 8 (1.1 B float32
 # parameters, ~18 GB with gradients and moments)
+# falcon-mamba-7b's depth-8 step with the scan's backward kernel before its
+# redesign (one thread a row, a state saved every 8 steps), on an H100
+# 80GB HBM3 at 700 W: 14c prints its step beside them
+FALCON_TRAIN_BEFORE = dict(step_ms=262.787, device_ms=253.1, bwd_ms=41.6)
 FALCON_TRAIN = dict(layers=8, batch=4, seq=1024, steps=5, fall=0.95,
                     opt=dict(lr=1e-3, warmup_steps=2, total_steps=100))
 # 14d: the other families at full width, depth cut to what the card holds
@@ -2234,20 +2249,21 @@ def narrow(cims, r, c):
     return out
 
 
-def tick_ptxas():
-    """The ptxas report of every ``snn_tick_kernel`` instantiation in
-    ``lif_step.cu``'s build: {(kFaults, kGrouped): (registers, spill store
-    bytes, spill load bytes, static shared bytes)}."""
+def ptxas_report(name, kernel):
+    """The ptxas report of every instantiation of a kernel in
+    ``csrc/<name>.cu``'s build whose mangled name matches the regex
+    ``kernel``: {its groups: (registers, spill store bytes, spill load
+    bytes, static shared bytes)}."""
     import re
 
     from repro_torch.kernels import build as kbuild
 
     out, key = {}, None
-    for line in kbuild.build_log("lif_step").splitlines():
+    for line in kbuild.build_log(name).splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"snn_tick_kernelILb([01])ELb([01])E", m[1])
-            key = (k[1] == "1", k[2] == "1") if k else None
+            k = re.search(kernel, m[1])
+            key = k.groups() if k else None
             continue
         if key is None:
             continue
@@ -2259,6 +2275,13 @@ def tick_ptxas():
             _, st, ld, _ = out.get(key, (None, 0, 0, 0))
             out[key] = (int(m[1]), st, ld, int(m[2] or 0))
     return out
+
+
+def tick_ptxas():
+    """``ptxas_report`` of every ``snn_tick_kernel`` instantiation in
+    ``lif_step.cu``'s build, keyed by (kFaults, kGrouped)."""
+    return {(f == "1", g == "1"): v for (f, g), v in
+            ptxas_report("lif_step", r"snn_tick_kernelILb([01])ELb([01])E").items()}
 
 
 def wide_tick_state(seed):
@@ -2571,7 +2594,8 @@ def profile_run(name, run, units, unit, unprofiled_s, top=8):
     host sync and returns after ``units()`` ``unit``s of work.  The
     profiler's own host cost inflates its wall time, so the busy share is
     also given against the same run unprofiled.  ``top``: how many kernels
-    to list by device time."""
+    to list by device time.  Returns (device seconds, {kernel: device
+    seconds}), or None where the profile holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2585,7 +2609,7 @@ def profile_run(name, run, units, unit, unprofiled_s, top=8):
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     if busy == 0:
         print(f"{name} profile: device time not measured (no CUDA events)", flush=True)
-        return
+        return None
     n = sum(e.count for e in kernels)
     r = units()
     print(f"{name} profile: {r} {unit}s, device kernel time {busy:.6f} s "
@@ -2596,6 +2620,7 @@ def profile_run(name, run, units, unit, unprofiled_s, top=8):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:100]}",
               flush=True)
+    return busy, {e.key: e.self_device_time_total / 1e6 for e in kernels}
 
 
 def profile_phase(name, make_ctl, unprofiled_s, fused=None):
@@ -5524,10 +5549,21 @@ def bwd_bound_ms(shape, with_h0, with_dh):
 
 def scan_bwd_phase():
     """14a: ``ssm_scan_fused_bwd`` against ``selective_scan_fused_bwd`` on
-    the card, each output relative to its largest entry; its time at
-    falcon-mamba-7b's training shape; the autograd Function's gradients
-    against autograd through the plain forward."""
+    the card, each output relative to its largest entry; two launches at
+    falcon-mamba-7b's training shape bit-equal, and the kernel's time there;
+    its ptxas report (the N = 16 instantiation must not spill); the autograd
+    Function's gradients against autograd through the plain forward."""
     from repro_torch.kernels.ssm_scan import ops, ref
+
+    report = {int(k): v for (k,), v in
+              ptxas_report("ssm_scan", r"ssm_scan_bwd_kernelILi(\d+)E").items()}
+    check(sorted(report) == [8, 16, 32, 64], f"ptxas report: ssm_scan_bwd_kernel {report}")
+    check(report[16][1] == 0 == report[16][2], f"ssm_scan_bwd_kernel<16> spills "
+          f"{report[16][1]} bytes (stores) and {report[16][2]} (loads)")
+    print("ssm_scan_bwd_kernel ptxas (sm_90a): " + "; ".join(
+        f"<{k}> {r} registers, {st} bytes spill stores, {ld} bytes spill loads"
+        for k, (r, st, ld, _) in sorted(report.items())) + f"; layout at N = 16 (steps "
+        f"between saved states, rows a block, lanes a row) {ops.bwd_layout(16)}", flush=True)
 
     names = ("d_dt", "d_x", "d_b", "d_c", "d_a", "d_h0", "d_skip")
     max_err = 0.0
@@ -5553,6 +5589,15 @@ def scan_bwd_phase():
               f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (max |kernel - plain| over all "
               f"cases so far {max_err:.3e})", flush=True)
     args = bwd_inputs(BWD_MAIN, 9, False, False, (0.5, 0.999))
+    first, second = ops.selective_scan_fused_bwd(*args), ops.selective_scan_fused_bwd(*args)
+    torch.cuda.synchronize()
+    same = [name for name, x, y in zip(names, first, second)
+            if (x is None and y is None) or (x is not None and y is not None and torch.equal(x, y))]
+    check(len(same) == len(names), f"ssm_scan_fused_bwd {BWD_MAIN}: two launches differ in "
+          f"{sorted(set(names) - set(same))}")
+    print(f"ssm_scan_fused_bwd {BWD_MAIN}: two launches bit-equal on all {len(names)} outputs",
+          flush=True)
+    del first, second
     kernel = lambda: ops.selective_scan_fused_bwd(*args)
     plain = lambda: ref.selective_scan_fused_bwd(*args, chunk=256)
     k1, k2 = device_ms(kernel, reps=11, inner=4), device_ms(kernel, reps=11, inner=4)
@@ -5770,9 +5815,20 @@ def train_main_path(card):
           f"layers x {n} (the forward, and its rerun by remat's recompute of each layer in the "
           f"backward) and ssm_scan_fused_bwd {bwd} = {cfg.n_layers} x {n}, the unfused scan 0",
           flush=True)
-    profile_run(f"{FALCON} train step", lambda: (step_fn(state, batches[0]),
-                                                 torch.cuda.synchronize()),
-                lambda: 1, "step", step_s)
+    prof = profile_run(f"{FALCON} train step", lambda: (step_fn(state, batches[0]),
+                                                        torch.cuda.synchronize()),
+                       lambda: 1, "step", step_s)
+    if prof is not None:
+        busy, by_kernel = prof
+        bwd_s = sum(t for k, t in by_kernel.items() if "ssm_scan_bwd_kernel" in k)
+        fwd_s = sum(t for k, t in by_kernel.items() if "ssm_scan_kernel" in k)
+        was = FALCON_TRAIN_BEFORE
+        print(f"{FALCON} training at depth {cfg.n_layers}: step {1e3 * step_s:.3f} ms "
+              f"({spec['batch'] * spec['seq'] / step_s:.1f} tokens/s; with the one-thread-a-row "
+              f"backward kernel {was['step_ms']} ms); the {cfg.n_layers} backward scan launches "
+              f"{1e3 * bwd_s:.3f} ms of the step's {1e3 * busy:.3f} ms of device time "
+              f"({100 * bwd_s / busy:.2f}%; before: {was['bwd_ms']} of {was['device_ms']} ms), "
+              f"the {2 * cfg.n_layers} forward ones {1e3 * fwd_s:.3f} ms ({card})", flush=True)
     sync_free_step(FALCON, step_fn, state, batches[0])
     del state, batches
     gc.collect()

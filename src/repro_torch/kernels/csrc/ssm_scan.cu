@@ -233,36 +233,80 @@ bool bad_shape(int B, int S, int D, int N) {
 //   d_A = sum_{b,t} e_t * dt_t,  d_B_t = sum_d g_t * dt_t * x_t,
 //   d_C_t = sum_d h_t * dy_t,    d_h0 = da_0 * g_0.
 //
-// Design.  The forward's layout: one thread owns one (b, d) row, a block is
-// 128 rows, A's row and the running state live in registers.  The walk
-// back needs h_{t-1} at every step, so the thread first runs the recurrence
-// forward over the whole sequence and stores the state entering every
-// tile of kBwdTile steps in a (B, ceil(S / kBwdTile), D, N) scratch (its
-// own rows only: read back by the same thread, with plain loads).  It then
-// walks the tiles from last to first: it reloads a tile's entering state,
-// recomputes the tile's states into registers (kBwdTile * kMaxN <= 128
-// floats), and runs the reverse recurrence back through them, the carry g
-// in registers.  d_dt and d_x are per row and step.  d_B and d_C are sums
-// over d: each step's values are summed over a warp by shuffles and over
-// the block's four warps in shared memory, in a fixed order, and written as
-// (B, S, ceil(D / 128), N) partials that the wrapper sums with one torch
-// call; d_A accumulates over t in registers and is written per b, (B, D, N),
-// for a torch sum over B.  No float atomics: the result is deterministic.
-// Every product and sum is rounded on its own (__fmul_rn / __fadd_rn) and
-// da is expf, so the recomputed states equal the forward's; the sums over
-// n and d are taken in another order than the plain version's.
+// Design.  A (b, d) row's kMaxN state lanes are split over a group of
+// kMaxN / 4 threads, four lanes each (4 threads at N = 16), so a thread's
+// state, carries and a tile of recomputed states fit in registers; a block
+// is 256 threads, 256 / (kMaxN / 4) rows (64 at N = 16).  The walk back
+// needs every h_{t-1}.  The block walks one sequence of tiles of kBwdT = 8
+// steps:
+//   1. pass 1: the recurrence forward over the whole sequence, the state
+//      entering every chunk of kBwdC = 32 steps saved in a (B, ceil(S /
+//      32), D, kMaxN) scratch (each thread its own float4, read back only
+//      by itself);
+//   2. the chunks from last to first: a chunk's tiles but its last rerun
+//      forward from its saved state, the state entering each tile kept in
+//      shared memory (a thread's own float4 per tile); then
+//   3. the chunk's tiles from last to first: a tile's states and decays
+//      recomputed into registers (h and da for 8 steps: one expf per state
+//      element and step, which the reverse walk reuses), then the reverse
+//      recurrence back through them, the carry g in registers.
+// Each tile's B, C, dt, x and dy are staged into shared memory by
+// cp.async, two tiles ahead, in three buffers: a forward tile needs one
+// barrier.  The sums over n (for d_dt and d_x) are log2(kMaxN / 4)
+// shuffle levels inside the row's group.  The sums over d of d_B and d_C
+// start as a reduce-scatter over the warp's rows: each thread holds 8
+// products (4 lanes x B|C) and each level halves them between the two
+// partners, so after log2(32 / group) levels the warp's threads hold
+// distinct (n, B|C) sums (7 shuffles a thread and step at N = 16, not
+// 2 x 4 butterflies of 5).  A tile's warp sums go to shared memory and are
+// added over the block's warps in a fixed order into (B, S, ceil(D / rows),
+// N) partials that the wrapper sums with one torch call; d_A accumulates
+// over t in registers and is written per b, (B, D, N), for a torch sum over
+// B.  No float atomics: the same inputs give the same bits.  Every product
+// and sum is rounded on its own (__fmul_rn / __fadd_rn) and da is expf, so
+// the recomputed states equal the forward's; the sums over n and d are
+// taken in another order than the plain version's.
 //
 // Bound.  It reads dt, x and dy (12 * B*S*D bytes), B and C, A, h0 and
-// dh_last, and writes d_dt, d_x (8 * B*S*D), the partials and d_A, d_h0;
-// the scratch is written and read once more (8 * B*S*D*N / kBwdTile).  At
-// (4, 1024, 8192, 16) that is ~1.1 GB, ~0.33 ms at 3.35 TB/s.  It runs the
-// forward recurrence twice (4 operations per state element and step, plus
-// the expansion's 3) and the reverse one once (~14), ~25 operations per
-// state element and step: ~0.2 ms at 67 TFLOP/s.  Its parallelism is
-// B * D threads, each sequential over S.
+// dh_last, and writes d_dt, d_x (8 * B*S*D), the partials and d_A, d_h0:
+// at (4, 1024, 8192, 16) ~0.67 GB, ~0.20 ms at 3.35 TB/s.  The scratch
+// adds 4 * B*S*D*kMaxN / 32 bytes each way (67 MB there), the partials
+// 8 * B*S*N * D / 64 (67 MB), read once more by the wrapper's sums.  The
+// work is float32 elementwise arithmetic and sums, no matrix product, so
+// tensor cores do not apply.  Per state element and step it issues ~62
+// instructions: the forward recurrence in pass 1, over 3/4 of the steps
+// again in the rerun and in the tile's recompute (~13 each: an expf of 8
+// with one MUFU, 4 more, the staged loads), the reverse one (~13) and the
+// sums (~12 with shuffles and selects): ~1.0 ms at the card's 128 lanes
+// a cycle per SM (1.98 GHz), the MUFU's 16 a cycle ~0.35 ms.  It runs at
+// ~2.0 ms (H100 80GB HBM3, 700 W): at 125 registers two blocks of 8 warps
+// fit an SM, too few to hide the latency of the expf, shuffle and shared
+// load chains (__expf, 27% fewer instructions, took 7% off; a state saved
+// every 8 steps, with no rerun, took 16% off for 4x the scratch bytes).
+constexpr int kBwdBlock = 256;  // threads of a backward block
+constexpr int kBwdE = 4;        // state lanes a thread carries
+constexpr int kBwdT = 8;        // steps of a register tile
+constexpr int kBwdC = 32;       // steps between saved states (a multiple of kBwdT)
+
 template <int kMaxN>
-struct BwdTile {
-  static constexpr int value = 128 / kMaxN > 16 ? 16 : (128 / kMaxN < 2 ? 2 : 128 / kMaxN);
+struct BwdLayout {
+  static constexpr int kG = kMaxN / kBwdE;       // threads of a row's group
+  static constexpr int kRows = kBwdBlock / kG;   // rows of a block
+  static constexpr int kWarps = kBwdBlock / 32;
+  static constexpr int kSub = kBwdC / kBwdT;     // tiles of a chunk
+  struct Stage {  // one tile's inputs, staged by cp.async
+    float4 h_saved[kBwdBlock];  // a chunk's saved state, for the chunk's tiles 0
+    float bm[kBwdT][kMaxN];
+    float c[kBwdT][kMaxN];
+    float dt[kBwdT][kRows];
+    float x[kBwdT][kRows];
+    float dy[kBwdT][kRows];
+  };
+  struct Smem {
+    Stage st[3];                           // this tile's and the next two's
+    float4 h_in[kSub][kBwdBlock];          // the state entering each tile of the chunk
+    float red[kBwdT][kWarps][2 * kMaxN];   // each warp's d_B | d_C sums per step
+  };
 };
 
 struct BwdArgs {
@@ -276,7 +320,7 @@ struct BwdArgs {
   const float* dy;
   const float* dh_last;
   long long b_sb, b_ss, c_sb, c_ss;
-  float* states;
+  float4* states;
   float* d_dt;
   float* d_x;
   float* d_b;
@@ -287,172 +331,308 @@ struct BwdArgs {
   bool vec;
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
+// Asynchronous copies into shared memory: 4 bytes (zeros where ``in`` is
+// false; the source is then not read), or 16 bytes past L1.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(in ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async16(float4* dst, const float4* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// Loads lanes n0..n0+3 of a row of ``n`` floats, zeros past n; one float4
+// when ``vec`` (n % 4 == 0 and the row 16-byte aligned).
+__device__ __forceinline__ void load4(const float* __restrict__ row, int n0, int n,
+                                      bool vec, float (&out)[kBwdE]) {
+  if (vec) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (n0 < n) v = __ldg(reinterpret_cast<const float4*>(row + n0));
+    out[0] = v.x;
+    out[1] = v.y;
+    out[2] = v.z;
+    out[3] = v.w;
+  } else {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+    for (int j = 0; j < kBwdE; ++j) out[j] = n0 + j < n ? __ldg(row + n0 + j) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void to4(const float4 v, float (&out)[kBwdE]) {
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+}
+
+__device__ __forceinline__ float4 from4(const float (&v)[kBwdE]) {
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// The reduce-scatter of a step's 8 products (v[0..3] g * dt * x for the
+// thread's lanes, v[4..7] h * dy) over the warp's rows, at lane offsets
+// kO, kO / 2, ..., kG: at each level the partner with the offset's bit set
+// keeps the upper half of the live values and receives the other's, the
+// other the lower half; once one value is left, the level adds both
+// partners' (both then hold the sum, and ``writer`` keeps one).  ``base``
+// ends as the index in 0..7 of the thread's first value.
+template <int kO, int kM, int kG>
+__device__ __forceinline__ void rows_sum(float (&v)[2 * kBwdE], int lane, int& base,
+                                         bool& writer) {
+  if constexpr (kO >= kG) {
+    const bool up = (lane & kO) != 0;
+    if constexpr (kM > 1) {
+      constexpr int kH = kM / 2;
+#pragma unroll
+      for (int i = 0; i < kH; ++i) {
+        const float send = up ? v[i] : v[kH + i];
+        const float keep = up ? v[kH + i] : v[i];
+        v[i] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, kO));
+      }
+      if (up) base += kH;
+      rows_sum<kO / 2, kH, kG>(v, lane, base, writer);
+    } else {
+      v[0] = __fadd_rn(v[0], __shfl_xor_sync(0xffffffffu, v[0], kO));
+      writer = writer && !up;
+      rows_sum<kO / 2, 1, kG>(v, lane, base, writer);
+    }
+  }
+}
+
+// The block's walk is one sequence of tiles of kBwdT steps: pass 1's
+// tiles 0..n_tiles-1 forward; then the chunks from last to first, each
+// one's tiles 0..n_sub-2 forward again (the rerun) and its tiles
+// n_sub-1..0 back.  ``ci`` is -1 in pass 1; ``s`` the tile in its chunk.
+struct BwdTile {
+  int t0, ci, s;
+  bool back;
+};
+
+__device__ __forceinline__ int bwd_tiles(int S) {
+  const int n_tiles = (S + kBwdT - 1) / kBwdT, n_chunks = (S + kBwdC - 1) / kBwdC;
+  const int last_sub = n_tiles - (n_chunks - 1) * (kBwdC / kBwdT);
+  return n_tiles + 2 * last_sub - 1 + (n_chunks - 1) * (2 * (kBwdC / kBwdT) - 1);
+}
+
+__device__ __forceinline__ BwdTile bwd_tile_at(int i, int S) {
+  constexpr int kSub = kBwdC / kBwdT;
+  const int n_tiles = (S + kBwdT - 1) / kBwdT, n_chunks = (S + kBwdC - 1) / kBwdC;
+  if (i < n_tiles) return {i * kBwdT, -1, i % kSub, false};
+  int j = i - n_tiles, ci = n_chunks - 1, n_sub = n_tiles - ci * kSub;
+  if (j >= 2 * n_sub - 1) {
+    j -= 2 * n_sub - 1;
+    ci = n_chunks - 2 - j / (2 * kSub - 1);
+    j %= 2 * kSub - 1;
+    n_sub = kSub;
+  }
+  if (j < n_sub - 1) return {ci * kBwdC + j * kBwdT, ci, j, false};
+  const int s = 2 * n_sub - 2 - j;
+  return {ci * kBwdC + s * kBwdT, ci, s, true};
 }
 
 template <int kMaxN>
-__global__ void __launch_bounds__(kBlock) ssm_scan_bwd_kernel(const BwdArgs g) {
-  constexpr int kT = BwdTile<kMaxN>::value;
-  constexpr int kWarps = kBlock / 32;
-  __shared__ float b_sh[kT][kMaxN];
-  __shared__ float c_sh[kT][kMaxN];
-  __shared__ float red_b[kT][kWarps][kMaxN];
-  __shared__ float red_c[kT][kWarps][kMaxN];
-  const int d = blockIdx.x * kBlock + threadIdx.x;
+__global__ void __launch_bounds__(kBwdBlock, 2) ssm_scan_bwd_kernel(const BwdArgs g) {
+  using L = BwdLayout<kMaxN>;
+  constexpr int kG = L::kG, kRows = L::kRows, kT = kBwdT;
+  constexpr int kLeft = 2 * kBwdE * kG / 32 > 1 ? 2 * kBwdE * kG / 32 : 1;  // sums a thread keeps
+  extern __shared__ float4 smem_raw[];
+  typename L::Smem& sm = *reinterpret_cast<typename L::Smem*>(smem_raw);
+  const int tid = threadIdx.x, q = tid % kG, r = tid / kG;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int d = blockIdx.x * kRows + r;
   const int b = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int S = g.S, D = g.D, n = g.n;
-  const int n_tiles = (S + kT - 1) / kT;
+  const int S = g.S, D = g.D, n = g.n, n0 = kBwdE * q;
+  const int n_chunks = (S + kBwdC - 1) / kBwdC;
   const bool active = d < D;
   const size_t row = (size_t)b * D + d;
-  float arow[kMaxN], h[kMaxN];
+  float arow[kBwdE], h[kBwdE], gc[kBwdE], da_acc[kBwdE];  // gc: g's carry da_{t+1} * g_{t+1}
 #pragma unroll
-  for (int j = 0; j < kMaxN; ++j) arow[j] = h[j] = 0.f;
-  if (active) load_row<kMaxN>(g.a + (size_t)d * n, n, g.vec, arow);
-  if (active && g.h0 != nullptr) load_row<kMaxN>(g.h0 + row * n, n, g.vec, h);
+  for (int j = 0; j < kBwdE; ++j) arow[j] = h[j] = gc[j] = da_acc[j] = 0.f;
+  if (active) load4(g.a + (size_t)d * n, n0, n, g.vec, arow);
+  if (active && g.h0 != nullptr) load4(g.h0 + row * n, n0, n, g.vec, h);
+  if (active && g.dh_last != nullptr) load4(g.dh_last + row * n, n0, n, g.vec, gc);
   const float dsk = active && g.d_skip != nullptr ? g.d_skip[d] : 0.f;
-  const size_t base = (size_t)b * S * D + d;  // (b, 0, d) in (B, S, D)
   const float* bm_b = g.bm + b * g.b_sb;
   const float* c_b = g.c + b * g.c_sb;
-  // the state entering tile i of row (b, d): (B, n_tiles, D, N)
-  auto state_row = [&](int i) { return g.states + (((size_t)b * n_tiles + i) * D + d) * n; };
+  // the state entering chunk i of this thread's lanes: (B, n_chunks, D, kMaxN)
+  float4* const saved = g.states + ((size_t)b * n_chunks * D + (active ? d : 0)) * kG + q;
+  const size_t chunk_stride = (size_t)D * kG;
+  if (active) *saved = from4(h);
 
-  // pass 1: the recurrence forward, the state entering each tile saved
-  for (int i = 0; i < n_tiles; ++i) {
-    const int t0 = i * kT;
-    for (int q = threadIdx.x; q < kT * kMaxN; q += kBlock) {
-      const int k = q / kMaxN, j = q % kMaxN;
-      b_sh[k][j] = j < n && t0 + k < S ? __ldg(bm_b + (t0 + k) * g.b_ss + j) : 0.f;
+  // stages a tile's B and dt, x (and C, dy going back) into st: steps past
+  // S and lanes past n are zeros; a chunk's tile 0 also takes its saved
+  // state, but for the last chunk's: pass 1 may write that one after the
+  // copy is issued (when the chunk is one tile), so it is read in place
+  auto issue = [&](const BwdTile tl, typename L::Stage& st) {
+    for (int i = tid; i < kT * kMaxN; i += kBwdBlock) {
+      const int k = i / kMaxN, j = i % kMaxN;
+      const bool in = j < n && tl.t0 + k < S;
+      cp_async4(&st.bm[k][j], in ? bm_b + (tl.t0 + k) * g.b_ss + j : bm_b, in);
+      if (tl.back) cp_async4(&st.c[k][j], in ? c_b + (tl.t0 + k) * g.c_ss + j : c_b, in);
     }
-    float dtr[kT], xr[kT];
-#pragma unroll
-    for (int k = 0; k < kT; ++k) {
-      const bool in = active && t0 + k < S;
-      dtr[k] = in ? __ldg(g.dt + base + (size_t)(t0 + k) * D) : 0.f;
-      xr[k] = in ? __ldg(g.x + base + (size_t)(t0 + k) * D) : 0.f;
+    for (int i = tid; i < kT * kRows; i += kBwdBlock) {
+      const int k = i / kRows, rr = i % kRows, dd = blockIdx.x * kRows + rr;
+      const bool in = dd < D && tl.t0 + k < S;
+      const size_t o = in ? ((size_t)b * S + tl.t0 + k) * D + dd : 0;
+      cp_async4(&st.dt[k][rr], g.dt + o, in);
+      cp_async4(&st.x[k][rr], g.x + o, in);
+      if (tl.back) cp_async4(&st.dy[k][rr], g.dy + o, in);
     }
-    if (active) {
-      float* out = state_row(i);
-#pragma unroll
-      for (int j = 0; j < kMaxN; ++j) {
-        if (j < n) out[j] = h[j];
-      }
-    }
+    if (tl.ci >= 0 && tl.ci < n_chunks - 1 && tl.s == 0)
+      cp_async16(&st.h_saved[tid], saved + tl.ci * chunk_stride, active);
+    cp_async_commit();
+  };
+
+  // tile i's inputs arrive in st[i % 3] while tiles i - 1 and i - 2 run:
+  // it is issued past the barrier that ends every thread's use of tile
+  // i - 3's, so a forward tile needs one barrier
+  const int n_walk = bwd_tiles(S);
+  issue(bwd_tile_at(0, S), sm.st[0]);
+  if (n_walk > 1) issue(bwd_tile_at(1, S), sm.st[1]);
+  for (int i = 0; i < n_walk; ++i) {
+    const BwdTile tl = bwd_tile_at(i, S);
+    const typename L::Stage& st = sm.st[i % 3];
+    if (i + 1 < n_walk) cp_async_wait<1>();
+    else cp_async_wait<0>();
     __syncthreads();
+    if (i + 2 < n_walk) issue(bwd_tile_at(i + 2, S), sm.st[(i + 2) % 3]);
+    const int t0 = tl.t0;
+    // the state entering the chunk, for the chunk's tile 0
+    auto chunk_state = [&]() {
+      if (tl.ci < n_chunks - 1) return st.h_saved[tid];
+      return active ? saved[tl.ci * chunk_stride] : make_float4(0.f, 0.f, 0.f, 0.f);
+    };
+    if (!tl.back) {
+      // h steps forward over the tile (steps past S leave it as it is)
+      if (tl.ci >= 0 && tl.s == 0) to4(chunk_state(), h);
 #pragma unroll
-    for (int k = 0; k < kT; ++k) {
-      if (t0 + k < S) {
-        const float dtx = __fmul_rn(dtr[k], xr[k]);
+      for (int k = 0; k < kT; ++k) {
+        const float dtv = st.dt[k][r];
+        const float dtx = __fmul_rn(dtv, st.x[k][r]);
+        float bq[kBwdE];
+        to4(*reinterpret_cast<const float4*>(&st.bm[k][n0]), bq);
 #pragma unroll
-        for (int j = 0; j < kMaxN; ++j) {
-          const float da = expf(__fmul_rn(dtr[k], arow[j]));
-          h[j] = __fadd_rn(__fmul_rn(da, h[j]), __fmul_rn(dtx, b_sh[k][j]));
+        for (int j = 0; j < kBwdE; ++j) {
+          const float da = expf(__fmul_rn(dtv, arow[j]));
+          h[j] = __fadd_rn(__fmul_rn(da, h[j]), __fmul_rn(dtx, bq[j]));
         }
       }
+      if (tl.ci >= 0) sm.h_in[tl.s + 1][tid] = from4(h);  // read back only by this thread
+      else if ((t0 + kT) % kBwdC == 0 && t0 + kT < S && active)
+        saved[(t0 + kT) / kBwdC * chunk_stride] = from4(h);
+      continue;
     }
-    __syncthreads();
-  }
-
-  // pass 2: the tiles from last to first, the reverse recurrence
-  float gc[kMaxN], da_acc[kMaxN];  // g's carry (da_{t+1} * g_{t+1}); d_A's sum
-#pragma unroll
-  for (int j = 0; j < kMaxN; ++j) gc[j] = da_acc[j] = 0.f;
-  if (active && g.dh_last != nullptr) load_row<kMaxN>(g.dh_last + row * n, n, g.vec, gc);
-  for (int i = n_tiles - 1; i >= 0; --i) {
-    const int t0 = i * kT;
-    for (int q = threadIdx.x; q < kT * kMaxN; q += kBlock) {
-      const int k = q / kMaxN, j = q % kMaxN;
-      const bool in = j < n && t0 + k < S;
-      b_sh[k][j] = in ? __ldg(bm_b + (t0 + k) * g.b_ss + j) : 0.f;
-      c_sh[k][j] = in ? __ldg(c_b + (t0 + k) * g.c_ss + j) : 0.f;
-    }
-    float dtr[kT], xr[kT], dyr[kT];
+    // back: the tile's states and decays recomputed into registers ...
+    float hs[kT + 1][kBwdE], dav[kT][kBwdE];  // hs[k] = h_{t0+k-1}; dav[k] = da_{t0+k}
+    to4(tl.s == 0 ? chunk_state() : sm.h_in[tl.s][tid], hs[0]);
 #pragma unroll
     for (int k = 0; k < kT; ++k) {
-      const bool in = active && t0 + k < S;
-      dtr[k] = in ? __ldg(g.dt + base + (size_t)(t0 + k) * D) : 0.f;
-      xr[k] = in ? __ldg(g.x + base + (size_t)(t0 + k) * D) : 0.f;
-      dyr[k] = in ? __ldg(g.dy + base + (size_t)(t0 + k) * D) : 0.f;
-    }
-    float hp[kT][kMaxN];  // hp[k] = h_{t0+k-1}, the state entering step t0+k
-    if (active) {
-      const float* src = state_row(i);
+      const float dtv = st.dt[k][r];
+      const float dtx = __fmul_rn(dtv, st.x[k][r]);
+      float bq[kBwdE];
+      to4(*reinterpret_cast<const float4*>(&st.bm[k][n0]), bq);
 #pragma unroll
-      for (int j = 0; j < kMaxN; ++j) hp[0][j] = j < n ? src[j] : 0.f;
-    } else {
-#pragma unroll
-      for (int j = 0; j < kMaxN; ++j) hp[0][j] = 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 1; k < kT; ++k) {
-      const float dtx = __fmul_rn(dtr[k - 1], xr[k - 1]);
-#pragma unroll
-      for (int j = 0; j < kMaxN; ++j) {
-        const float da = expf(__fmul_rn(dtr[k - 1], arow[j]));
-        hp[k][j] = __fadd_rn(__fmul_rn(da, hp[k - 1][j]), __fmul_rn(dtx, b_sh[k - 1][j]));
+      for (int j = 0; j < kBwdE; ++j) {
+        dav[k][j] = expf(__fmul_rn(dtv, arow[j]));
+        hs[k + 1][j] = __fadd_rn(__fmul_rn(dav[k][j], hs[k][j]), __fmul_rn(dtx, bq[j]));
       }
     }
+    // ... and the reverse recurrence back through them.  A step past S
+    // has zeros staged (da = 1, g unchanged, zero products) and stores
+    // nothing, so the tile is one block of straight-line code that the
+    // compiler can interleave across steps
 #pragma unroll
     for (int k = kT - 1; k >= 0; --k) {
-      if (t0 + k < S) {  // the same for every thread of the block: shuffles are safe
-        const float dtv = dtr[k], xv = xr[k], dyv = dyr[k];
-        const float dtx = __fmul_rn(dtv, xv);
-        float s_dt = 0.f, s_gb = 0.f;
+      const bool in = t0 + k < S;
+      const float dtv = st.dt[k][r], xv = st.x[k][r], dyv = st.dy[k][r];
+      const float dtx = __fmul_rn(dtv, xv);
+      float bq[kBwdE], cq[kBwdE], v[2 * kBwdE];
+      to4(*reinterpret_cast<const float4*>(&st.bm[k][n0]), bq);
+      to4(*reinterpret_cast<const float4*>(&st.c[k][n0]), cq);
+      float s_dt = 0.f, s_gb = 0.f;
 #pragma unroll
-        for (int j = 0; j < kMaxN; ++j) {
-          const float da = expf(__fmul_rn(dtv, arow[j]));
-          const float ht = __fadd_rn(__fmul_rn(da, hp[k][j]), __fmul_rn(dtx, b_sh[k][j]));
-          const float gt = __fadd_rn(gc[j], __fmul_rn(dyv, c_sh[k][j]));
-          const float e = __fmul_rn(__fmul_rn(gt, hp[k][j]), da);
-          da_acc[j] = __fadd_rn(da_acc[j], __fmul_rn(e, dtv));
-          s_dt = __fadd_rn(s_dt, __fmul_rn(e, arow[j]));
-          s_gb = __fadd_rn(s_gb, __fmul_rn(gt, b_sh[k][j]));
-          gc[j] = __fmul_rn(da, gt);
-          const float sb = warp_sum(__fmul_rn(gt, dtx));
-          const float sc = warp_sum(__fmul_rn(ht, dyv));
-          if (lane == 0) {
-            red_b[k][warp][j] = sb;
-            red_c[k][warp][j] = sc;
-          }
-        }
-        if (active) {
-          const size_t o = base + (size_t)(t0 + k) * D;
-          g.d_dt[o] = __fadd_rn(s_dt, __fmul_rn(s_gb, xv));
-          g.d_x[o] = __fadd_rn(__fmul_rn(s_gb, dtv), __fmul_rn(dyv, dsk));
+      for (int j = 0; j < kBwdE; ++j) {
+        const float gt = __fadd_rn(gc[j], __fmul_rn(dyv, cq[j]));
+        const float e = __fmul_rn(__fmul_rn(gt, hs[k][j]), dav[k][j]);
+        da_acc[j] = __fadd_rn(da_acc[j], __fmul_rn(e, dtv));
+        s_dt = __fadd_rn(s_dt, __fmul_rn(e, arow[j]));
+        s_gb = __fadd_rn(s_gb, __fmul_rn(gt, bq[j]));
+        gc[j] = __fmul_rn(dav[k][j], gt);
+        v[j] = __fmul_rn(gt, dtx);
+        v[kBwdE + j] = __fmul_rn(hs[k + 1][j], dyv);
+      }
+      // the sums over n: the row's group of threads
+#pragma unroll
+      for (int o = 1; o < kG; o <<= 1) {
+        s_dt = __fadd_rn(s_dt, __shfl_xor_sync(0xffffffffu, s_dt, o));
+        s_gb = __fadd_rn(s_gb, __shfl_xor_sync(0xffffffffu, s_gb, o));
+      }
+      if (in && active && q == 0) {
+        const size_t o = ((size_t)b * S + t0 + k) * D + d;
+        g.d_dt[o] = __fadd_rn(s_dt, __fmul_rn(s_gb, xv));
+        g.d_x[o] = __fadd_rn(__fmul_rn(s_gb, dtv), __fmul_rn(dyv, dsk));
+      }
+      // the sums over the warp's rows
+      int base = 0;
+      bool writer = true;
+      rows_sum<16, 2 * kBwdE, kG>(v, lane, base, writer);
+      if (writer) {
+#pragma unroll
+        for (int m = 0; m < kLeft; ++m) {
+          const int u = base + m;
+          sm.red[k][warp][(u < kBwdE ? 0 : kMaxN) + n0 + (u & (kBwdE - 1))] = v[m];
         }
       }
     }
     __syncthreads();
-    // the tile's d_B and d_C partials over this block's rows: (B, S, nblk, N)
-    for (int q = threadIdx.x; q < kT * kMaxN; q += kBlock) {
-      const int k = q / kMaxN, j = q % kMaxN;
+    // the tile's d_B and d_C partials over the block's rows: (B, S, nblk, N);
+    // the next walk writes red only past the next tile's barrier
+    for (int k2 = tid; k2 < kT * 2 * kMaxN; k2 += kBwdBlock) {
+      const int k = k2 / (2 * kMaxN), col = k2 % (2 * kMaxN), j = col % kMaxN;
       if (j < n && t0 + k < S) {
-        float sb = red_b[k][0][j], sc = red_c[k][0][j];
+        float sum = sm.red[k][0][col];
 #pragma unroll
-        for (int w = 1; w < kWarps; ++w) {
-          sb = __fadd_rn(sb, red_b[k][w][j]);
-          sc = __fadd_rn(sc, red_c[k][w][j]);
-        }
+        for (int w = 1; w < L::kWarps; ++w) sum = __fadd_rn(sum, sm.red[k][w][col]);
         const size_t o = (((size_t)b * S + t0 + k) * gridDim.x + blockIdx.x) * n + j;
-        g.d_b[o] = sb;
-        g.d_c[o] = sc;
+        (col < kMaxN ? g.d_b : g.d_c)[o] = sum;
       }
     }
-    __syncthreads();
   }
   if (active) {
 #pragma unroll
-    for (int j = 0; j < kMaxN; ++j) {
-      if (j < n) {
-        g.d_a[row * n + j] = da_acc[j];
-        if (g.d_h0 != nullptr) g.d_h0[row * n + j] = gc[j];
+    for (int j = 0; j < kBwdE; ++j) {
+      if (n0 + j < n) {
+        g.d_a[row * n + n0 + j] = da_acc[j];
+        if (g.d_h0 != nullptr) g.d_h0[row * n + n0 + j] = gc[j];
       }
     }
   }
+}
+
+template <int kMaxN>
+int bwd_launch(const BwdArgs& g, int B, cudaStream_t st) {
+  constexpr int bytes = sizeof(typename BwdLayout<kMaxN>::Smem);
+  const cudaError_t err = cudaFuncSetAttribute(
+      ssm_scan_bwd_kernel<kMaxN>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((g.D + BwdLayout<kMaxN>::kRows - 1) / BwdLayout<kMaxN>::kRows, B);
+  ssm_scan_bwd_kernel<kMaxN><<<grid, kBwdBlock, bytes, st>>>(g);
+  return (int)cudaGetLastError();
+}
+
+template <int kMaxN>
+void bwd_layout(int* out) {
+  out[0] = kBwdC;
+  out[1] = BwdLayout<kMaxN>::kRows;
+  out[2] = kMaxN;
 }
 
 }  // namespace
@@ -514,21 +694,28 @@ extern "C" int ssm_scan_fused_launch(const void* dt, const void* x, const void* 
   return launch<true>(g, B, stream);
 }
 
-// Steps between the saved states of ssm_scan_fused_bwd_launch for N state
-// lanes: the (B, ceil(S / tile), D, N) scratch the caller allocates.
-extern "C" int ssm_scan_bwd_tile(int N) {
-  return N <= 8 ? BwdTile<8>::value : N <= 16 ? BwdTile<16>::value
-         : N <= 32 ? BwdTile<32>::value : BwdTile<64>::value;
+// The backward's buffers for N state lanes: out[0] the steps between saved
+// states, out[1] the rows of D a block covers, out[2] the lanes a row's
+// saved state is padded to.  The caller allocates the scratch as
+// (B, ceil(S / out[0]), D, out[2]) and the d_b, d_c partials as
+// (B, S, ceil(D / out[1]), N).  Returns 0, or cudaErrorInvalidValue.
+extern "C" int ssm_scan_bwd_layout(int N, int* out) {
+  if (N < 1 || N > 64) return (int)cudaErrorInvalidValue;
+  if (N <= 8) bwd_layout<8>(out);
+  else if (N <= 16) bwd_layout<16>(out);
+  else if (N <= 32) bwd_layout<32>(out);
+  else bwd_layout<64>(out);
+  return 0;
 }
 
 // The fused scan's backward.  Inputs as ssm_scan_fused_launch (h0 and
 // d_skip may be null), dy (B, S, D) and dh_last (B, D, N) or null (zero),
 // float32 and contiguous.  Writes d_dt and d_x (B, S, D); the partials
-// d_b and d_c (B, S, ceil(D / 128), N), each block's sum over its rows;
+// d_b and d_c (B, S, ceil(D / rows), N), each block's sum over its rows;
 // d_a (B, D, N), each batch row's sum over t; d_h0 (B, D, N) unless null;
-// ``states`` is (B, ceil(S / ssm_scan_bwd_tile(N)), D, N) scratch.  Shapes
-// as ssm_scan_launch; ``vec`` != 0 promises N % 4 == 0 and 16-byte aligned
-// a, h0 and dh_last.
+// ``states`` is scratch, 16-byte aligned (sizes: ssm_scan_bwd_layout).
+// Shapes as ssm_scan_launch; ``vec`` != 0 promises N % 4 == 0 and 16-byte
+// aligned a, h0 and dh_last.
 extern "C" int ssm_scan_fused_bwd_launch(
     const void* dt, const void* x, const void* b, const void* c, long long b_sb,
     long long b_ss, long long c_sb, long long c_ss, const void* a, const void* h0,
@@ -550,7 +737,7 @@ extern "C" int ssm_scan_fused_bwd_launch(
   g.d_skip = (const float*)d_skip;
   g.dy = (const float*)dy;
   g.dh_last = (const float*)dh_last;
-  g.states = (float*)states;
+  g.states = (float4*)states;
   g.d_dt = (float*)d_dt;
   g.d_x = (float*)d_x;
   g.d_b = (float*)d_b;
@@ -561,11 +748,9 @@ extern "C" int ssm_scan_fused_bwd_launch(
   g.D = D;
   g.n = N;
   g.vec = vec != 0;
-  const dim3 grid((D + kBlock - 1) / kBlock, B);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (N <= 8) ssm_scan_bwd_kernel<8><<<grid, kBlock, 0, st>>>(g);
-  else if (N <= 16) ssm_scan_bwd_kernel<16><<<grid, kBlock, 0, st>>>(g);
-  else if (N <= 32) ssm_scan_bwd_kernel<32><<<grid, kBlock, 0, st>>>(g);
-  else ssm_scan_bwd_kernel<64><<<grid, kBlock, 0, st>>>(g);
-  return (int)cudaGetLastError();
+  if (N <= 8) return bwd_launch<8>(g, B, st);
+  if (N <= 16) return bwd_launch<16>(g, B, st);
+  if (N <= 32) return bwd_launch<32>(g, B, st);
+  return bwd_launch<64>(g, B, st);
 }

@@ -200,14 +200,18 @@ class SelectiveScanFused(torch.autograd.Function):
                 None)
 
 
-def bwd_tile(n):
-    """Steps between the backward kernel's saved states, for N = ``n``."""
+def bwd_layout(n):
+    """The backward kernel's buffers for N = ``n``: (steps between its saved
+    states, rows of D a block covers, lanes a saved state is padded to)."""
     with LOCK:
-        if "ssm_scan_bwd_tile" not in _fns:
-            fn = build.load("ssm_scan").ssm_scan_bwd_tile
-            fn.argtypes, fn.restype = [_I], _I
-            _fns["ssm_scan_bwd_tile"] = fn
-        return _fns["ssm_scan_bwd_tile"](n)
+        if "ssm_scan_bwd_layout" not in _fns:
+            fn = build.load("ssm_scan").ssm_scan_bwd_layout
+            fn.argtypes, fn.restype = [_I, ctypes.POINTER(_I)], _I
+            _fns["ssm_scan_bwd_layout"] = fn
+        out = (_I * 3)()
+        if _fns["ssm_scan_bwd_layout"](n, out) != 0:
+            raise ValueError(f"selective_scan_fused_bwd: N = {n} outside 1..{MAX_N}")
+        return tuple(out)
 
 
 def selective_scan_fused_bwd(dt, x, b, c, a, h0, d_skip, dy, dh_last=None, chunk=None):
@@ -216,7 +220,7 @@ def selective_scan_fused_bwd(dt, x, b, c, a, h0, d_skip, dy, dh_last=None, chunk
     and contiguous -> (d_dt, d_x, d_b, d_c, d_a, d_h0, d_skip's gradient),
     d_b and d_c contiguous, the last two None where ``h0`` or ``d_skip`` is.
     On the card one launch of ``ssm_scan_fused_bwd_launch`` computes every
-    per-step gradient, d_b and d_c as partial sums over each 128-row block
+    per-step gradient, d_b and d_c as partial sums over each block's rows
     of D and d_a per batch row, which one torch sum each finishes (a fixed
     order: no atomics); the plain version on the CPU (``ref.py``)."""
     who = "selective_scan_fused_bwd"
@@ -227,6 +231,41 @@ def selective_scan_fused_bwd(dt, x, b, c, a, h0, d_skip, dy, dh_last=None, chunk
     return _fused_bwd(dt, x, b, c, a, h0, d_skip, dy, dh_last, chunk)
 
 
+def _bwd_buffers(bsz, s, d, n, layout, with_h0, device):
+    """The backward launch's scratch and outputs for a (B, S, D, N) =
+    (``bsz``, ``s``, ``d``, ``n``) call and the kernel's ``layout``
+    (``bwd_layout``): the saved states (B, ceil(S / stride), D, lanes),
+    d_dt and d_x (B, S, D), the d_b and d_c partials (B, S, ceil(D / rows),
+    N), d_a per batch row (B, D, N), d_h0 (B, D, N) or None."""
+    stride, rows, lanes = layout
+    empty = lambda *shape: torch.empty(shape, dtype=_F32, device=device)
+    n_blk = -(-d // rows)
+    return {"states": empty(bsz, -(-s // stride), d, lanes), "d_dt": empty(bsz, s, d),
+            "d_x": empty(bsz, s, d), "d_b": empty(bsz, s, n_blk, n),
+            "d_c": empty(bsz, s, n_blk, n), "d_a": empty(bsz, d, n),
+            "d_h0": empty(bsz, d, n) if with_h0 else None}
+
+
+def _bwd_arguments(dt, x, b, c, a, h0, d_skip, dy, dh_last, buf):
+    """``ssm_scan_fused_bwd_launch``'s arguments before the stream: b and c
+    with unit last strides, ``buf`` from ``_bwd_buffers``."""
+    bsz, s, d = dt.shape
+    n = b.shape[-1]
+    vec = n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (a, h0, dh_last) if t is not None)
+    return (dt.data_ptr(), x.data_ptr(), b.data_ptr(), c.data_ptr(), b.stride(0), b.stride(1),
+            c.stride(0), c.stride(1), a.data_ptr(), _ptr(h0), _ptr(d_skip), dy.data_ptr(),
+            _ptr(dh_last), buf["states"].data_ptr(), buf["d_dt"].data_ptr(),
+            buf["d_x"].data_ptr(), buf["d_b"].data_ptr(), buf["d_c"].data_ptr(),
+            buf["d_a"].data_ptr(), _ptr(buf["d_h0"]), bsz, s, d, n, int(vec))
+
+
+def _bwd_result(buf, x, dy, d_skip):
+    """The gradients from a launch's ``buf``: the partials summed over the
+    blocks of D (d_b, d_c) and over B (d_a) in torch's fixed order."""
+    return (buf["d_dt"], buf["d_x"], buf["d_b"].sum(2), buf["d_c"].sum(2), buf["d_a"].sum(0),
+            buf["d_h0"], None if d_skip is None else (dy * x).sum((0, 1)))
+
+
 def _fused_bwd(dt, x, b, c, a, h0, d_skip, dy, dh_last, chunk):
     if dt.device.type == "cpu":
         return ref.selective_scan_fused_bwd(dt, x, b, c, a, h0, d_skip, dy, dh_last, chunk)
@@ -234,28 +273,15 @@ def _fused_bwd(dt, x, b, c, a, h0, d_skip, dy, dh_last, chunk):
     n = b.shape[-1]
     dev = dt.device
     b, c = _unit_rows(b), _unit_rows(c)
-    tile = bwd_tile(n)
-    n_blk = -(-d // 128)
-    empty = lambda *shape: torch.empty(shape, dtype=_F32, device=dev)
-    states = empty(bsz, -(-s // tile), d, n)  # the state entering each tile
-    d_dt, d_x = empty(bsz, s, d), empty(bsz, s, d)
-    d_b_part, d_c_part = empty(bsz, s, n_blk, n), empty(bsz, s, n_blk, n)
-    d_a_part = empty(bsz, d, n)
-    d_h0 = None if h0 is None else empty(bsz, d, n)
-    vec = n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (a, h0, dh_last) if t is not None)
+    buf = _bwd_buffers(bsz, s, d, n, bwd_layout(n), h0 is not None, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _launcher("ssm_scan_fused_bwd_launch")(
-            dt.data_ptr(), x.data_ptr(), b.data_ptr(), c.data_ptr(), b.stride(0),
-            b.stride(1), c.stride(0), c.stride(1), a.data_ptr(), _ptr(h0), _ptr(d_skip),
-            dy.data_ptr(), _ptr(dh_last), states.data_ptr(), d_dt.data_ptr(), d_x.data_ptr(),
-            d_b_part.data_ptr(), d_c_part.data_ptr(), d_a_part.data_ptr(), _ptr(d_h0),
-            bsz, s, d, n, int(vec), stream)
+            *_bwd_arguments(dt, x, b, c, a, h0, d_skip, dy, dh_last, buf), stream)
     if err != 0:
         raise RuntimeError(f"ssm_scan backward kernel launch failed: CUDA error {err}")
     count_launch(selective_scan_fused_bwd, launches=1)
-    return (d_dt, d_x, d_b_part.sum(2), d_c_part.sum(2), d_a_part.sum(0), d_h0,
-            None if d_skip is None else (dy * x).sum((0, 1)))
+    return _bwd_result(buf, x, dy, d_skip)
 
 
 selective_scan.launches = 0

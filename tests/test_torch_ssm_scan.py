@@ -255,3 +255,100 @@ def test_cuda_fused_kernel_matches_plain(b, s, d, n, h0):
     torch.cuda.synchronize()
     assert ops.selective_scan_fused.launches == before + 1
     assert torch.equal(y, y_want) and torch.equal(h, h_want)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernel's buffers, launch arguments and finishing sums
+
+
+def _bwd_inputs(b, s, d, n, seed, h0=True, dh=True):
+    rng = np.random.default_rng(seed)
+    f = lambda x: torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+    proj = f(rng.normal(0, 1, (b, s, 2 + 2 * n)))
+    _, bm, cm = torch.split(proj, [2, n, n], dim=-1)
+    return (f(rng.uniform(0.05, 0.6, (b, s, d))), f(rng.normal(0, 1, (b, s, d))), bm, cm,
+            f(-rng.uniform(0.5, 1.5, (d, n))), f(rng.normal(0, 1, (b, d, n))) if h0 else None,
+            f(rng.normal(0, 1, (d,))) if h0 else None, f(rng.normal(0, 1, (b, s, d))),
+            f(rng.normal(0, 1, (b, d, n))) if dh else None)
+
+
+def _kernel_layout(n):
+    """``ssm_scan_bwd_layout``'s answer (csrc/ssm_scan.cu): a state saved
+    every 32 steps, 256 threads a block over rows of n padded to a power of
+    two >= 8 lanes, 4 lanes a thread."""
+    lanes = max(8, 1 << (n - 1).bit_length())
+    return 32, 256 // (lanes // 4), lanes
+
+
+# (B, S, D, N): S = 1, S past the strides, D past a block of rows, N whose
+# threads' lane groups are partly empty
+BWD_SHAPES = [(2, 1, 9, 16), (1, 70, 70, 16), (2, 19, 33, 5), (1, 130, 65, 12),
+              (2, 64, 140, 4), (1, 5, 20, 33)]
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+@pytest.mark.parametrize("h0", [True, False])
+def test_bwd_buffers_take_the_kernel_layout(shape, h0):
+    b, s, d, n = shape
+    stride, rows, lanes = _kernel_layout(n)
+    buf = ops._bwd_buffers(b, s, d, n, (stride, rows, lanes), h0, "cpu")
+    n_blk = -(-d // rows)
+    want = {"states": (b, -(-s // stride), d, lanes), "d_dt": (b, s, d), "d_x": (b, s, d),
+            "d_b": (b, s, n_blk, n), "d_c": (b, s, n_blk, n), "d_a": (b, d, n),
+            "d_h0": (b, d, n) if h0 else None}
+    assert {k: None if v is None else tuple(v.shape) for k, v in buf.items()} == want
+    assert all(v.dtype == torch.float32 and v.is_contiguous() for v in buf.values()
+               if v is not None)
+
+
+@pytest.mark.parametrize("shape,h0,dh", [((2, 19, 33, 5), True, False),
+                                         ((1, 70, 70, 16), False, True),
+                                         ((1, 9, 8, 12), True, True)])
+def test_bwd_arguments_follow_the_launch_signature(shape, h0, dh):
+    b, s, d, n = shape
+    args = _bwd_inputs(*shape, seed=sum(shape), h0=h0, dh=dh)
+    buf = ops._bwd_buffers(b, s, d, n, _kernel_layout(n), h0, "cpu")
+    got = ops._bwd_arguments(*args, buf)
+    assert len(got) + 1 == len(ops._ARGTYPES["ssm_scan_fused_bwd_launch"])  # + the stream
+    dt, x, bm, cm, a, h0_t, dsk, dy, dh_t = args
+    assert got[:4] == (dt.data_ptr(), x.data_ptr(), bm.data_ptr(), cm.data_ptr())
+    assert got[4:8] == (bm.stride(0), bm.stride(1), cm.stride(0), cm.stride(1))
+    assert got[9:13] == tuple(None if t is None else t.data_ptr() for t in (h0_t, dsk, dy, dh_t))
+    assert got[13] == buf["states"].data_ptr() and (got[19] is None) == (not h0)
+    vec = n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (a, h0_t, dh_t) if t is not None)
+    assert got[20:] == (b, s, d, n, int(vec))
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+@pytest.mark.parametrize("h0", [True, False])
+def test_bwd_finishing_sums_give_the_gradient(shape, h0):
+    """What the kernel leaves in its buffers (per-step gradients, d_b and
+    d_c summed over each block's rows, d_a over each batch row's steps),
+    made here from the plain backward of each block's rows and batch row,
+    and finished by ``_bwd_result``: the plain backward of the whole call."""
+    b, s, d, n = shape
+    args = _bwd_inputs(*shape, seed=7 + sum(shape), h0=h0)
+    dt, x, bm, cm, a, h0_t, dsk, dy, dh = args
+    want = ref.selective_scan_fused_bwd(*args)
+    _, rows, _ = _kernel_layout(n)
+    buf = ops._bwd_buffers(b, s, d, n, _kernel_layout(n), h0, "cpu")
+    for blk in range(-(-d // rows)):
+        sl = slice(blk * rows, min((blk + 1) * rows, d))
+        part = ref.selective_scan_fused_bwd(
+            dt[:, :, sl], x[:, :, sl], bm, cm, a[sl], None if h0_t is None else h0_t[:, sl],
+            None if dsk is None else dsk[sl], dy[:, :, sl], None if dh is None else dh[:, sl])
+        buf["d_dt"][:, :, sl], buf["d_x"][:, :, sl] = part[0], part[1]
+        buf["d_b"][:, :, blk], buf["d_c"][:, :, blk] = part[2], part[3]
+        if h0:
+            buf["d_h0"][:, sl] = part[5]
+    for i in range(b):
+        one = lambda t: None if t is None else t[i:i + 1]
+        buf["d_a"][i] = ref.selective_scan_fused_bwd(*map(one, (dt, x, bm, cm)), a, one(h0_t), dsk,
+                                                     one(dy), one(dh))[4]
+    got = ops._bwd_result(buf, x, dy, dsk)
+    assert [g is None for g in got] == [w is None for w in want]
+    for name, g, w in zip(["d_dt", "d_x", "d_b", "d_c", "d_a", "d_h0", "d_skip"], got, want):
+        if w is not None:
+            # sums over blocks and batch rows in another order than the whole call's
+            assert g.shape == w.shape and g.is_contiguous(), name
+            assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max()), name

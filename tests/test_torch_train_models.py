@@ -146,7 +146,10 @@ def _scan_inputs(b, s, d, n, seed, h0=True, dtype=np.float32):
 @pytest.mark.parametrize("shape,chunk,h0,dh", [((1, 5, 7, 4), None, False, False),
                                                ((2, 37, 20, 16), 8, True, True),
                                                ((1, 16, 9, 5), 16, True, False),
-                                               ((2, 9, 6, 8), 4, False, True)])
+                                               ((2, 9, 6, 8), 4, False, True),
+                                               ((2, 1, 9, 16), None, True, True),  # S = 1
+                                               # S a tile past two of the kernel's 32-step strides
+                                               ((1, 72, 6, 12), 32, True, True)])
 def test_plain_backward_matches_autograd(shape, chunk, h0, dh):
     args = _scan_inputs(*shape, seed=sum(shape), h0=h0)
     rng = np.random.default_rng(1)
