@@ -222,9 +222,28 @@ and fails (non-zero exit, no result line) unless every phase holds:
      state through a checkpoint round trip, llama4-scout and qwen2-vl-72b at
      depth 1 (loss, gradients, a plain gradient step), kimi-k2's int8-moment
      AdamW step against the float32 one at one expert's weight.  ``--phase
-     14`` runs phase 14 alone and prints no result line.
+     14`` runs phase 14 alone and prints no result line.  Phases 12b, 13c
+     and 14c print model FLOP/s (6·N·D a training step, 2·N·D a prefill
+     or a decode step: ``analysis.roofline.model_flops``) and their share
+     of the 989 TFLOP/s bf16 dense peak; 14c also counts one qwen3-1.7b
+     step with ``roofline.from_step`` beside 6·N·D;
+  15. (run after 11) the multi-device backends at world size 1 over NCCL
+     (one rank per card; a ``file://`` rendezvous in a temporary
+     directory, the group destroyed at the end): fig5snn and
+     Googlenet-conv1's offload on one segment on ``Controller(backend=
+     "shard_map")``, fused and per-round, reproduce the JAX package's
+     ``shard_map`` numbers for the same builds (``MESH_TARGET``, made by
+     ``scripts/mesh_targets.py``: rounds, ``time`` = 2^30 (ROADMAP F6),
+     spikes, output counts, instructions, CIM ops, ``O == A @ B`` and the
+     final tree's sha256), with their ``snn_tick``, ``finish_ops`` and
+     ``slot_scan`` launches; us per round on ``shard_map`` beside
+     ``vmap`` on the same build; 11c's full-width fleet served by
+     ``SnnServer(mesh=make_serve_mesh())`` (``sharded_job_mega_fn``),
+     every request leaf-equal to ``SnnServer()``'s and to its solo run,
+     the flushes in turns.  ``--phase 15`` runs it alone and prints no
+     result line.
 
-A VP main path's kernel launches (phases 2, 3, 6, 7, 9, 10, 11 and 12) are counted on
+A VP main path's kernel launches (phases 2, 3, 6, 7, 9, 10, 11, 12 and 15) are counted on
 the card: the fused tick, the fused completion and the slot scan each add
 one to a device counter when they run (``kernels.card_counts``), since the
 captured dispatch replays them without calling their wrappers, whose
@@ -3903,6 +3922,8 @@ def dense_lm_main_path(card):
           f"ms, decode {1e3 * decode_s:.3f} ms per token (the remainder over {steps - 1} "
           f"steps), {b * steps / total_s:.1f} generated tokens/s; peak allocated "
           f"{peak / 2**30:.2f} GiB ({card})", flush=True)
+    model_flops_line(f"{QWEN} prefill", cfg, "prefill", b, spec["prompt"], prefill_s, card)
+    model_flops_line(f"{QWEN} decode step", cfg, "decode", b, spec["prompt"], decode_s, card)
 
     more = greedy_generate(model, params, batch, steps=steps, pad_to=spec["pad_more"])
     check(torch.equal(toks, more), f"{QWEN}: tokens differ at pad_to {spec['pad_more']}")
@@ -4255,6 +4276,10 @@ def family_main_path(arch, card):
           f"{1e3 * prefill_s:.3f} ms, decode {1e3 * decode_s:.3f} ms per token (the remainder "
           f"over {steps - 1} steps), {b * steps / total_s:.1f} generated tokens/s; peak "
           f"allocated {peak / 2**30:.2f} GiB ({card})", flush=True)
+    model_flops_line(f"{arch} (depth {cfg.n_layers}) prefill", cfg, "prefill", b, prompt,
+                     prefill_s, card)
+    model_flops_line(f"{arch} (depth {cfg.n_layers}) decode step", cfg, "decode", b, prompt,
+                     decode_s, card)
     profile_run(f"{arch} prefill", lambda: (model.prefill(params, batch),
                                             torch.cuda.synchronize()),
                 lambda: 1, "prefill", prefill_s)
@@ -5342,6 +5367,7 @@ def obs_traced_phase(card):
 
 
 _FLEETS = {}
+_SOLO = {}  # fleet name -> (solo rounds, solo final trees) of 11c's vmap fused runs
 
 
 def serve_fleet(name):
@@ -5457,6 +5483,7 @@ def serve_phase(card):
               f"{p99(solo['sequential'][1]):.3f} ms ({time.perf_counter() - t0:.1f} s)",
               flush=True)
         want_trees = [c.result_states() for c in solo["vmap"][2]]
+        _SOLO[name] = (rounds, want_trees)  # phase 15 serves the fleet over a mesh
         cfg = reqs[0].cfg  # the fleet's requests share their caps: the buckets' cfg
         bucket_cfg = dataclasses.replace(_normalize(cfg), in_cap=cfg.in_cap,
                                          out_cap=cfg.out_cap, store_log=cfg.store_log)
@@ -5515,6 +5542,248 @@ def serve_phase(card):
           f"{srv.dispatches} dispatches, one fetch each", flush=True)
     return launches
 
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the multi-device backends on the mesh one card gives.  NCCL
+# takes one rank per card, so the mesh is the world of one: fig5snn and
+# Googlenet-conv1's offload on one segment on ``shard_map`` (the reference's
+# one-segment limit is 2^30, not t + quantum: ROADMAP F6), against the JAX
+# package's ``shard_map`` numbers for the same builds.  MESH_TARGET is made on
+# a CPU by
+#     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/mesh_targets.py
+MESH_TARGET = {
+    "fig5snn": {"digest": "4ebc4e8560d285cbd714029c162d3834b268e000d0241dc1ccaa4ddf83e381dd",
+                "dispatches": 1, "dispatches_per_round_path": 0,
+                "oracle_counts": [12, 12, 12, 12, 12, 8, 7, 12, 5, 7],
+                "output_counts": [12, 12, 12, 12, 12, 8, 7, 12, 5, 7],
+                "rounds": 28, "spikes": 2045, "time": 1073741824},
+    "googlenet_conv1": {"cim_ops": 7,
+                        "digest": "fbda9f2799fe2b5960b375f5a918c3920cbdb6fcd5445b3138e42b6f0edae177",
+                        "dispatches": 1, "dispatches_per_round_path": 0, "instrs": [81363],
+                        "o_equals_a_b": True, "rounds": 10, "time": 1073741824},
+    "vmap": {"fig5snn": {"rounds": 400, "spikes": 0, "time": 12800}},
+}
+MESH_VMAP_ROUNDS = 64  # fig5snn's one-segment build on vmap, timed per round
+MESH_SERVE = ("full_width", 64)  # 11c's fleet and bucket, served over the mesh
+
+
+def tree_digest(tree_):
+    """sha256 over a tree's leaves in sorted-key order: path, dtype, shape
+    and bytes of each (scripts/mesh_targets.py's ``tree_digest``)."""
+    from repro_torch import tree
+
+    h = hashlib.sha256()
+    for path, x in tree.leaves(tree.to_numpy(tree_)):
+        x = np.ascontiguousarray(x)
+        h.update(f"{path}:{x.dtype}:{x.shape}".encode())
+        h.update(x.tobytes())
+    return h.hexdigest()
+
+
+def mesh_build(name):
+    """The one-segment build of ``name`` (MESH_TARGET's) on the card:
+    ((cfg, states, pending), (job, meta or layer), quantum, max_rounds)."""
+    from repro_torch import snn
+    from repro_torch.core import segmentation as sg
+    from repro_torch.vp import workloads as wl
+
+    if name == "fig5snn":
+        job = snn.snn_inference_job(FIG5SNN["sizes"], t_steps=24, rate=0.5, seed=2)
+        descs = snn.segmentation_for(len(job.layers), "uniform", n_segments=1)
+        cfg, states, pending, meta = snn.build_snn(job.layers, descs, job.raster)
+        return (cfg, states, pending), (job, meta), QUANTUM, MAX_ROUNDS
+    layer = dense_layer("Googlenet-conv1")
+    descs = sg.uniform(1, 2)
+    job = wl.cim_workload(layer, mgr_segments=[0], cim_ids_per_mgr={0: (0, 1)},
+                          ordinals=sg.mailbox_ordinals(descs))
+    built = sg.build(descs, programs=job["programs"], dram_words=job["dram"],
+                     crossbars=job["crossbars"], scratch_init=job["scratch"],
+                     channel_latency=DENSE_QUANTUM)
+    return built, (job, layer), DENSE_QUANTUM, 2000
+
+
+def mesh_run(name, mesh, fused, card):
+    """One ``shard_map`` run of ``name`` on the mesh, its launches counted,
+    against MESH_TARGET; returns (counts, seconds per round)."""
+    from repro_torch import snn
+    from repro_torch.core.controller import Controller
+
+    want = MESH_TARGET[name]
+    built, extra, quantum, max_rounds = mesh_build(name)
+    ctl = Controller(*built, backend="shard_map", mesh=mesh, quantum=quantum)
+    counts, secs = counted(lambda: ctl.run(max_rounds=max_rounds, check_every=CHECK_EVERY,
+                                           fused=fused))
+    st = ctl.result_states()
+    got = {"rounds": ctl.rounds_run, "time": int(st["time"].max()),
+           "digest": tree_digest({"states": st, "pending": ctl._pending_stacked()})}
+    label = f"15 {name} on one segment, shard_map {'fused' if fused else 'per-round'}"
+    if name == "fig5snn":
+        job, meta = extra
+        got["spikes"] = int(snn.total_spikes(st))
+        got["output_counts"] = snn.output_spike_counts(st, meta).tolist()
+        kernels = {"snn_tick": ctl.rounds_run}
+    else:
+        job, layer = extra
+        got["instrs"] = st["stats"]["instrs"].tolist()
+        got["cim_ops"] = int(st["cims"]["ops"].sum())
+        got["o_equals_a_b"] = bool(np.array_equal(dense_o(st, job, layer), job["expected"]))
+        kernels = {"finish_ops": ctl.rounds_run, "slot_scan": ctl.rounds_run}
+    dispatches = want["dispatches"] if fused else want["dispatches_per_round_path"]
+    check(got == {k: want[k] for k in got} and ctl.dispatches == dispatches,
+          f"{label}: {got}, {ctl.dispatches} dispatches; want {want}")
+    expect = dict.fromkeys(COUNTED, 0)
+    expect.update(kernels)
+    check(counts == expect, f"{label}: launches {counts}, want {expect}")
+    per_round = secs / ctl.rounds_run
+    print(f"{label}: the JAX package's shard_map numbers (rounds {got['rounds']}, time "
+          f"{got['time']} = 2^30, tree sha256 {got['digest'][:16]}...); {ctl.dispatches} "
+          f"dispatches, {ctl.dispatch_syncs} fetches, {ctl.check_syncs} check-point reads; "
+          f"launches {kernels}; {secs:.6f} s, {1e6 * per_round:.1f} us/round ({card})",
+          flush=True)
+    return counts, per_round
+
+
+def mesh_vmap_us(name, fused):
+    """The same one-segment build on ``vmap`` (its one-segment limit is t +
+    quantum, so it is another simulation): us per round over
+    MESH_VMAP_ROUNDS rounds, the fused dispatch captured before the clock."""
+    from repro_torch.core.controller import Controller
+
+    built, _, quantum, _ = mesh_build(name)
+    ctl = Controller(*built, quantum=quantum)
+    if fused:
+        ctl.capture()
+    t0 = time.perf_counter()
+    ctl.run(max_rounds=MESH_VMAP_ROUNDS, check_every=CHECK_EVERY, fused=fused)
+    ctl.block_until_ready()
+    secs = time.perf_counter() - t0
+    if name == "fig5snn":
+        check(ctl.rounds_run == MESH_VMAP_ROUNDS and int(ctl.sim_time().max())
+              == QUANTUM * MESH_VMAP_ROUNDS, f"15 {name} vmap: {ctl.rounds_run} rounds")
+    return secs / ctl.rounds_run
+
+
+def mesh_serve(mesh, card):
+    """11c's full-width fleet served over the ``jobs`` mesh
+    (``SnnServer(mesh=make_serve_mesh())`` through
+    ``controller.sharded_job_mega_fn``) against ``SnnServer()`` at the same
+    bucket and each request's solo fused run; returns its launches."""
+    from repro_torch.core.controller import Controller, _ShardedJobMegaloop
+    from repro_torch.serve.snn_serve import SnnServer
+
+    name, bucket = MESH_SERVE
+    reqs = serve_fleet(name)
+    if name not in _SOLO:  # phase 15 alone: the solo runs 11c would have made
+        ctls = []
+        for r in reqs:
+            ctls.append(Controller(r.cfg, r.states, r.pending, quantum=SERVE_RUN["quantum"]))
+            ctls[-1].run(max_rounds=SERVE_RUN["max_rounds"],
+                         check_every=SERVE_RUN["check_every"])
+        _SOLO[name] = ([c.rounds_run for c in ctls], [c.result_states() for c in ctls])
+    rounds, want_trees = _SOLO[name]
+
+    def flush(srv):
+        tickets = [srv.submit(r) for r in reqs]
+        t0 = time.perf_counter()
+        res = srv.flush()
+        return time.perf_counter() - t0, [res[t] for t in tickets]
+
+    sharded = SnnServer(bucket_size=bucket, mesh=mesh, **SERVE_RUN)
+    plain = SnnServer(bucket_size=bucket, **SERVE_RUN)
+    flush(sharded)  # the first flush captures the local job loop's graph
+    flush(plain)
+    got = {}
+    counts, _ = counted(lambda: got.update(zip(("secs", "res"), flush(sharded))))
+    plain_s, plain_res = flush(plain)
+    turns = [(flush(sharded)[0], flush(plain)[0]) for _ in range(2)]  # in turns
+    again = min(t[0] for t in turns)
+    plain_s = min([plain_s] + [t[1] for t in turns])
+    for k, (a, b, req) in enumerate(zip(got["res"], plain_res, reqs)):
+        check(a.ok and a.rounds == b.rounds == rounds[k],
+              f"15 {name} b{bucket} request {k}: ok {a.ok} ({a.error}), rounds {a.rounds}, "
+              f"unsharded {b.rounds}, solo {rounds[k]}")
+        equal_trees(f"15 {name} b{bucket} request {k}, sharded vs unsharded", a.states, b.states)
+        equal_trees(f"15 {name} b{bucket} request {k}, sharded vs solo", a.states, want_trees[k])
+        check(a.output_counts().tolist() == list(req.expected_counts),
+              f"15 {name} request {k}: output counts differ from the oracle")
+    loop = sum(max(rounds[i:i + bucket]) for i in range(0, len(reqs), bucket))
+    want = dict.fromkeys(COUNTED, 0)
+    want["snn_tick"] = loop
+    check(counts == want, f"15 {name} b{bucket} sharded: launches {counts}, want {want}")
+    check(all(isinstance(f, _ShardedJobMegaloop) for f in sharded._sharded_cache.values()),
+          "15: the sharded server's dispatch")
+    secs = min(got["secs"], again)
+    print(f"15 {name} b{bucket} over the jobs mesh of {mesh.size()} ({card}): every request "
+          f"leaf-equal to SnnServer()'s and to its solo fused run, the oracle's counts; "
+          f"{loop} rounds of the job loop, one snn_tick launch each; flush, best of three in "
+          f"turns, {secs:.6f} s sharded against {plain_s:.6f} s unsharded "
+          f"({len(reqs) / secs:.3f} against {len(reqs) / plain_s:.3f} req/s, "
+          f"{secs / plain_s:.3f}x)", flush=True)
+    return counts
+
+
+def mesh_phase(card):
+    """Phase 15 at world size 1 over NCCL, a ``file://`` rendezvous in a
+    temporary directory, the group destroyed at the end; returns the runs'
+    launches."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as M
+
+    launches = dict.fromkeys(COUNTED, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        M.init_world(f"file://{tmp}/rendezvous", 0, 1, timeout_s=300)
+        try:
+            check(dist.get_backend() == "nccl", f"15: backend {dist.get_backend()}")
+            seg = M.make_mesh((1,), ("segment",))
+            print(f"15 mesh: {seg} over {dist.get_backend()}, world size "
+                  f"{dist.get_world_size()} ({card})", flush=True)
+            from repro_torch.core.controller import Controller
+
+            for name in ("fig5snn", "googlenet_conv1"):  # first loads, untimed
+                warm, _, quantum, max_rounds = mesh_build(name)
+                Controller(*warm, backend="shard_map", mesh=seg, quantum=quantum).run(
+                    max_rounds=max_rounds, check_every=CHECK_EVERY)
+            us = {}
+            for name in ("fig5snn", "googlenet_conv1"):
+                for fused in (True, False):
+                    counts, us[(name, fused)] = mesh_run(name, seg, fused, card)
+                    for k in COUNTED:
+                        launches[k] += counts[k]
+            vm = {fused: mesh_vmap_us("fig5snn", fused) for fused in (True, False)}
+            print(f"15 fig5snn on one segment ({card}): shard_map fused "
+                  f"{1e6 * us[('fig5snn', True)]:.1f} us/round (rounds issued by the host, two "
+                  f"all-gathers each, the flags all-reduced at each check point), per-round "
+                  f"{1e6 * us[('fig5snn', False)]:.1f}; vmap on the same build (limit t + "
+                  f"quantum: {MESH_VMAP_ROUNDS} rounds of another simulation) fused "
+                  f"{1e6 * vm[True]:.1f} us/round (one captured graph a dispatch), per-round "
+                  f"{1e6 * vm[False]:.1f}", flush=True)
+            counts = mesh_serve(M.make_serve_mesh(), card)
+            for k in COUNTED:
+                launches[k] += counts[k]
+        finally:
+            dist.destroy_process_group()
+    check(not dist.is_initialized(), "15: the process group outlived the phase")
+    return {k: launches[k] for k in OBS_COUNTED}
+
+
+def model_flops_line(label, cfg, kind, batch, seq, seconds, card):
+    """Model FLOP/s of a step that took ``seconds``: 6·N·D for a training
+    step, 2·N·D for a prefill or a decode step (``analysis.roofline``), and
+    its share of the H100's bf16 dense peak."""
+    from repro_torch.analysis import roofline as roof
+    from repro_torch.configs.base import ShapeConfig
+
+    flops = roof.model_flops(cfg, ShapeConfig(label, seq, batch, kind), kind)
+    rate = flops / seconds
+    print(f"{label} model FLOPs: {kind} of B={batch} x {seq}, N_active "
+          f"{roof.active_params(cfg)}, {flops:.6e} FLOPs in {1e3 * seconds:.3f} ms = "
+          f"{rate / 1e12:.3f} TFLOP/s, {100 * rate / roof.PEAK_FLOPS:.2f}% of the "
+          f"{roof.PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16 dense peak ({card})", flush=True)
+    return rate
 
 # ---------------------------------------------------------------------------
 # phase 14: training on the card
@@ -5765,6 +6034,9 @@ def train_main_path(card):
     losses, step_s, _ = train_steps(label, step1, state, batches[:-1],
                                     spec["batch"] * spec["seq"], card)
     check(losses[-1] < spec["fall"] * losses[0], f"{QWEN}: loss {losses[0]} -> {losses[-1]}")
+    model_flops_line(f"{QWEN} train step", cfg, "train", spec["batch"], spec["seq"], step_s,
+                     card)
+    train_step_counted(QWEN, cfg, step1, state, batches[0], spec, step_s, card)
     # accumulation: 2 microbatches against 1 on the same batch, from the same state
     twin = tree.tree_map(torch.clone, state)
     _, m1 = step1(state, batches[-1])
@@ -5807,6 +6079,8 @@ def train_main_path(card):
                                     card)
     fwd, bwd = ops.selective_scan_fused.launches, ops.selective_scan_fused_bwd.launches
     n = spec["steps"]
+    model_flops_line(f"{FALCON} (depth {cfg.n_layers}) train step", cfg, "train",
+                     spec["batch"], spec["seq"], step_s, card)
     check(losses[-1] < spec["fall"] * losses[0], f"{FALCON}: loss {losses[0]} -> {losses[-1]}")
     check((fwd, bwd, ops.selective_scan.launches) == (2 * cfg.n_layers * n, cfg.n_layers * n, 0),
           f"{FALCON}: fused forward / backward / unfused launches {fwd} / {bwd} / "
@@ -5834,6 +6108,29 @@ def train_main_path(card):
     gc.collect()
     torch.cuda.empty_cache()
     return bwd
+
+
+def train_step_counted(label, cfg, step_fn, state, batch, spec, step_s, card):
+    """One untimed step counted by ``analysis.roofline.from_step`` (FLOPs by
+    ``FlopCounterMode``, bytes by the aten ops' inputs and outputs) beside
+    6·N·D: remat "full" reruns each layer's forward in the backward, and
+    6·N·D leaves out attention's own FLOPs."""
+    from repro_torch.analysis import roofline as roof
+    from repro_torch.configs.base import ShapeConfig
+
+    t0 = time.perf_counter()
+    r = roof.from_step(step_fn, state, batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    six = roof.model_flops(cfg, ShapeConfig(label, spec["seq"], spec["batch"], "train"), "train")
+    print(f"{label} train step counted by from_step (one untimed step, {secs:.2f} s under the "
+          f"counting modes): {r.flops:.6e} FLOPs = {r.flops / six:.4f} x 6·N·D "
+          f"({six:.6e}), {r.bytes_accessed:.6e} bytes over {r.coll_detail['aten_ops']} aten "
+          f"ops; roofline t_compute {1e3 * r.t_compute:.3f} ms, t_memory "
+          f"{1e3 * r.t_memory:.3f} ms ({r.bottleneck}-bound, t_bound {1e3 * r.t_bound:.3f} "
+          f"ms) against the measured {1e3 * step_s:.3f} ms; counted FLOPs at the step time "
+          f"{r.flops / step_s / 1e12:.3f} TFLOP/s ({card})", flush=True)
+    return r
 
 
 def checkpoint_round_trip(label, model, oc, step_fn, state, batch, at):
@@ -6010,6 +6307,12 @@ def main(argv):
         families_phase(card)
         print(card)
         return 0
+    if argv == ["--phase", "15"]:  # phase 15 alone: no result line
+        kbuild.build_all(SOURCES)
+        phase("15 the multi-device backends on the mesh of one card")
+        mesh_phase(card)
+        print(card)
+        return 0
     if argv == ["--phase", "14"]:  # phase 14 alone: no result line
         t0 = time.perf_counter()
         kbuild.build_all(["ssm_scan"])
@@ -6021,7 +6324,7 @@ def main(argv):
         train_phase(card)
         print(card)
         return 0
-    check(not argv, f"arguments {argv}: none, --phase 13 or --phase 14")
+    check(not argv, f"arguments {argv}: none, --phase 13, --phase 14 or --phase 15")
     t0 = time.perf_counter()
     built = kbuild.build_all(SOURCES)
     print(f"built {sorted(built) or 'nothing (cached)'} in "
@@ -6080,9 +6383,13 @@ def main(argv):
     for part in (obs_stats_phase(), obs_traced_phase(card), serve_phase(card)):
         for name, n in part.items():
             launches[name] += n
+    phase("15 the multi-device backends on the mesh of one card")
+    for name, n in mesh_phase(card).items():
+        launches[name] += n
     from repro_torch.core import controller as ctl_mod
 
     _FLEETS.clear()
+    _SOLO.clear()
     ctl_mod._JOB_FN_CACHE.clear()  # the job axis's buffers and graphs
     gc.collect()
     torch.cuda.empty_cache()

@@ -23,8 +23,12 @@ attention block), qwen2-vl (M-RoPE, vision embeddings) and whisper-tiny
 training of all ten (``models.model.Model.loss`` ->
 ``train.train_step.make_train_step``, AdamW with int8 moments,
 checkpoints, compression, decoupled pod rounds; ``launch.train``), the
-Mamba-1 scan's gradient a CUDA kernel too; and ``vp.workloads.from_arch``,
-which tiles an architecture's FFN GEMM onto the VP's crossbars.
+Mamba-1 scan's gradient a CUDA kernel too; ``vp.workloads.from_arch``,
+which tiles an architecture's FFN GEMM onto the VP's crossbars; the VP's
+multi-device backends on ``torch.distributed`` (``launch.mesh``: the
+controller's ``shard_map`` backend, the sharded job axis and
+``SnnServer(mesh=)``); and one-card FLOP accounting
+(``analysis.roofline``).
 Options outside these paths raise ``NotImplementedError`` naming the
 ROADMAP item that brings them.
 

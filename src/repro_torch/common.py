@@ -151,3 +151,13 @@ def _set(tree: dict, path: str, value):
     for k in parents:
         tree = tree.setdefault(k, {})
     tree[last] = value
+
+
+def param_count(spec_tree) -> int:
+    """Parameters in a spec tree (the model the port builds: tp = 1)."""
+    return sum(int(np.prod(s.shape)) for _, s in T.leaves(spec_tree))
+
+
+def param_bytes(spec_tree) -> int:
+    """Bytes of a spec tree's parameters at their storage dtypes."""
+    return sum(int(np.prod(s.shape)) * s.dtype.itemsize for _, s in T.leaves(spec_tree))

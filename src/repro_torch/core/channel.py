@@ -150,6 +150,28 @@ def route(outboxes, latency, in_cap: int):
     return box
 
 
+def route_to(outboxes, latency_in, in_cap: int, dst: int):
+    """Segment ``dst``'s fresh inbox (a one-segment stack, ``(1, in_cap)``)
+    from every segment's outbox ``(S, cap)``, by the reference's
+    ``shard_map`` rule: the lanes bound for ``dst``, in source order, take
+    their rank among them as their slot; dead lanes and lanes past
+    ``in_cap`` go to a sink slot and drop, and ``count`` keeps the demand.
+    ``latency_in[src]`` is the latency of each source into ``dst``."""
+    s, cap = outboxes["valid"].shape
+    flat_valid = (outboxes["valid"] & (outboxes["dst"] == dst)).reshape(-1)
+    rank = torch.cumsum(flat_valid.to(_I32), 0, dtype=_I32) - 1
+    pos = torch.where(flat_valid & (rank < in_cap), rank, in_cap).long()
+    t_avail = outboxes["t_emit"] + latency_in.unsqueeze(1)
+    fresh = {}
+    for f, src in (("kind", outboxes["kind"]), ("addr", outboxes["addr"]),
+                   ("data", outboxes["data"]), ("t_avail", t_avail),
+                   ("valid", flat_valid)):
+        sink = torch.zeros(in_cap + 1, dtype=src.dtype, device=src.device)
+        fresh[f] = sink.scatter(0, pos, src.reshape(-1))[:in_cap].unsqueeze(0)
+    fresh["count"] = flat_valid.sum(dtype=_I32).reshape(1)
+    return fresh
+
+
 def _route_jobs(outboxes, latency, in_cap: int):
     """``route`` of each of J platforms at once: (J, S, cap) -> (J, S,
     in_cap), one compaction over a (J, S, S*cap) key."""

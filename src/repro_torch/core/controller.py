@@ -15,10 +15,16 @@ Backends for the ``exec`` phase:
                paper's literal mechanism); on the card each worker issues
                its segment's step on a CUDA stream of its own;
   vmap       — all segments stepped as one batched step over the leading
-               segment axis (the default, "pll").
+               segment axis (the default, "pll");
+  shard_map  — one mesh device per segment (a ``DeviceMesh`` from
+               ``launch/mesh``, one process per device, every rank running
+               the same program): each rank steps its own segment, and
+               routing is an all-gather of the segments' times and outboxes
+               over the mesh (NCCL on the card, gloo on the CPU).
 
-All three give bit-identical results.  A round issues no host sync.  On
-``vmap``, ``run()`` defaults to the reference's fused dispatch: up to
+All four give the reference's results (``shard_map`` keeps its quirk F6:
+with one segment its limit is 2^30, not ``t + quantum``).  A round issues
+no host sync.  On ``vmap``, ``run()`` defaults to the reference's fused dispatch: up to
 ``rounds_per_dispatch`` rounds per host dispatch, the termination and
 watermark flags evaluated on the device at every ``check_every``-th round,
 and one host fetch of ``(rounds run, done, over)`` per dispatch
@@ -29,6 +35,12 @@ dispatch's last round, with the flag check in an IF node on the check
 point; one launch a dispatch.  On the CPU the same round and check bodies
 run eagerly.  ``sequential`` and ``threads``
 keep their per-round host loop, as the reference's host-loop backends do.
+``shard_map`` runs the reference's fused dispatch with its rounds issued by
+the host (NCCL collectives are not captured into the dispatch graph): at
+each check point the flags are reduced across ranks and read on the host,
+and the dispatch ends with one fetch.  Its reads (``result_states``,
+``stats``, ``metrics``, the watermark messages) gather the global tree on
+every rank.
 Results, ``rounds_run`` and every watermark message equal the reference's
 on every path.
 
@@ -47,6 +59,7 @@ import time as _time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree
 from repro_torch.core import channel as ch
@@ -165,21 +178,27 @@ class Controller:
     pending: object  # stacked (S, in_cap)
     backend: str = "vmap"
     quantum: int = 10_000
-    mesh: object = None  # shard_map backend only (not in this slice)
+    mesh: object = None  # shard_map backend only: a 1-D DeviceMesh
     rounds_run: int = 0
     obs: object = None  # obs.trace.TraceConfig, or None = no telemetry op in the step
     device: object = None  # None = the GPU
 
     def __post_init__(self):
         self._pool = None  # the threads backend's workers, made below
-        if self.backend == "shard_map" or self.mesh is not None:
-            raise NotImplementedError(
-                "multi-device backends come with ROADMAP module item 12")
-        if self.backend not in ("sequential", "threads", "vmap"):
+        if self.backend not in ("sequential", "threads", "vmap", "shard_map"):
             raise ValueError(self.backend)
-        self.device = tree.resolve_device(self.device)
+        self._shard = self.backend == "shard_map"
+        whole_pending = self.pending
+        if self._shard:
+            # this rank keeps its own segment, as a one-segment stack
+            self._seg = self._mesh_setup()
+            self.states = tree.take(self.states, self._seg)
+            self.pending = tree.take(self.pending, self._seg)
+        else:
+            self.device = tree.resolve_device(self.device)
         self.dispatches = 0  # fused dispatches issued
         self.dispatch_syncs = 0  # _HOST_FETCH calls from the fused dispatch
+        self.check_syncs = 0  # shard_map: host reads of the reduced flags at check points
         self.trace_lost = 0  # telemetry records dropped to ring capacity
         self._events = []  # drained batches (numpy EVENT_DTYPE arrays)
         self.capture_seconds = None  # warm-up and capture of the dispatch graph
@@ -192,14 +211,14 @@ class Controller:
             # one ring per segment inside the state tree, so every backend
             # and the captured dispatch carry it like any other leaf
             self.states = {**self.states, "trace": obs_trace.ring_state(
-                int(self.obs.capacity), (self.cfg.n_segments,), self.device)}
+                int(self.obs.capacity), self.states["time"].shape, self.device)}
         self._finished = False  # a run() observed clean termination
         self._closed = False  # close() was called
         # the CPU-free step is only valid while nothing but AER spikes can
         # circulate: a hand-injected MMIO/DMA message in the initial inbox
         # needs the full step (one host check at construction)
         if not self.cfg.has_cpu:
-            injected = self.pending["valid"] & (self.pending["kind"] != ch.MSG_SPIKE)
+            injected = whole_pending["valid"] & (whole_pending["kind"] != ch.MSG_SPIKE)
             if bool(injected.any()):
                 self.cfg = dataclasses.replace(self.cfg, has_cpu=True)
         self.lat = self.cfg.latency_matrix(self.device)
@@ -207,6 +226,8 @@ class Controller:
         self._step.prepare(self.device)
         s = self.cfg.n_segments
         self._eye = torch.eye(s, dtype=torch.bool, device=self.device)
+        if self._shard:
+            self._others = ~self._eye[self._seg]
         # sequential and threads keep per-segment state as persistent lists
         self._list_mode = self.backend in ("sequential", "threads")
         if self._list_mode:
@@ -228,6 +249,28 @@ class Controller:
                 self._done = [torch.cuda.Event() for _ in range(s)]
 
     # ------------------------------------------------------------------
+    def _mesh_setup(self):
+        """Check the mesh (one segment per device, the reference's
+        contract), resolve the device to this rank's and return this rank's
+        segment."""
+        from repro_torch.launch.mesh import mesh_device
+
+        if self.mesh is None:
+            raise ValueError("shard_map backend needs a mesh")
+        if self.mesh.ndim != 1:
+            raise ValueError(f"the shard_map backend takes a 1-D mesh, not {self.mesh}")
+        n, s = self.mesh.size(), self.cfg.n_segments
+        if s != n:
+            raise ValueError(f"the shard_map backend runs one segment per mesh device: "
+                             f"{s} segments on a mesh of {n} devices")
+        mine = mesh_device(self.mesh)
+        self.device = mine if self.device is None else torch.device(self.device)
+        if self.device.type != mine.type:
+            raise ValueError(f"device {self.device} is not on the mesh's "
+                             f"{self.mesh.device_type} devices")
+        self._group = self.mesh.get_group(0)
+        return self.mesh.get_local_rank(0)
+
     def _limits(self, times):
         # limit_i = min_{j != i}(t_j + lat[j, i]); single segment: t + q
         if self.cfg.n_segments == 1:
@@ -242,6 +285,35 @@ class Controller:
                 "(the threads backend's worker pool); build a new Controller "
                 "to run again"
             )
+
+    def _shard_round(self, states, pending):
+        """The reference's ``shard_map`` round body on this rank's segment
+        ``i``: all-gather the segments' times; the limit
+        ``min_{j != i}(t_j + lat[j, i])``, with no one-segment case (F6);
+        the local step; all-gather the outboxes; the fresh inbox by the
+        rank-and-drop rule (``channel.route_to``); ``merge_pending``."""
+        i = self._seg
+        times = _all_gather(states["time"], self._group, self.cfg.n_segments)
+        lim = torch.where(self._others, times + self.lat[:, i], _BIG).min().reshape(1)
+        states, outbox, pending = self._step(states, pending, lim)
+        packed = torch.stack([outbox[f] for f in ch.FIELDS] + [outbox["valid"].to(torch.int32)],
+                             dim=1)  # (1, fields, out_cap): one all-gather
+        got = _all_gather(packed, self._group, self.cfg.n_segments)
+        boxes = {f: got[:, k] for k, f in enumerate(ch.FIELDS)}
+        boxes["valid"] = got[:, len(ch.FIELDS)].bool()
+        fresh = ch.route_to(boxes, self.lat[:, i], self.cfg.in_cap, i)
+        return states, ch.merge_pending(pending, fresh)
+
+    def _reduced_flags(self):
+        """The six ``termination_flags`` of the whole simulation, as a (6,)
+        int32 tensor on every rank: this rank's flags, ``done`` negated,
+        all-reduced by MAX (``done`` holds where every segment is done)."""
+        f = pf.termination_flags(self._states, self._pending, self.cfg.in_cap,
+                                 self.cfg.out_cap, self.cfg.store_log)
+        v = torch.stack((~f[0],) + tuple(f[1:])).to(torch.int32)
+        dist.all_reduce(v, op=dist.ReduceOp.MAX, group=self._group)
+        v[0] = 1 - v[0]
+        return v
 
     def _vmap_round(self, states, pending):
         lim = self._limits(states["time"])
@@ -278,6 +350,8 @@ class Controller:
         self._require_open()
         if self.backend == "vmap":
             self.states, self.pending = self._vmap_round(self.states, self.pending)
+        elif self._shard:
+            self.states, self.pending = self._shard_round(self._states, self._pending)
         else:
             s = self.cfg.n_segments
             lim = self._limits(torch.cat([st["time"] for st in self._states_l]))
@@ -300,10 +374,10 @@ class Controller:
         self.rounds_run += 1
 
     def _stacked(self):
-        return tree.cat(self._states_l) if self._list_mode else self.states
+        return self._read("states") if self._list_mode or self._shard else self.states
 
     def _pending_stacked(self):
-        return tree.cat(self._pending_l) if self._list_mode else self.pending
+        return self._read("pending") if self._list_mode or self._shard else self.pending
 
     @staticmethod
     def _flag_detail(flag_name, values, cap, kwarg=None):
@@ -332,11 +406,15 @@ class Controller:
 
     def done(self) -> bool:
         """Termination check and loud overflow validation: one host read of
-        the six flags of ``platform.termination_flags``.  Under the drop
-        policy only the store log and late MMIO stay fatal."""
-        flags = torch.stack(pf.termination_flags(
-            self._stacked(), self._pending_stacked(), self.cfg.in_cap,
-            self.cfg.out_cap, self.cfg.store_log)).cpu().tolist()
+        the six flags of ``platform.termination_flags`` (on ``shard_map``,
+        reduced across ranks).  Under the drop policy only the store log and
+        late MMIO stay fatal."""
+        if self._shard:
+            flags = self._reduced_flags().bool().tolist()
+        else:
+            flags = torch.stack(pf.termination_flags(
+                self._stacked(), self._pending_stacked(), self.cfg.in_cap,
+                self.cfg.out_cap, self.cfg.store_log)).cpu().tolist()
         d, in_over, out_over, store_over, mmio_late, _trace_over = flags
         if ((in_over or out_over) and not self._drop()) or store_over or mmio_late:
             self._check_overflow()  # raises with the detailed watermark message
@@ -388,7 +466,11 @@ class Controller:
         if self.obs is None:
             return np.empty(0, obs_trace.EVENT_DTYPE)
         before = len(self._events)
-        if self._list_mode:
+        if self._shard:
+            ring = self._states["trace"]
+            self._ingest(_HOST_FETCH(self._gather(ring)), on_telemetry)
+            self.states = {**self._states, "trace": obs_trace.reset(ring)}
+        elif self._list_mode:
             self._ingest(_HOST_FETCH(tree.cat([st["trace"] for st in self._states_l])),
                          on_telemetry)
             self._states_l = [{**st, "trace": obs_trace.reset(st["trace"])}
@@ -460,8 +542,9 @@ class Controller:
         Returns the seconds taken."""
         from repro_torch.kernels.dispatch_graph import DispatchGraph
 
-        if self.device.type != "cuda":
-            raise ValueError(f"capture runs on the card, not on {self.device}")
+        if self.device.type != "cuda" or self.backend != "vmap":
+            raise ValueError(f"capture is the vmap backend's, on the card, not "
+                             f"{self.backend} on {self.device}")
         if self._graph is not None:
             return self.capture_seconds
         t0 = _time.perf_counter()
@@ -521,6 +604,38 @@ class Controller:
             d.states["trace"]["count"].zero_()
         return ran, bool(done), bool(over)
 
+    def _shard_dispatch(self, r0, k, check_every, on_telemetry=None):
+        """One fused ``shard_map`` dispatch of up to ``k`` rounds, issued by
+        the host: at each check point the flags are reduced across ranks and
+        read on the host (``check_syncs``), and the dispatch stops there on
+        ``done`` or ``over``; then one ``_fetch`` of (done, over) at the
+        last round, with the gathered trace rings when telemetry is on.
+        Returns (rounds run, done, over) as the reference's megaloop does."""
+        i, last = 0, None
+        while i < k:
+            self.states, self.pending = self._shard_round(self._states, self._pending)
+            i += 1
+            last = None  # (done, over) stay 0 but at a check point
+            if (r0 + i) % check_every == 0:
+                v = self._reduced_flags()
+                bad = v[3] | v[4] if self._drop() else v[1] | v[2] | v[3] | v[4]
+                last = torch.stack([v[0] & (1 - bad), bad])
+                self.check_syncs += 1
+                if bool(last.any()):
+                    break
+        if last is None:
+            last = torch.zeros(2, dtype=torch.int32, device=self.device)
+        self.dispatches += 1
+        if self.obs is None:
+            done, over = self._fetch(last).tolist()
+        else:
+            ring = self._states["trace"]
+            out, host_ring = self._fetch((last, self._gather(ring)))
+            done, over = out.tolist()
+            self._ingest(host_ring, on_telemetry)
+            self.states = {**self._states, "trace": obs_trace.reset(ring)}
+        return i, bool(done), bool(over)
+
     def run(self, max_rounds: int = 10_000, check_every: int = 4,
             fused: bool | None = None, rounds_per_dispatch: int = 256,
             on_telemetry=None):
@@ -551,14 +666,15 @@ class Controller:
         if rounds_per_dispatch < 1:
             raise ValueError("rounds_per_dispatch must be >= 1")
         if fused is None:
-            fused = self.backend == "vmap"
-        if fused and self.backend == "vmap":
+            fused = self.backend in ("vmap", "shard_map")
+        if fused and self.backend in ("vmap", "shard_map"):
             if check_every < 1:
                 raise ValueError("check_every must be >= 1")
+            dispatch = self._shard_dispatch if self._shard else self._dispatch
             done = over = False
             ran = 0
             while ran < max_rounds:
-                i, done, over = self._dispatch(
+                i, done, over = dispatch(
                     ran, min(rounds_per_dispatch, max_rounds - ran), check_every,
                     on_telemetry)
                 ran += i
@@ -599,11 +715,20 @@ class Controller:
     def sim_time(self):
         return self._stacked()["time"].cpu().numpy()
 
+    def _gather(self, local):
+        """A tree of this rank's one-segment stacks, gathered over the mesh
+        into the (S, ...) tree, the same on every rank."""
+        return tree.tree_map(
+            lambda x: _all_gather(x, self._group, self.cfg.n_segments), local)
+
     def _read(self, name):
         """The stacked live tree ``name`` for a host read (no copy of the
-        dispatch's buffers: the reader copies each leaf it reads)."""
+        dispatch's buffers: the reader copies each leaf it reads).  On
+        ``shard_map`` a gather: every rank must read together."""
         if self._list_mode:
             return tree.cat(getattr(self, f"_{name}_l"))
+        if self._shard:
+            return self._gather(getattr(self, f"_{name}"))
         return getattr(self, f"_{name}")
 
     def stats(self):
@@ -615,6 +740,25 @@ class Controller:
         """Typed metrics snapshot ``{name: ndarray}`` over every metric of
         the ``obs/metrics.py`` registry."""
         return obs_metrics.collect(self._read("states"), self._read("pending"))
+
+
+def _all_gather(x, group, n):
+    """``x`` (a one-segment or job-shard stack) gathered from the ``n``
+    ranks of ``group`` along its leading axis.  A bool tensor travels as
+    uint8 and a uint32 one as its int32 bits (gloo takes neither), and each
+    comes back as it was, so trees keep their dtypes."""
+    if x.dtype == torch.bool:
+        src = x.to(torch.uint8)
+    elif x.dtype == torch.uint32:
+        src = x.view(torch.int32)
+    else:
+        src = x
+    src = src.contiguous()
+    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=group)
+    if x.dtype == torch.bool:
+        return out.bool()
+    return out.view(x.dtype)
 
 
 def overflow_error(states, pending, *, in_cap: int, out_cap: int,
@@ -895,7 +1039,39 @@ def job_mega_fn(cfg, quantum: int = 10_000, obs=None):
     return _JOB_FN_CACHE[key]
 
 
+class _ShardedJobMegaloop:
+    """The job-axis dispatch fanned across the ``axis`` dim of a mesh: each
+    rank runs its own ``_JobMegaloop`` on its slice of the job axis, with no
+    collective inside a round, so a rank whose jobs all finish stops early;
+    the five outputs are all-gathered once at the end, so every rank returns
+    the whole (J, ...) result.  Every rank passes the same global inputs."""
+
+    def __init__(self, cfg, mesh, quantum, obs, axis):
+        from repro_torch.launch.mesh import mesh_device
+
+        self._local = _JobMegaloop(cfg, quantum, obs)
+        self._mesh, self._axis = mesh, axis
+        self._n = mesh.size(mesh.mesh_dim_names.index(axis))
+        self.device = mesh_device(mesh)
+
+    def __call__(self, states, pending, rounds, done, over, in_cap, out_cap, store_log,
+                 r0, k, check_every):
+        j = rounds.shape[0]
+        if j % self._n:
+            raise ValueError(f"the job axis's {j} jobs must split evenly over the "
+                             f"mesh's {self._n} devices")
+        group = self._mesh.get_group(self._axis)
+        lo = self._mesh.get_local_rank(self._axis) * (j // self._n)
+        mine = lambda x: x[lo:lo + j // self._n].to(self.device)
+        out = self._local(tree.tree_map(mine, states), tree.tree_map(mine, pending),
+                          *(mine(x) for x in (rounds, done, over, in_cap, out_cap, store_log)),
+                          r0, k, check_every)
+        return tree.tree_map(lambda x: _all_gather(x, group, self._n), out)
+
+
 def sharded_job_mega_fn(cfg, mesh, quantum: int = 10_000, obs=None, axis: str = "jobs"):
-    """The job axis fanned across a device mesh: not in this port yet."""
-    raise NotImplementedError(
-        "sharded serving (sharded_job_mega_fn) comes with ROADMAP module item 12")
+    """The job-axis dispatch fanned across ``mesh``'s ``axis`` dim
+    (``_ShardedJobMegaloop``).  J must divide by the dim's size (the server
+    pads buckets with inert ``done=True`` lanes to arrange that).  Mesh
+    dependent, so made per call rather than cached, as the reference's."""
+    return _ShardedJobMegaloop(cfg, mesh, quantum, obs, axis)

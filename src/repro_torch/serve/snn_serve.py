@@ -25,8 +25,10 @@ Bucketing (docs/serving.md), as the reference's:
   replicating lane 0 with ``done=True``: frozen from round 0.
 
 Results equal each request's solo run at the same ``check_every``; a
-finished job freezes at the first check round that saw it done.  Sharded
-serving (``mesh=``) comes with ROADMAP module item 12.
+finished job freezes at the first check round that saw it done.  With
+``mesh=`` (a 1-D ``jobs`` mesh from ``launch.mesh.make_serve_mesh``) every
+rank submits the same requests, each bucket is split over the mesh
+(``controller.sharded_job_mega_fn``) and every rank gets every result.
 """
 from __future__ import annotations
 
@@ -103,7 +105,9 @@ def _pad_pending(pending, cap: int):
 
 class SnnServer:
     """Admission queue and bucketed batch execution of SNN inference jobs
-    on one device (``device=None``: the GPU).
+    on one device (``device=None``: the GPU), or split over a mesh's ranks
+    (``mesh=``; ``device=None``: this rank's device), so ``bucket_size``
+    must then be a multiple of the mesh size.
 
     ``submit`` appends and stamps; ``flush`` serves every queued request and
     returns ``{ticket: SnnResult}``.  ``bucket_size`` caps how many jobs
@@ -117,20 +121,31 @@ class SnnServer:
         if bucket_size < 1:
             raise ValueError("bucket_size must be >= 1")
         if mesh is not None:
-            raise NotImplementedError(
-                "sharded serving (SnnServer(mesh=)) comes with ROADMAP module item 12")
+            n = mesh.size()
+            if bucket_size % n:
+                raise ValueError(
+                    f"bucket_size={bucket_size} must be a multiple of the "
+                    f"mesh's {n} devices (shard_map splits the job axis "
+                    "evenly)")
         self.quantum = quantum
         self.check_every = check_every
         self.rounds_per_dispatch = rounds_per_dispatch
         self.max_rounds = max_rounds
         self.bucket_size = bucket_size
+        self.mesh = mesh
         self.obs = obs
-        self.device = tree.resolve_device(device)
+        if mesh is not None and device is None:
+            from repro_torch.launch.mesh import mesh_device
+
+            self.device = mesh_device(mesh)
+        else:
+            self.device = tree.resolve_device(device)
         self.dispatches = 0  # job-axis dispatches issued
         self.dispatch_syncs = 0  # host fetches from the serving loop
         self.served = 0  # requests completed over the server's life
         self._queue = []  # (ticket, SnnRequest, t_submit)
         self._next_id = 0
+        self._sharded_cache = {}  # bucket cfg -> its sharded dispatch
 
     # -- admission ------------------------------------------------------
     def submit(self, request: SnnRequest) -> int:
@@ -146,11 +161,22 @@ class SnnServer:
     # -- batching -------------------------------------------------------
     def _pad_width(self, n: int) -> int:
         """Lanes per bucket: the next power of two, at most bucket_size
-        (bounds the captured graphs per cfg to log2(bucket_size) widths)."""
+        (bounds the captured graphs per cfg to log2(bucket_size) widths), or
+        bucket_size itself under a mesh (the job axis must split evenly)."""
+        if self.mesh is not None:
+            return self.bucket_size
         w = 1
         while w < n:
             w *= 2
         return min(w, self.bucket_size)
+
+    def _mega(self, bucket_cfg):
+        if self.mesh is None:
+            return ctl.job_mega_fn(bucket_cfg, self.quantum, self.obs)
+        if bucket_cfg not in self._sharded_cache:
+            self._sharded_cache[bucket_cfg] = ctl.sharded_job_mega_fn(
+                bucket_cfg, self.mesh, self.quantum, self.obs)
+        return self._sharded_cache[bucket_cfg]
 
     # -- execution ------------------------------------------------------
     def flush(self) -> dict:
@@ -206,7 +232,7 @@ class SnnServer:
         rounds = torch.zeros(width, dtype=torch.int32, device=dev)
         done = torch.arange(width, device=dev) >= n  # padding lanes frozen from round 0
         over = torch.zeros(width, dtype=torch.bool, device=dev)
-        mega = ctl.job_mega_fn(bucket_cfg, self.quantum, self.obs)
+        mega = self._mega(bucket_cfg)
 
         per_job_events = [[] for _ in range(n)]
         per_job_lost = [0] * n

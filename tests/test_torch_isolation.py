@@ -66,7 +66,8 @@ def test_port_modules_import_no_jax_and_no_reference():
               "repro_torch.serve.snn_serve", "repro_torch.train.optimizer",
               "repro_torch.train.train_step", "repro_torch.train.data",
               "repro_torch.train.checkpoint", "repro_torch.train.compression",
-              "repro_torch.train.decoupled", "repro_torch.launch.train"):
+              "repro_torch.train.decoupled", "repro_torch.launch.train",
+              "repro_torch.launch.mesh", "repro_torch.analysis.roofline"):
         assert m in names, m
 
 

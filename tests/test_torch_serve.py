@@ -6,8 +6,9 @@ counts and watermark errors equal each request's solo run at the same
 served results leaf for leaf; mixed caps and per-job fault seeds share a
 bucket; an overflow stays with its request; padding lanes are inert;
 telemetry rides per job; run re-entry and counters across runs.
-Counterpart of tests/test_serve.py:68-355 (its ``shard_map`` case comes
-with ROADMAP module item 12; its ``pad_to`` cases belong to the LM stack)."""
+Counterpart of tests/test_serve.py:68-355 (its ``shard_map`` case is in
+tests/test_torch_distributed.py; its ``pad_to`` cases belong to the LM
+stack)."""
 import dataclasses
 
 import jax
@@ -339,10 +340,29 @@ def test_job_termination_flags_match_jax(served):
 
 
 def test_mesh_and_sharded_job_axis_refuse_naming_item_12():
-    with pytest.raises(NotImplementedError, match="module item 12"):
-        SnnServer(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="module item 12"):
-        ctl.sharded_job_mega_fn(None, None)
+    """The sharded server's contract (tests/test_torch_distributed.py serves
+    over a 2-rank mesh): a bucket size that the mesh does not divide raises
+    the reference's message byte for byte, and so does a zero bucket; a job
+    axis that the mesh does not divide raises before any collective.  A
+    mesh of two CPU devices without process groups is enough for both."""
+    import types
+
+    from torch.distributed.device_mesh import DeviceMesh
+
+    mesh = DeviceMesh("cpu", torch.arange(2), mesh_dim_names=("jobs",),
+                      _init_backend=False, _rank=0)
+    with pytest.raises(ValueError) as want:
+        jserve.SnnServer(bucket_size=3, mesh=types.SimpleNamespace(devices=np.empty(2)))
+    with pytest.raises(ValueError) as got:
+        SnnServer(bucket_size=3, mesh=mesh)
+    assert str(got.value) == str(want.value)
+    assert SnnServer(bucket_size=4, mesh=mesh)._pad_width(1) == 4
+    reqs = wl.serve_fleet(3, SIZES, seed=3, device="cpu")
+    fn = ctl.sharded_job_mega_fn(reqs[0].cfg, mesh, QUANTUM)
+    three = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="3 jobs must split evenly over the mesh's 2 devices"):
+        fn(tree.stack([r.states for r in reqs]), tree.stack([r.pending for r in reqs]),
+           three, three.bool(), three.bool(), three, three, three, 0, 4, CHECK_EVERY)
     with pytest.raises(ValueError, match="bucket_size must be >= 1"):
         SnnServer(bucket_size=0, device="cpu")
 

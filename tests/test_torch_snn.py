@@ -2,7 +2,7 @@
 jobs and oracles, identical built platforms under every placement, a full
 ``Controller.run`` on both backends equal to the reference (final trees,
 ``rounds_run``, output counts), byte-identical overflow messages, the GPU
-default, the refusal of options outside the slice, and the import rule."""
+default, the ``shard_map`` backend's contract, and the import rule."""
 import ast
 import dataclasses
 from pathlib import Path
@@ -20,7 +20,7 @@ from repro_torch.core import channel as ch
 from repro_torch.core import segmentation as sg
 from repro_torch.core.controller import Controller
 from repro_torch.vp import isa
-from torch_parity import assert_tree_equal, carry_across, cfg_fields
+from torch_parity import assert_tree_equal, carry_across, carry_cfg, cfg_fields
 
 REPO = Path(__file__).resolve().parents[1]
 SIZES = (40, 32, 24, 10)
@@ -134,21 +134,39 @@ def test_entry_points_default_to_the_gpu(monkeypatch):
         Controller(cfg, states, pending)
 
 
-def _outside_the_slice():
-    job = _job(snn, sizes=(16, 12, 8))
-    descs = snn.segmentation_for(len(job.layers), "uniform", n_segments=2)
-    built = snn.build_snn(job.layers, descs, job.raster, device="cpu")[:3]
-    ctl = lambda **kw: Controller(*built, device="cpu", **kw)
-    return {
-        "shard_map": lambda: ctl(backend="shard_map"),
-        "mesh": lambda: ctl(mesh=object()),
-    }
-
-
 @pytest.mark.parametrize("option", ["shard_map", "mesh"])
-def test_options_outside_the_slice_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _outside_the_slice()[option]()
+def test_options_outside_the_slice_raise(option, tmp_path):
+    """The ``shard_map`` backend's contract (tests/test_torch_distributed.py
+    runs it): without a mesh it raises the reference's message; with S
+    segments on a mesh of another size it raises naming both, where the
+    reference fails with a shape error; the other backends ignore
+    ``mesh``, as the reference's do."""
+    job = _job(jsnn, sizes=(16, 12, 8))
+    descs = jsnn.segmentation_for(len(job.layers), "uniform", n_segments=2)
+    jbuilt = jsnn.build_snn(job.layers, descs, job.raster)[:3]
+    built = tuple(carry_across(t) for t in jbuilt[1:])
+    ctl = lambda **kw: Controller(carry_cfg(jbuilt[0]), *built, device="cpu", **kw)
+    if option == "shard_map":
+        with pytest.raises(AssertionError) as want:
+            JController(*jbuilt, backend="shard_map")
+        with pytest.raises(ValueError) as got:
+            ctl(backend="shard_map")
+        assert str(got.value) == str(want.value) == "shard_map backend needs a mesh"
+        return
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as M
+
+    vm = ctl(backend="vmap", mesh=object(), quantum=QUANTUM)
+    jc = JController(*jbuilt, backend="vmap", mesh=object(), quantum=QUANTUM)
+    assert vm.run(max_rounds=100, check_every=1)[0] == jc.run(max_rounds=100, check_every=1)[0]
+    assert_tree_equal(jc.result_states(), vm.result_states())
+    M.init_world(f"file://{tmp_path / 'rendezvous'}", 0, 1, device="cpu", timeout_s=60)
+    try:
+        with pytest.raises(ValueError, match="2 segments on a mesh of 1 devices"):
+            ctl(backend="shard_map", mesh=M.make_mesh((1,), ("segment",), device="cpu"))
+    finally:
+        dist.destroy_process_group()
 
 
 def _hand_injected(kind, addr, live_cpu):

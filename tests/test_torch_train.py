@@ -230,6 +230,35 @@ def test_int8_moments_update_close_to_fp32():
     np.testing.assert_allclose(out[torch.int8], out[torch.float32], atol=2e-3)
 
 
+def test_int8_moments_drop_small_entries_of_v_as_jax():
+    """ROADMAP F5, pinned: int8 moments quantize each row to steps of
+    (row max)/127, so v (which holds g^2) rounds an entry below ~6.3% of its
+    row's largest to 0 at every step, while m keeps its history.  One row
+    g = [1.0, 0.03, 0.003], params and moments zero, no warmup, no decay,
+    no clip, three steps: params and moments equal the JAX package's, v
+    dequantizes to [0.1426, 0, 0], and the params part from float32's."""
+    g = np.array([[1.0, 0.03, 0.003]], np.float32)
+    kw = dict(warmup_steps=0, weight_decay=0.0, grad_clip=1e9)
+    oc = optimizer.OptConfig(moments_dtype=torch.int8, **kw)
+    joc = jopt.OptConfig(moments_dtype=jnp.int8, **kw)
+    opt = init_params(optimizer.opt_specs({"w": ParamSpec((1, 3), init="zeros")}, oc),
+                      torch.Generator(), "cpu")
+    jspecs = {"w": JParamSpec((1, 3), jnp.float32, jax.sharding.PartitionSpec(), "zeros")}
+    jopt_state = jinit_params(jax.random.PRNGKey(0), jopt.opt_specs(jspecs, joc))
+    p, jp = {"w": torch.zeros((1, 3))}, {"w": jnp.zeros((1, 3), jnp.float32)}
+    for _ in range(3):
+        optimizer.adamw_update(oc, p, {"w": torch.from_numpy(g)}, opt)
+        jp, jopt_state, _ = jopt.adamw_update(joc, jp, {"w": jnp.asarray(g)}, jopt_state)
+    np.testing.assert_array_equal(p["w"].numpy(), np.asarray(jp["w"]))
+    for (path, got), want in zip(T.leaves(opt), jax.tree.leaves(jopt_state)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=path)
+    v = {path: x for path, x in T.leaves(opt) if path.startswith("/v/w")}
+    v = (v["/v/w/q"].float() * v["/v/w/scale"].unsqueeze(-1)).numpy()
+    np.testing.assert_allclose(v, [[0.1426, 0.0, 0.0]], atol=5e-5)
+    np.testing.assert_allclose(p["w"].numpy(), [[-0.0009, -0.00125145, -0.00070745]],
+                               rtol=2e-5)
+
+
 def test_requant_rounds_half_to_even():
     like = {"q": torch.zeros((1, 4), dtype=torch.int8), "scale": torch.zeros((1,))}
     val = torch.tensor([[127.0, 0.5, 1.5, -2.5]])

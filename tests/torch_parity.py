@@ -1,6 +1,11 @@
 """Helpers shared by the port's parity tests (tests/test_torch_*.py): the
 JAX package and the PyTorch port compared leaf by leaf through numpy."""
 import dataclasses
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -8,6 +13,8 @@ import pytest
 import torch
 
 from repro_torch import tree
+
+SRC = Path(__file__).resolve().parents[1] / "src"
 
 
 @pytest.fixture(scope="module")
@@ -24,6 +31,44 @@ def single_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def run_torch_world(code: str, world_size: int, workdir, timeout: float = 240.0):
+    """Run ``code`` in ``world_size`` fresh interpreters, one rank each, for
+    a ``torch.distributed`` world on the CPU (gloo).  Each rank reads
+    ``RANK``, ``WORLD_SIZE``, ``INIT_METHOD`` (a ``file://`` rendezvous in
+    ``workdir``, so concurrent test workers never share a port) and
+    ``OUT`` (``workdir``) from its environment.  Every rank is killed once
+    one fails or the wall limit ``timeout`` passes, so a rank that raised
+    cannot leave another waiting; raises with the ranks' output then."""
+    workdir = Path(workdir)
+    env = dict(os.environ, PYTHONPATH=str(SRC), WORLD_SIZE=str(world_size),
+               INIT_METHOD=f"file://{workdir / 'rendezvous'}", OUT=str(workdir),
+               OMP_NUM_THREADS="1")
+    logs = [open(workdir / f"rank{r}.log", "w+") for r in range(world_size)]
+    procs = [subprocess.Popen([sys.executable, "-c", code], env={**env, "RANK": str(r)},
+                              stdout=log, stderr=subprocess.STDOUT)
+             for r, log in enumerate(logs)]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(p.returncode for p in procs):
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    out = []
+    for r, log in enumerate(logs):
+        log.seek(0)
+        out.append(log.read())
+        log.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode]
+    assert not bad, "".join(f"\n--- rank {r} (exit {procs[r].returncode}):\n{out[r][-3000:]}"
+                            for r in bad)
+    return out
 
 
 def assert_tree_equal(jax_tree, torch_tree, what="tree"):
