@@ -241,7 +241,23 @@ and fails (non-zero exit, no result line) unless every phase holds:
      ``SnnServer(mesh=make_serve_mesh())`` (``sharded_job_mega_fn``),
      every request leaf-equal to ``SnnServer()``'s and to its solo run,
      the flushes in turns.  ``--phase 15`` runs it alone and prints no
-     result line.
+     result line;
+  16. (after 14) the LM mesh paths at world size 1 over NCCL, on the
+     (data, model) = (1, 1) mesh: (a) llama4-scout served through
+     ``greedy_generate(mesh=)``, its MoE layers through ``ep_moe`` at
+     prefill and ``ep_moe_decode`` at decode (the calls counted): at depth 1,
+     inside 13a on its weights, against the JAX package's one-device mesh
+     (``LM_MESH_TARGET``, made by ``scripts/lm_mesh_targets.py``), and at
+     depth 4 (13c's build, B=4, a 1024-token prompt, 16 tokens) against the
+     single-card ``dense_moe`` run, with both paths' prefill and decode
+     times and profiles; (b) ``make_train_step(mesh=)`` from the state
+     placed by ``state_shardings`` against ``make_train_step()`` from the
+     same state: qwen3-1.7b whole and falcon-mamba-7b at depth 8 (the scan's
+     forward and backward kernels, launches counted) bit-equal after 2
+     steps, llama4-scout at depth 1 within LM_MESH_TRAIN_TOL; (c) qwen3's
+     state after its mesh steps through ``checkpoint.save(shardings=)`` and
+     ``restore(shardings=)``, leaf-equal.  ``--phase 16`` runs it alone
+     (making the depth-1 weights on the host) and prints no result line.
 
 A VP main path's kernel launches (phases 2, 3, 6, 7, 9, 10, 11, 12 and 15) are counted on
 the card: the fused tick, the fused completion and the slot scan each add
@@ -251,8 +267,9 @@ counters count only the launches issued from the host.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' numbers as JSON, each kernel's launches those of the
 main path's runs (0 for the unfused ``lif_step``, ``crossbar_vmm`` and
-``ssm_scan``, which no main path runs; ``ssm_scan_fused_bwd``'s from
-falcon-mamba-7b's training in phase 14c).  Imports nothing of JAX.
+``ssm_scan``, which no main path runs; ``ssm_scan_fused``'s from phases 8
+and 16b, ``ssm_scan_fused_bwd``'s from falcon-mamba-7b's training in phases
+14c and 16b).  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -1504,6 +1521,71 @@ TRAIN_FAMILIES = {
 # its row's small entries to 0, and a later step divides by their square
 # root (+ eps), so the two updates part by design after the first
 KIMI_INT8_TOL = 2e-3
+
+# ---------------------------------------------------------------------------
+# phase 16: the LM mesh paths on a mesh of one card (NCCL, world size 1)
+# 16a, at depth 1 (run inside 13a, on its weights; ``--phase 16`` alone makes
+# them): llama4-scout served on the (data, model) = (1, 1) mesh, its MoE
+# layers through ep_moe (prefill) and ep_moe_decode (decode), against the
+# JAX package's one-device mesh (LM_MESH_TARGET, made by
+# ``PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/lm_mesh_targets.py``;
+# 13a's weights, prompt and vocab sample, 4 greedy steps).  On the CPU the
+# port's logits are 0.0039 from them at the sample, and the JAX package's
+# own mesh and no-mesh logits are equal; held at 13a's tolerances
+# (FAMILIES_TOL, FAMILIES_MEAN_TOL), which cover the card's bf16 GEMMs
+# summing in another order.
+LM_MESH_JAX = dict(layers=1, batch=2, prompt=256, steps=4, pad_to=264)
+LM_MESH_TARGET = {'jax_own': [0.0, 0.0],
+ 'last_logits': [[2.03125, -1.265625, -1.984375, -0.458984375, 0.52734375, -0.1552734375,
+                  -1.2890625, -1.765625, -0.5, -1.21875, 0.16796875, 0.09423828125, 0.482421875,
+                  0.76953125, 0.6796875, -1.046875, 0.1875, -0.328125, -0.232421875, -0.0908203125,
+                  -0.75, 0.2490234375, 0.55859375, 0.26171875, -0.66796875, 0.37109375, 0.68359375,
+                  -0.06298828125, 1.1953125, -0.23828125, -0.609375, 0.6953125],
+                 [1.1875, 1.296875, 0.4609375, 1.5703125, -0.06494140625, -1.6171875, -0.349609375,
+                  1.0625, -1.8125, 0.099609375, 0.8828125, -0.63671875, 1.296875, 1.125, 1.0234375,
+                  1.6640625, 0.1240234375, 0.3515625, -1.7109375, -0.59765625, 0.263671875,
+                  -0.81640625, 0.73828125, -2.203125, -0.373046875, -1.0625, -0.1376953125,
+                  -0.73046875, 0.419921875, -0.3515625, 0.96484375, 1.171875]],
+ 'margins': [[0.1875, 0.21875, 0.15625, 0.09375], [0.09375, 0.0, 0.28125, 0.0625]],
+ 'port_cpu': [0.00390625, 0.0],
+ 'prefill_logits': [[0.53125, 0.0888671875, 2.328125, 0.546875, -0.3046875, -0.890625, -1.640625,
+                     -1.1640625, -0.57421875, 1.5390625, 0.2138671875, 1.109375, 0.9140625,
+                     -0.71875, 0.484375, 0.6328125, 0.83203125, 0.408203125, -0.35546875, 1.203125,
+                     -0.05126953125, 0.67578125, 0.53515625, -0.0223388671875, 0.412109375,
+                     0.2578125, -0.35546875, 0.25390625, 0.12060546875, 1.7421875, 0.8046875,
+                     1.7890625],
+                    [-2.6875, 0.54296875, -0.1982421875, 0.765625, -0.396484375, 0.29296875,
+                     0.95703125, 1.8515625, 1.0546875, -1.8515625, 1.0859375, 0.5859375, 0.80078125,
+                     1.0859375, 0.04443359375, -1.859375, -1.8203125, -0.609375, 1.1171875,
+                     0.03759765625, -3.1875, 0.69921875, -1.2421875, -0.93359375, -0.94921875,
+                     -0.373046875, 0.71875, -0.419921875, 0.337890625, -0.0294189453125,
+                     -0.50390625, 0.7109375]],
+ 'sample': [11141, 18569, 22081, 30318, 37961, 40680, 44397, 52562, 52850, 55553, 60301, 61763,
+            67654, 83599, 85421, 87409, 91166, 112780, 113599, 121235, 127933, 132825, 135227,
+            137129, 147189, 151364, 164286, 164491, 169204, 177833, 190981, 200586],
+ 'tokens': [[52670, 67735, 74947, 28375], [96838, 39403, 151176, 26973]]}
+# 16a at depth 4: FAMILIES_MAIN's llama4-scout build served both ways; the
+# expert-parallel logits against dense_moe's at 13a's tolerances, tokens
+# equal where dense_moe's top-1/top-2 margin reaches FAMILIES_TOL
+SCOUT = "llama4-scout-17b-a16e"
+LM_MESH_SERVE = FAMILIES_MAIN[SCOUT]
+# 16b: train steps over the mesh of one against make_train_step() from the
+# same state (the launcher's data, seed 7); qwen3-1.7b whole and
+# falcon-mamba-7b at depth 8 (its scan kernels) bit-equal, llama4-scout at
+# depth 1 (ep_moe against dense_moe, int8 moments: float32 ones and a second
+# state would not fit beside its 17.1 GB of parameters and gradients) held
+# at LM_MESH_TRAIN_TOL: the loss relative, params in learning rates (a
+# first Adam step may flip a param whose gradient is near 0: 2 lr)
+LM_MESH_TRAIN = {
+    QWEN: dict(layers=None, batch=4, seq=1024, steps=2, exact=True, int8=False,
+               opt=dict(lr=1e-3, warmup_steps=2, total_steps=100)),
+    FALCON: dict(layers=8, batch=4, seq=1024, steps=2, exact=True, int8=False,
+                 opt=dict(lr=1e-3, warmup_steps=2, total_steps=100)),
+    SCOUT: dict(layers=1, batch=2, seq=256, steps=1, exact=False, int8=True,
+                opt=dict(lr=1e-3, warmup_steps=1, total_steps=100)),
+}
+LM_MESH_TRAIN_TOL = dict(loss=1e-3, lr_units=2.05)
+
 
 def check(cond, msg):
     if not cond:
@@ -4070,11 +4152,13 @@ def whisper_encoder_check(cfg, params, batch, want):
           flush=True)
 
 
-def families_jax_phase():
+def families_jax_phase(mesh_check=False):
     """13a: llama4-scout (one MoE layer), qwen2-vl (depth 2, vision
     embeddings and M-RoPE), zamba2 (two groups) and whisper-tiny at full
     width against the JAX package's numbers for the same weights and inputs
-    (FAMILIES_TARGET); one architecture's weights at a time."""
+    (FAMILIES_TARGET); one architecture's weights at a time.  With
+    ``mesh_check``, llama4-scout's weights also serve 16a's depth-1 check on
+    the mesh of one (``lm_mesh_jax_check``)."""
     import dataclasses
 
     from repro_torch.common import init_numpy
@@ -4134,6 +4218,10 @@ def families_jax_phase():
                   f"step), on average {means[0]} and {means[1]}, tolerances {FAMILIES_TOL} and "
                   f"{FAMILIES_MEAN_TOL}; weights made on the host in {host_s:.1f} s",
                   flush=True)
+        if mesh_check and arch == SCOUT:
+            del cache, lg
+            lm_mesh_jax_check(cfg, model, params, batch)
+            cache = lg = None
         del params, cache, lg
         gc.collect()
         torch.cuda.empty_cache()
@@ -4302,9 +4390,9 @@ def family_main_path(arch, card):
     torch.cuda.empty_cache()
 
 
-def families_phase(card):
+def families_phase(card, mesh_check=False):
     t0 = time.perf_counter()
-    families_jax_phase()
+    families_jax_phase(mesh_check)
     t1 = time.perf_counter()
     kimi_phase()
     t2 = time.perf_counter()
@@ -6270,6 +6358,375 @@ def train_phase(card):
     return row, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the LM mesh paths on a mesh of one card
+
+
+class world_of_one:
+    """A ``torch.distributed`` world of one rank over NCCL (a ``file://``
+    rendezvous in a temporary directory) and its (data, model) = (1, 1)
+    mesh; the group is destroyed on leaving."""
+
+    def __enter__(self):
+        import tempfile
+
+        import torch.distributed as dist
+
+        from repro_torch.launch import mesh as M
+
+        self.tmp = tempfile.TemporaryDirectory()
+        M.init_world(f"file://{self.tmp.name}/rendezvous", 0, 1, timeout_s=300)
+        check(dist.get_backend() == "nccl", f"16: backend {dist.get_backend()}")
+        return M.make_test_mesh(1, 1)
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+        self.tmp.cleanup()
+        check(not dist.is_initialized(), "16: the process group outlived the phase")
+
+
+class moe_paths:
+    """Counts the calls of ``models.moe``'s three paths while it is open:
+    which path ``apply_moe`` took, layer by layer."""
+
+    NAMES = ("dense_moe", "ep_moe", "ep_moe_decode")
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls = dict.fromkeys(self.NAMES, 0)
+        self.real = {n: getattr(moe, n) for n in self.NAMES}
+        for n, fn in self.real.items():
+            def wrapped(*a, _n=n, _fn=fn, **k):
+                self.calls[_n] += 1
+                return _fn(*a, **k)
+            setattr(moe, n, wrapped)
+        return self.calls
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        for n, fn in self.real.items():
+            setattr(moe, n, fn)
+
+
+def greedy_logits(model, params, batch, steps, pad_to, mesh=None, feed=None):
+    """``greedy_generate``'s loop keeping each step's logits: (tokens (B,
+    steps), [last-position logits (B, V) float32 of each step]); with
+    ``feed`` (B, steps) the decode steps take its tokens instead of their
+    own argmax."""
+    from repro_torch.serve.serve_step import _pad_seq, decode_batch
+
+    cache, lg = model.prefill(params, batch, mesh=mesh)
+    b, seq = batch["tokens"].shape
+    cache = _pad_seq(model.cfg, cache, seq, b, pad_to)
+    out = [lg[:, -1].float()]
+    toks = [torch.argmax(lg[:, -1], dim=-1).to(torch.int32)]
+    for i in range(steps - 1):
+        tok = toks[-1] if feed is None else feed[:, i]
+        lg, cache = model.decode_step(params, cache, decode_batch(model.cfg, tok[:, None].contiguous(),
+                                                                  seq + i), seq + i, mesh=mesh)
+        out.append(lg[:, -1].float())
+        toks.append(torch.argmax(lg[:, -1], dim=-1).to(torch.int32))
+    return torch.stack(toks, dim=1), out
+
+
+def lm_mesh_jax_check(cfg, model, params, batch):
+    """16a at depth 1: llama4-scout on the mesh of one against the JAX
+    package's one-device mesh (LM_MESH_TARGET), on 13a's weights."""
+    from repro_torch.serve.serve_step import greedy_generate
+
+    spec, want = LM_MESH_JAX, LM_MESH_TARGET
+    check(cfg.n_layers == spec["layers"] and tuple(batch["tokens"].shape)
+          == (spec["batch"], spec["prompt"]), f"16a: depth {cfg.n_layers}")
+    with world_of_one() as mesh:
+        with moe_paths() as calls:
+            toks = greedy_generate(model, params, batch, steps=spec["steps"], mesh=mesh,
+                                   pad_to=spec["pad_to"]).cpu().numpy()
+        n = spec["layers"]
+        check(calls == {"dense_moe": 0, "ep_moe": n, "ep_moe_decode": n * (spec["steps"] - 1)},
+              f"16a depth 1: MoE paths {calls}")
+        want_toks = np.array(want["tokens"], np.int32)
+        _, lgs = greedy_logits(model, params, batch, spec["steps"], spec["pad_to"], mesh=mesh,
+                               feed=torch.from_numpy(want_toks).cuda())
+    sample = torch.tensor(want["sample"], device="cuda")
+    diffs = [(lgs[0][:, sample].cpu() - torch.tensor(want["prefill_logits"])).abs(),
+             (lgs[-1][:, sample].cpu() - torch.tensor(want["last_logits"])).abs()]
+    errs, means = [float(d.max()) for d in diffs], [float(d.mean()) for d in diffs]
+    compared, skipped = same_greedy("16a depth 1", toks, want_toks, np.array(want["margins"]),
+                                    FAMILIES_TOL)
+    check(max(errs) <= FAMILIES_TOL and max(means) <= FAMILIES_MEAN_TOL,
+          f"16a depth 1: logits off the JAX package's by {errs} at most, {means} on average")
+    print(f"16a {cfg.name} depth 1 on the mesh of one (ep_moe at prefill, ep_moe_decode at "
+          f"{spec['steps'] - 1} decode steps: {calls}): tokens equal the JAX package's "
+          f"one-device mesh at {compared} positions, {skipped} skipped (JAX margin < "
+          f"{FAMILIES_TOL}); logits at {len(want['sample'])} vocab indices off its by at most "
+          f"{errs[0]} (prefill) and {errs[1]} (last decode step), on average {means[0]} and "
+          f"{means[1]} (tolerances {FAMILIES_TOL}, {FAMILIES_MEAN_TOL}; the port on a CPU "
+          f"{want['port_cpu']}, the JAX package's own mesh against no-mesh {want['jax_own']})",
+          flush=True)
+
+
+def lm_mesh_serve(card, mesh):
+    """16a: llama4-scout at depth 4 (13c's build) served through
+    ``greedy_generate(mesh=)`` against the single-card ``dense_moe`` run:
+    logits at every step (fed the dense run's tokens), tokens, prefill and
+    decode times, kernels and busy share of both."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build
+    from repro_torch.serve.serve_step import _pad_seq, decode_batch, greedy_generate
+
+    spec = LM_MESH_SERVE
+    cfg = dataclasses.replace(get_config(SCOUT), n_layers=spec["layers"])
+    model = build(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator("cuda").manual_seed(spec["weight_seed"]))
+    b, steps, prompt = spec["batch"], spec["steps"], spec["prompt"]
+    batch = families_batch(cfg, b, prompt,
+                           generator=torch.Generator("cuda").manual_seed(spec["prompt_seed"]))
+    torch.cuda.synchronize()
+    print(f"16a {SCOUT} depth {cfg.n_layers}: weights made on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    runs = {}
+    for label, m in (("dense_moe", None), ("expert-parallel", mesh)):
+        greedy_generate(model, params, batch, steps=2, mesh=m, pad_to=spec["pad_to"])  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with moe_paths() as calls:
+            toks = greedy_generate(model, params, batch, steps=steps, mesh=m,
+                                   pad_to=spec["pad_to"])
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cache, lg = model.prefill(params, batch, mesh=m)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        decode_s = (total_s - prefill_s) / (steps - 1)
+        n = cfg.n_layers
+        want = ({"dense_moe": n * steps, "ep_moe": 0, "ep_moe_decode": 0} if m is None else
+                {"dense_moe": 0, "ep_moe": n, "ep_moe_decode": n * (steps - 1)})
+        check(calls == want, f"16a {label}: MoE paths {calls}, want {want}")
+        print(f"16a {SCOUT} depth {n} {label} ({calls}), B={b}, prompt {prompt}, {steps} greedy "
+              f"tokens: {total_s:.6f} s in all; prefill {1e3 * prefill_s:.3f} ms, decode "
+              f"{1e3 * decode_s:.3f} ms per token, {b * steps / total_s:.1f} generated tokens/s "
+              f"({card})", flush=True)
+        profile_run(f"16a {label} prefill", lambda: (model.prefill(params, batch, mesh=m),
+                                                     torch.cuda.synchronize()),
+                    lambda: 1, "prefill", prefill_s)
+        cache = _pad_seq(cfg, cache, prompt, b, spec["pad_to"])
+        db = decode_batch(cfg, toks[:, :1].contiguous(), prompt)
+        profile_run(f"16a {label} decode step", lambda: (
+            model.decode_step(params, cache, db, prompt, mesh=m), torch.cuda.synchronize()),
+            lambda: 1, "step", decode_s)
+        runs[label] = toks.cpu().numpy()
+        del cache, lg
+    dense_toks, dense_lgs = greedy_logits(model, params, batch, steps, spec["pad_to"])
+    check(np.array_equal(dense_toks.cpu().numpy(), runs["dense_moe"]), "16a: dense tokens")
+    _, ep_lgs = greedy_logits(model, params, batch, steps, spec["pad_to"], mesh=mesh,
+                              feed=dense_toks)
+    diffs = [(a - d).abs() for a, d in zip(ep_lgs, dense_lgs)]
+    errs, means = [float(d.max()) for d in diffs], [float(d.mean()) for d in diffs]
+    margins = np.stack([np.diff(np.sort(x.cpu().numpy(), axis=-1)[:, -2:], axis=-1)[:, 0]
+                        for x in dense_lgs], axis=1)
+    compared, skipped = same_greedy("16a depth 4", runs["expert-parallel"], runs["dense_moe"],
+                                    margins, FAMILIES_TOL)
+    check(max(errs) <= FAMILIES_TOL and max(means) <= FAMILIES_MEAN_TOL
+          and all(bool(torch.isfinite(x).all()) for x in ep_lgs),
+          f"16a depth 4: expert-parallel logits off dense_moe's by {max(errs)} at most, "
+          f"{max(means)} on average")
+    print(f"16a {SCOUT} depth {cfg.n_layers}: the expert-parallel logits (fed dense_moe's "
+          f"tokens) off dense_moe's by at most {max(errs)} over the whole vocab at {steps} steps "
+          f"(prefill {errs[0]}), on average at most {max(means)} (tolerances {FAMILIES_TOL}, "
+          f"{FAMILIES_MEAN_TOL}); tokens equal at {compared} positions, {skipped} skipped "
+          f"(dense margin < {FAMILIES_TOL}; equal at "
+          f"{int((runs['expert-parallel'] == runs['dense_moe']).sum())} of {dense_toks.numel()} "
+          f"in all)", flush=True)
+    del params, dense_lgs, ep_lgs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def place(tree_, shardings_):
+    """A global tree's blocks for this rank (``common.shard``), leaf by leaf
+    in place of the dict's leaves, so one leaf's two copies exist at a time."""
+    from repro_torch.common import shard
+
+    for k, v in tree_.items():
+        if isinstance(v, dict):
+            place(v, shardings_[k])
+        else:
+            tree_[k] = None
+            tree_[k] = shard(v, shardings_[k])
+    return tree_
+
+
+def lm_mesh_train(card, mesh):
+    """16b: train steps over the mesh of one against the single-card steps
+    from the same state; 16c: qwen3-1.7b's state after its mesh steps saved
+    with ``checkpoint.save(shardings=)`` and restored onto the mesh.
+    Returns the scan kernels' launches in falcon-mamba-7b's mesh steps."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssm_scan import ops
+    from repro_torch.models.model import build
+    from repro_torch.train import optimizer, train_step
+    from repro_torch.train.data import DataConfig, batch_at, device_batch_at
+
+    launches = {}
+    for arch, spec in LM_MESH_TRAIN.items():
+        cfg = get_config(arch)
+        if spec["layers"] is not None:
+            cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+        model = build(cfg)
+        oc = optimizer.OptConfig(**spec["opt"], moments_dtype=torch.int8 if spec["int8"]
+                                 else torch.float32)
+        dc = DataConfig(cfg.vocab_size, spec["seq"], spec["batch"], seed=7)
+        fresh = lambda: train_state(model, oc, model.init(torch.Generator("cuda").manual_seed(0)))
+        label = (f"16b {arch} (depth {cfg.n_layers}, B={spec['batch']} x {spec['seq']}, "
+                 f"{spec['steps']} steps{', int8 moments' if spec['int8'] else ''})")
+        torch.use_deterministic_algorithms(True, warn_only=True)  # both runs alike
+        try:
+            out = {}
+            for name, m in (("single-card", None), ("mesh", mesh)):
+                state = fresh()
+                if m is not None:
+                    sh = train_step.state_shardings(model, oc, m)
+                    state = place(state, sh)
+                step_fn = train_step.make_train_step(model, oc, mesh=m)
+                ops.selective_scan_fused.launches = ops.selective_scan_fused_bwd.launches = 0
+                metrics, secs = [], []
+                for i in range(spec["steps"]):
+                    b = (device_batch_at(dc, i, mesh=m) if m is not None else
+                         {k: v.cuda() for k, v in batch_at(dc, i).items()})
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, met = step_fn(state, b)
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+                    metrics.append({k: float(v) for k, v in met.items()})
+                fwd, bwd = ops.selective_scan_fused.launches, ops.selective_scan_fused_bwd.launches
+                print(f"{label} {name}: step {' '.join(f'{1e3 * t:.3f}' for t in secs)} ms, "
+                      f"loss {' '.join(str(x['loss']) for x in metrics)} ({card})", flush=True)
+                if spec["exact"] or m is not None:
+                    out[name] = (state, metrics, fwd, bwd)
+                else:  # no room for two states: the params to the host
+                    out[name] = ({p: x.cpu() for p, x in tree.leaves(state["params"])}, metrics,
+                                 fwd, bwd)
+                    del state
+                    gc.collect()
+                    torch.cuda.empty_cache()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        (plain, pm, pf, pb), (meshed, mm, mf, mb) = out["single-card"], out["mesh"]
+        if arch == FALCON:
+            n = cfg.n_layers * spec["steps"]
+            check((pf, pb) == (mf, mb) == (2 * n, n),
+                  f"16b {arch}: scan launches {pf}, {pb} single-card; {mf}, {mb} mesh")
+            launches = {"ssm_scan_fused": mf, "ssm_scan_fused_bwd": mb}
+        if spec["exact"]:
+            check(pm == mm, f"{label}: metrics {mm} against the single-card {pm}")
+            diff = [p for (p, a), (_, b) in zip(tree.leaves(plain), tree.leaves(meshed))
+                    if not torch.equal(a, b)]
+            check(not diff, f"{label}: leaves differ from the single-card step's: {diff[:5]}")
+            n_leaves = len(tree.leaves(meshed))
+            print(f"{label}: params, both moments, the step and the metrics bit-equal to "
+                  f"make_train_step()'s from the same state ({n_leaves} leaves; scan launches "
+                  f"on the mesh {mf} forward, {mb} backward)", flush=True)
+        else:
+            rel = abs(mm[0]["loss"] - pm[0]["loss"]) / abs(pm[0]["loss"])
+            on_mesh = dict(tree.leaves(meshed["params"]))
+            d = max(float((on_mesh[p].cpu().float() - x.float()).abs().max())
+                    for p, x in plain.items())
+            lr = mm[0]["lr"]
+            tol = LM_MESH_TRAIN_TOL
+            check(rel <= tol["loss"] and d <= tol["lr_units"] * lr and np.isfinite(
+                mm[0]["grad_norm"]), f"{label}: loss off by {rel}, params by {d / lr} lr")
+            print(f"{label}: ep_moe's step against dense_moe's: loss {mm[0]['loss']} against "
+                  f"{pm[0]['loss']} (relative {rel:.2e}, tolerance {tol['loss']}), grad_norm "
+                  f"{mm[0]['grad_norm']} against {pm[0]['grad_norm']}, params at most "
+                  f"{d / lr:.3f} lr apart (tolerance {tol['lr_units']} lr)", flush=True)
+        if arch == QWEN:
+            checkpoint_onto_mesh(label, model, oc, meshed, sh)
+        del out, plain, meshed
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def checkpoint_onto_mesh(label, model, oc, state, sh):
+    """16c: ``checkpoint.save(shardings=)`` of the state after the mesh
+    steps (the global arrays, gathered), ``restore(shardings=)`` onto the
+    mesh: every leaf equal."""
+    import shutil
+
+    from repro_torch import tree
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.train_step import state_specs
+
+    ckpt_dir = ROOT / "build" / "chip_smoke_mesh_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.parent.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(ckpt_dir.parent).free
+    at = int(state["opt"]["step"])
+    t0 = time.perf_counter()
+    ckpt.save(ckpt_dir, at, state, shardings=sh)
+    save_s = time.perf_counter() - t0
+    nbytes = (ckpt_dir / f"step_{at:08d}" / "shard_0.npz").stat().st_size
+    t0 = time.perf_counter()
+    restored, got = ckpt.restore(ckpt_dir, state_specs(model, oc), step=at, shardings=sh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    diff = [p for (p, a), (_, b) in zip(tree.leaves(state), tree.leaves(restored))
+            if not (a.dtype == b.dtype and a.device == b.device and torch.equal(a, b))]
+    check(got == at and not diff, f"16c: step {got}, leaves differ: {diff[:5]}")
+    print(f"16c {label}: its state after the mesh steps saved with save(shardings=) "
+          f"({nbytes / 2**30:.2f} GiB of npz) in {save_s:.2f} s and restored onto the mesh "
+          f"with restore(shardings=) (sha256 checked) in {restore_s:.2f} s: all "
+          f"{len(tree.leaves(state))} leaves equal ({free / 2**30:.1f} GiB of disk free before)",
+          flush=True)
+    del restored
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def lm_mesh_phase(card, depth1=True):
+    """Phase 16 at world size 1 over NCCL: 16a (depth 1 against the JAX
+    package's one-device mesh, when ``depth1``: ``--phase 16`` alone; the
+    whole script runs it inside 13a on its weights), 16a at depth 4, 16b
+    and 16c.  Returns the scan kernels' launches on the mesh."""
+    t0 = time.perf_counter()
+    if depth1:
+        import dataclasses
+
+        from repro_torch.common import init_numpy
+        from repro_torch.configs import get_config
+        from repro_torch.models.model import build, params_from_numpy
+
+        cfg = dataclasses.replace(get_config(SCOUT), n_layers=LM_MESH_JAX["layers"])
+        model = build(cfg)
+        params = params_from_numpy(model.specs, init_numpy(model.specs,
+                                                           seed=FAMILIES_JAX["weight_seed"]))
+        lm_mesh_jax_check(cfg, model, params, families_batch(cfg, LM_MESH_JAX["batch"],
+                                                             LM_MESH_JAX["prompt"]))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    with world_of_one() as mesh:
+        print(f"16 mesh: {mesh} over NCCL, world size 1 ({card})", flush=True)
+        lm_mesh_serve(card, mesh)
+        t2 = time.perf_counter()
+        launches = lm_mesh_train(card, mesh)
+    print(f"phase 16: depth 1 {t1 - t0:.1f} s, 16a {t2 - t1:.1f} s, 16b-c "
+          f"{time.perf_counter() - t2:.1f} s", flush=True)
+    return launches
+
+
 def global_loads(name):
     """The global-load instructions of ``csrc/<name>.cu``'s build, by SASS
     opcode (``cuobjdump -sass``): where ``slot_scan`` reads the DRAM backing
@@ -6313,6 +6770,14 @@ def main(argv):
         mesh_phase(card)
         print(card)
         return 0
+    if argv == ["--phase", "16"]:  # phase 16 alone: no result line
+        t0 = time.perf_counter()
+        kbuild.build_all(["ssm_scan"])
+        print(f"built ssm_scan in {time.perf_counter() - t0:.2f} s", flush=True)
+        phase("16 the LM mesh paths on the mesh of one card")
+        lm_mesh_phase(card)
+        print(card)
+        return 0
     if argv == ["--phase", "14"]:  # phase 14 alone: no result line
         t0 = time.perf_counter()
         kbuild.build_all(["ssm_scan"])
@@ -6324,7 +6789,8 @@ def main(argv):
         train_phase(card)
         print(card)
         return 0
-    check(not argv, f"arguments {argv}: none, --phase 13, --phase 14 or --phase 15")
+    check(not argv, f"arguments {argv}: none, --phase 13, --phase 14, --phase 15 or "
+                    f"--phase 16")
     t0 = time.perf_counter()
     built = kbuild.build_all(SOURCES)
     print(f"built {sorted(built) or 'nothing (cached)'} in "
@@ -6402,11 +6868,14 @@ def main(argv):
         launches[name] += n
     dense_lm_jax_phase()
     dense_lm_main_path(card)
-    phase("13 the moe, vlm, hybrid and encdec families")
-    families_phase(card)
+    phase("13 the moe, vlm, hybrid and encdec families (and 16a at depth 1)")
+    families_phase(card, mesh_check=True)
     phase("14 training")
     bwd_row, launches["ssm_scan_fused_bwd"] = train_phase(card)
     rows.append(bwd_row)
+    phase("16 the LM mesh paths on the mesh of one card")
+    for name, n in lm_mesh_phase(card, depth1=False).items():
+        launches[name] += n
 
     for row in rows:
         row["launches"] = launches[row["name"]]

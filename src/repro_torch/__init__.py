@@ -27,10 +27,14 @@ Mamba-1 scan's gradient a CUDA kernel too; ``vp.workloads.from_arch``,
 which tiles an architecture's FFN GEMM onto the VP's crossbars; the VP's
 multi-device backends on ``torch.distributed`` (``launch.mesh``: the
 controller's ``shard_map`` backend, the sharded job axis and
-``SnnServer(mesh=)``); and one-card FLOP accounting
-(``analysis.roofline``).
-Options outside these paths raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+``SnnServer(mesh=)``); the LM's sharding layer (partition specs at any
+``tp``, ``common.shard``/``unshard``), its expert-parallel MoE
+(``models.moe.ep_moe``, ``ep_moe_decode``), the ZeRO-1 train step over a
+mesh (``make_train_step(mesh=)``), ``device_batch_at(mesh=)`` and
+``checkpoint.restore(shardings=)``; and one-card FLOP accounting
+(``analysis.roofline``).  Still to come (ROADMAP): tensor parallelism of
+the non-expert weights over 'model' (item 14) and a counterpart of the
+reference's ``launch/dryrun.py`` (item 15).
 
 Entry points put state on ``cuda`` unless the caller passes
 ``device="cpu"``; with no GPU they raise instead of moving to the CPU.

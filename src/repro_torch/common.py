@@ -1,10 +1,17 @@
-"""Spec trees, the dtype policy and initialisers (counterpart of
-``repro/common.py``).
+"""Spec trees, the dtype policy, initialisers and the sharding layer
+(counterpart of ``repro/common.py``).
 
 Parameters are nested dicts of tensors; beside every parameter tree is a
 spec tree of the same structure whose leaves are ``ParamSpec`` (shape,
-dtype, init kind).  The JAX package's specs also carry a sharding; the port
-runs on one card and drops it.
+dtype, ``P`` partition spec, init kind), as the reference's.  ``P`` is the
+port's own PartitionSpec: one entry per tensor dim, ``None``, a mesh axis
+name or a tuple of names (the first the major one).  ``shardings`` turns a
+spec tree into ``NamedSharding`` records (a mesh and a filtered spec);
+``shard`` cuts this rank's block out of a global tensor and ``unshard``
+all-gathers the blocks back, in JAX's block order.  The port runs explicit
+SPMD over a ``torch.distributed`` mesh (``launch/mesh.py``): every rank runs
+the same program on its own blocks, so a layout holds by construction and
+``with_sharding``, the reference's GSPMD constraint, changes nothing.
 """
 from __future__ import annotations
 
@@ -18,12 +25,49 @@ import torch
 from repro_torch import tree as T
 
 
+class P:
+    """A partition spec (``jax.sharding.PartitionSpec``'s counterpart): one
+    entry per leading tensor dim, each ``None`` (not sharded), an axis name
+    or a tuple of axis names (the dim split over their product, the first
+    axis the major one; a tuple of one name is kept as the name, as JAX
+    keeps it); dims past the entries are not sharded.  A leaf of the port's
+    trees (not a tuple, which the tree functions walk)."""
+
+    __slots__ = ("_entries",)
+
+    def __init__(self, *entries):
+        def norm(e):  # JAX's form: a tuple of one name is the name
+            e = tuple(e) if isinstance(e, list) else e
+            return e[0] if isinstance(e, tuple) and len(e) == 1 else e
+
+        self._entries = tuple(norm(e) for e in entries)
+
+    def __iter__(self):
+        return iter(self._entries)
+
+    def __len__(self):
+        return len(self._entries)
+
+    def __getitem__(self, i):
+        return self._entries[i]
+
+    def __eq__(self, other):
+        return isinstance(other, P) and self._entries == other._entries
+
+    def __hash__(self):
+        return hash(self._entries)
+
+    def __repr__(self):
+        return f"P{self._entries!r}" if len(self._entries) != 1 else f"P({self._entries[0]!r})"
+
+
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
-    """Shape/dtype descriptor for one parameter leaf."""
+    """Shape/dtype/sharding descriptor for one parameter leaf."""
 
     shape: tuple[int, ...]
     dtype: Any = torch.float32
+    pspec: P = P()
     init: str = "normal"  # normal | zeros | ones | embed | small
     scale: float | None = None  # override fan-in scale
 
@@ -39,7 +83,105 @@ class ShapeDtype:
 def spec_map(fn: Callable[[ParamSpec], Any], tree):
     if isinstance(tree, dict):
         return {k: spec_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(spec_map(fn, v) for v in tree)
     return fn(tree)
+
+
+# ---------------------------------------------------------------------------
+# sharding
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and a partition spec filtered to its axes
+    (``jax.sharding.NamedSharding``'s counterpart)."""
+
+    mesh: Any
+    spec: P
+
+
+def entry_axes(entry) -> tuple[str, ...]:
+    """A spec entry's axis names: () for None, a name as a 1-tuple."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def filter_pspec(pspec: P, mesh) -> P:
+    """Drop axis names not present in the mesh (e.g. 'pod' on single-pod)."""
+    names = set(mesh.mesh_dim_names)
+
+    def f(entry):
+        if entry is None:
+            return None
+        if isinstance(entry, tuple):
+            kept = tuple(a for a in entry if a in names)
+            return kept if kept else None
+        return entry if entry in names else None
+
+    return P(*(f(e) for e in pspec))
+
+
+def named(mesh, pspec: P) -> NamedSharding:
+    return NamedSharding(mesh, filter_pspec(pspec, mesh))
+
+
+def shardings(tree, mesh):
+    """Spec tree -> NamedSharding tree."""
+    return spec_map(lambda s: named(mesh, s.pspec), tree)
+
+
+def pspecs(tree):
+    return spec_map(lambda s: s.pspec, tree)
+
+
+def with_sharding(x, mesh, pspec: P):
+    """The reference's ``with_sharding_constraint``: changes no value.  Under
+    explicit SPMD each rank already holds its block of a layout the code
+    built, so there is nothing to constrain; the call marks the reference's
+    sites."""
+    return x
+
+
+def _dims(x, spec: P):
+    """[(dim, axes)] of the sharded dims of ``x`` under ``spec``."""
+    if len(spec) > x.dim():
+        raise ValueError(f"partition spec {spec} has more entries than the tensor's "
+                         f"{x.dim()} dims")
+    return [(i, entry_axes(e)) for i, e in enumerate(spec) if e is not None]
+
+
+def shard(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """This rank's block of the global tensor ``x`` (a new tensor): along each
+    sharded dim, block ``axis_index`` of ``axis_size`` equal blocks, as JAX
+    places a global array (for a tuple entry the first axis is the major
+    one).  Raises ``ValueError`` where a dim does not divide, as
+    ``jax.device_put`` does."""
+    from repro_torch.launch import mesh as M
+
+    for dim, axes in _dims(x, sharding.spec):
+        n = M.axis_size(sharding.mesh, axes)
+        if x.shape[dim] % n:
+            raise ValueError(
+                f"a tensor was given the sharding {sharding.spec} over the mesh "
+                f"{dict(zip(sharding.mesh.mesh_dim_names, sharding.mesh.shape))}, which implies "
+                f"that the global size of its dimension {dim} should be divisible by {n}, but "
+                f"it is equal to {x.shape[dim]} (full shape: {tuple(x.shape)})")
+        size = x.shape[dim] // n
+        x = x.narrow(dim, M.axis_index(sharding.mesh, axes) * size, size)
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def unshard(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """The global tensor from every rank's block ``x`` of ``sharding``: an
+    all-gather over each sharded dim's axes, blocks in JAX's order.  Every
+    rank of the mesh must call it (a collective)."""
+    from repro_torch.launch import mesh as M
+
+    for dim, axes in _dims(x, sharding.spec):
+        x = M.gather(x, sharding.mesh, axes, dim)
+    return x
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,7 +296,7 @@ def _set(tree: dict, path: str, value):
 
 
 def param_count(spec_tree) -> int:
-    """Parameters in a spec tree (the model the port builds: tp = 1)."""
+    """Parameters in a spec tree (of the model at the tp it was built at)."""
     return sum(int(np.prod(s.shape)) for _, s in T.leaves(spec_tree))
 
 

@@ -9,10 +9,23 @@ The process group comes first (``init_world``: its address, world size and
 rank given, never read from the environment); the mesh functions below
 then lay the world out with the reference's axis names.  On the card a
 mesh's ``device=None`` is this rank's card (``mesh_device``).
+
+The named-axis layer of the LM's explicit SPMD code: ``axis_size`` and
+``axis_index`` (``mesh.shape[name]`` and ``lax.axis_index``) of one axis or
+of a tuple of axes (their product, the first axis the major one, as JAX
+orders a tuple entry's blocks), ``axis_group`` (the process group of the
+ranks that differ only along those axes), ``gather`` (a tiled all-gather of
+blocks along a tensor dim, in block order) and the differentiable
+collectives ``psum``, ``pmean`` and ``all_gather`` (``lax.psum``,
+``lax.pmean``, ``lax.all_gather(tiled=True)``), whose backward passes are
+their transposes: ``psum``'s the ``psum`` of the cotangents,
+``all_gather``'s the sum of the cotangents' blocks (a reduce-scatter).
 """
 from __future__ import annotations
 
 import datetime
+import itertools
+import math
 
 import torch
 import torch.distributed as dist
@@ -75,3 +88,132 @@ def mesh_device(mesh) -> torch.device:
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(mesh.device_type)
+
+
+# ---------------------------------------------------------------------------
+# named axes
+
+
+def _axes(axes) -> tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def axis_size(mesh, axes) -> int:
+    """The size of an axis, or the product of a tuple of axes' sizes."""
+    names = list(mesh.mesh_dim_names)
+    return math.prod(mesh.shape[names.index(a)] for a in _axes(axes))
+
+
+def _index(mesh, coord, axes) -> int:
+    names = list(mesh.mesh_dim_names)
+    idx = 0
+    for a in _axes(axes):
+        i = names.index(a)
+        idx = idx * mesh.shape[i] + coord[i]
+    return idx
+
+
+def axis_index(mesh, axes) -> int:
+    """This rank's index along an axis, or along a tuple of axes (the first
+    the major one): the block of a dim split over ``axes`` that it holds."""
+    return _index(mesh, mesh.get_coordinate(), axes)
+
+
+_GROUPS: dict = {}  # id(mesh) -> (mesh, {axes: (group, block order)})
+
+
+def axis_group(mesh, axes):
+    """(group, order): the process group of the ranks that share this rank's
+    coordinates off ``axes``, and for each of its group ranks the block
+    index it holds along ``axes``.  One axis is the mesh's own group; a
+    tuple's groups are made on first use, every rank making all of them in
+    the same order (SPMD: every rank asks for the same axes in turn)."""
+    axes = _axes(axes)
+    _, cache = _GROUPS.setdefault(id(mesh), (mesh, {}))
+    if axes not in cache:
+        names = list(mesh.mesh_dim_names)
+        layout = mesh.mesh  # global ranks, shaped like the mesh
+        coords = {int(layout[c]): c for c in itertools.product(*map(range, layout.shape))}
+        if len(axes) == 1:
+            group = mesh.get_group(axes[0])
+        else:
+            keep = [i for i, a in enumerate(names) if a not in axes]
+            mine = None
+            for rest in itertools.product(*(range(layout.shape[i]) for i in keep)):
+                ranks = sorted(r for r, c in coords.items()
+                               if tuple(c[i] for i in keep) == rest)
+                g = dist.new_group(ranks)
+                if dist.get_rank() in ranks:
+                    mine = g
+            group = mine
+        members = dist.get_process_group_ranks(group)
+        cache[axes] = (group, [_index(mesh, coords[r], axes) for r in members])
+    return cache[axes]
+
+
+def gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """The blocks of every rank along ``axes`` concatenated on ``dim`` in
+    block order (a tiled all-gather; no gradient)."""
+    group, order = axis_group(mesh, axes)
+    parts = [torch.empty_like(x) for _ in order]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    by_block = [None] * len(order)
+    for part, b in zip(parts, order):
+        by_block[b] = part
+    return torch.cat(by_block, dim=dim)
+
+
+def all_reduce(x: torch.Tensor, mesh, axes, op=None, inplace=False) -> torch.Tensor:
+    """``x`` reduced (summed unless ``op``) over ``axes`` (no gradient): a
+    new tensor, or ``x`` itself (contiguous) with ``inplace``."""
+    group, _ = axis_group(mesh, axes)
+    out = x if inplace else x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM if op is None else op, group=group)
+    return out
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum over ``axes`` of ``x``
+    (no gradient)."""
+    group, order = axis_group(mesh, axes)
+    chunks = x.chunk(len(order), dim=dim)
+    out = torch.empty_like(chunks[0], memory_format=torch.contiguous_format)
+    dist.reduce_scatter(out, [chunks[b].contiguous() for b in order], group=group)
+    return out
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return all_reduce(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh, ctx.axes), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
+def psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``lax.psum``: the sum of ``x`` over ``axes`` on every rank of them."""
+    return _Psum.apply(x, mesh, _axes(axes))
+
+
+def pmean(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``lax.pmean``: the sum over ``axes`` divided by their size."""
+    return psum(x, mesh, axes) / axis_size(mesh, axes)
+
+
+def all_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """``lax.all_gather(x, axes, axis=dim, tiled=True)``."""
+    return _AllGather.apply(x, mesh, _axes(axes), dim)

@@ -9,8 +9,12 @@ cross-attention to the encoded memory, whose K/V are computed once at
 prefill and cached beside the self-attention cache.  Training
 (``encdec_loss_forward``) encodes, computes the cross K/V and runs the
 decoder in ``train`` mode (no cache), without remat, as the reference
-does.  The reference's sequence sharding of the encoder is dropped (one
-card).
+does.  ``encode`` and ``decode_forward`` take the reference's ``mesh=``
+and mark its layout sites (``common.with_sharding``, which changes no
+value): the encoder over the batch axes and, where the head count does not
+divide 16 and the frames do (whisper: 6 heads), over 'model' along the
+sequence.  Under the port's explicit SPMD the batch is this rank's block
+and every weight is whole.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ import math
 import torch
 
 from repro_torch import tree as T
-from repro_torch.common import ParamSpec
+from repro_torch.common import P, ParamSpec, with_sharding
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import (_grouped_decode_attention, _layer, _layers,
                                             attn_apply, residual, stack_specs)
@@ -27,33 +31,33 @@ from repro_torch.models.transformer import (_grouped_decode_attention, _layer, _
 MAX_DEC_POS = 32768  # decode_32k needs 32k learned decoder positions
 
 
-def _enc_layer_specs(cfg):
+def _enc_layer_specs(cfg, tp):
     return {
         "ln1": L.norm_specs(cfg),
-        "attn": L.attn_specs(cfg),
+        "attn": L.attn_specs(cfg, tp),
         "ln2": L.norm_specs(cfg),
-        "mlp": L.mlp_specs(cfg),
+        "mlp": L.mlp_specs(cfg, tp),
     }
 
 
-def _dec_layer_specs(cfg):
+def _dec_layer_specs(cfg, tp):
     return {
         "ln1": L.norm_specs(cfg),
-        "attn": L.attn_specs(cfg),
+        "attn": L.attn_specs(cfg, tp),
         "ln_x": L.norm_specs(cfg),
-        "xattn": L.attn_specs(cfg),
+        "xattn": L.attn_specs(cfg, tp),
         "ln2": L.norm_specs(cfg),
-        "mlp": L.mlp_specs(cfg),
+        "mlp": L.mlp_specs(cfg, tp),
     }
 
 
-def encdec_specs(cfg):
+def encdec_specs(cfg, tp: int = L.TP, fsdp: bool = False):
     return {
-        "embed": L.embed_specs(cfg),
-        "dec_pos": ParamSpec((MAX_DEC_POS, cfg.d_model), cfg.params_dtype, init="small"),
-        "enc_layers": stack_specs(_enc_layer_specs(cfg), cfg.n_enc_layers),
+        "embed": L.embed_specs(cfg, tp),
+        "dec_pos": ParamSpec((MAX_DEC_POS, cfg.d_model), cfg.params_dtype, P(), init="small"),
+        "enc_layers": stack_specs(_enc_layer_specs(cfg, tp), cfg.n_enc_layers),
         "enc_norm": L.norm_specs(cfg),
-        "dec_layers": stack_specs(_dec_layer_specs(cfg), cfg.n_layers),
+        "dec_layers": stack_specs(_dec_layer_specs(cfg, tp), cfg.n_layers),
         "final_norm": L.norm_specs(cfg),
     }
 
@@ -81,11 +85,15 @@ def encoder_input(cfg, enc_feats, policy):
     return h + L.sinusoidal_positions(h.shape[1], cfg.d_model, h.device).to(h.dtype)[None]
 
 
-def encode(cfg, params, enc_feats, policy):
-    """enc_feats (B, S_enc, d) -> memory (B, S_enc, d)."""
-    h = encoder_input(cfg, enc_feats, policy)
+def encode(cfg, params, enc_feats, policy, mesh=None):
+    """enc_feats (B, S_enc, d) -> memory (B, S_enc, d).  The reference's
+    layout: batch over the data axes, the sequence over 'model' where the
+    head count does not divide 16 and the frames do (``seq_ax``)."""
+    seq_ax = "model" if (cfg.n_heads % 16 and enc_feats.shape[1] % 16 == 0) else None
+    h = with_sharding(encoder_input(cfg, enc_feats, policy), mesh,
+                      L.batch_pspec(seq_ax, None))
     for lp in _layers(params["enc_layers"]):
-        h = enc_layer(cfg, lp, h, policy)
+        h = with_sharding(enc_layer(cfg, lp, h, policy), mesh, L.batch_pspec(seq_ax, None))
     return L.apply_norm(cfg, params["enc_norm"], h)
 
 
@@ -119,7 +127,8 @@ def _dec_layer(cfg, lp, x, policy, *, mode, cache, xkv, pos):
     return x, self_c
 
 
-def decode_forward(cfg, params, tokens, policy, *, mode, cache=None, xkv=None, pos=0):
+def decode_forward(cfg, params, tokens, policy, *, mode, cache=None, xkv=None, pos=0,
+                   mesh=None):
     """The decoder stack. tokens (B, S_dec); mode train|prefill|decode.
     ``cache`` is the stacked self-attention (k, v) for decode, ``xkv`` the
     stacked cross (k, v).  Returns (hidden, the self-attention cache; None
@@ -132,18 +141,21 @@ def decode_forward(cfg, params, tokens, policy, *, mode, cache=None, xkv=None, p
     # the reference's dynamic_slice clamps its start so the slice fits
     start = min(pos if mode == "decode" else 0, MAX_DEC_POS - s)
     h = h + params["dec_pos"][start:start + s].to(h.dtype)[None]
+    h = with_sharding(h, mesh, L.batch_pspec(None, None))
     outs = []
     for i, lp in enumerate(_layers(params["dec_layers"])):
         c = _layer(cache, i) if mode == "decode" else None
         h, c_out = _dec_layer(cfg, lp, h, policy, mode=mode, cache=c, xkv=_layer(xkv, i),
                               pos=pos)
+        h = with_sharding(h, mesh, L.batch_pspec(None, None))
         outs.append(c_out)
     h = L.apply_norm(cfg, params["final_norm"], h)
     return h, (None if mode == "train" else T.stack(outs))
 
 
-def encdec_loss_forward(cfg, params, batch, policy):
+def encdec_loss_forward(cfg, params, batch, policy, mesh=None):
     """Training forward: the final decoder hidden states (B, S_dec, d)."""
-    memory = encode(cfg, params, batch["enc_feats"], policy)
+    memory = encode(cfg, params, batch["enc_feats"], policy, mesh=mesh)
     xkv = cross_kv(cfg, params, memory, policy)
-    return decode_forward(cfg, params, batch["tokens"], policy, mode="train", xkv=xkv)[0]
+    return decode_forward(cfg, params, batch["tokens"], policy, mode="train", xkv=xkv,
+                          mesh=mesh)[0]

@@ -2,7 +2,7 @@
 attention, the MLP, embeddings, logits (counterpart of the same functions
 in ``repro/models/layers.py``).
 
-Params are nested dicts; ``<module>_specs(cfg)`` returns a ``ParamSpec``
+Params are nested dicts; ``<module>_specs(cfg, tp)`` returns a ``ParamSpec``
 tree and the apply functions take tensors.  Activations are (batch, seq,
 d_model), attention heads (B, S, H, Dh); matmuls run in ``policy.compute``
 (bf16), softmax and reductions in float32, and every cast sits where the
@@ -13,8 +13,11 @@ a float32 V), RoPE's cos/sin are cast to the activation dtype before the
 multiply.  ``torch.nn.functional.scaled_dot_product_attention`` rounds at
 none of these places, so attention is written out as the reference's.
 
-The specs are the reference's at tp = 1 (one card): no head padding, no
-sharding.  Training adds ``cross_entropy`` and ``flash_attention_train``
+The specs are the reference's at any ``tp`` (the model-axis size that
+decides the layout): the same shapes, dtypes and partition specs, query
+heads padded to a ``tp`` multiple where the reference pads them
+(``padded_heads``, ROADMAP F8).  ``TP`` = 1 is the port's default, as the
+reference's launchers build at tp = 1.  Training adds ``cross_entropy`` and ``flash_attention_train``
 (the reference's custom VJP as a ``torch.autograd.Function``); the train
 path's dense attention is ``dense_attention(causal=True)``, differentiated
 by autograd.
@@ -25,17 +28,22 @@ import math
 
 import torch
 
-from repro_torch.common import ParamSpec
+from repro_torch.common import P, ParamSpec
 
 _F32 = torch.float32
-TP = 1  # the port's model-axis size: one card
+TP = 1  # the model-axis size the port builds at by default
+DATA_AXES = ("data", "pod")  # batch shards over both; 'pod' absent on 1-pod meshes
+
+
+def batch_pspec(*rest):
+    return P(DATA_AXES, *rest)
 
 
 def norm_specs(cfg, d=None):
     d = d or cfg.d_model
-    s = {"scale": ParamSpec((d,), _F32, init="ones")}
+    s = {"scale": ParamSpec((d,), _F32, P(), init="ones")}
     if cfg.norm == "layernorm":
-        s["bias"] = ParamSpec((d,), _F32, init="zeros")
+        s["bias"] = ParamSpec((d,), _F32, P(), init="zeros")
     return s
 
 
@@ -119,8 +127,12 @@ def sinusoidal_positions(seq, d_model, device=None):
 
 def padded_heads(cfg, tp: int) -> int:
     """Q heads padded up to a TP multiple so attention always shards; the
-    padding engages only when pad/real <= 1.5 (the reference's policy).  At
-    the port's tp = 1 every head count divides."""
+    padding engages only when pad/real <= 1.5 and the padded count is a
+    multiple of the KV heads (the reference's policy).  The pad heads' outputs
+    are masked (``mask_pad_heads``), but ``expand_kv`` then repeats each KV
+    head ``padded // Hkv`` times, so the query heads' grouping moves (ROADMAP
+    F8: llama4-scout's 40 heads at tp = 16 read KV head h // 6, not h // 5);
+    the port keeps the reference's model."""
     hq = cfg.n_heads
     if hq % tp == 0:
         return hq
@@ -128,19 +140,22 @@ def padded_heads(cfg, tp: int) -> int:
     return pad if pad <= hq * 1.5 and pad % cfg.n_kv_heads == 0 else hq
 
 
-def attn_specs(cfg):
-    """QKV/out projections (the reference's tree at tp = 1)."""
-    d, hkv, dh, dtype = cfg.d_model, cfg.n_kv_heads, cfg.head_dim, cfg.params_dtype
-    hq = padded_heads(cfg, TP)
+def attn_specs(cfg, tp: int = TP, dtype=None):
+    """QKV/out projections. Heads shard over 'model' (padded if needed)."""
+    dtype = dtype or cfg.params_dtype
+    d, hkv, dh = cfg.d_model, cfg.n_kv_heads, cfg.head_dim
+    hq = padded_heads(cfg, tp)
+    hq_ax = "model" if hq % tp == 0 else None
+    hkv_ax = "model" if hkv % tp == 0 else None
     s = {
-        "wq": ParamSpec((d, hq, dh), dtype),
-        "wk": ParamSpec((d, hkv, dh), dtype),
-        "wv": ParamSpec((d, hkv, dh), dtype),
-        "wo": ParamSpec((hq, dh, d), dtype),
+        "wq": ParamSpec((d, hq, dh), dtype, P(None, hq_ax, None)),
+        "wk": ParamSpec((d, hkv, dh), dtype, P(None, hkv_ax, None)),
+        "wv": ParamSpec((d, hkv, dh), dtype, P(None, hkv_ax, None)),
+        "wo": ParamSpec((hq, dh, d), dtype, P(hq_ax, None, None)),
     }
     if cfg.qk_norm:
-        s["q_norm"] = ParamSpec((dh,), _F32, init="ones")
-        s["k_norm"] = ParamSpec((dh,), _F32, init="ones")
+        s["q_norm"] = ParamSpec((dh,), _F32, P(), init="ones")
+        s["k_norm"] = ParamSpec((dh,), _F32, P(), init="ones")
     return s
 
 
@@ -311,11 +326,14 @@ def cross_entropy(lg, targets, mask=None):
 # MLP
 
 
-def mlp_specs(cfg, d_ff=None):
-    d, f, dtype = cfg.d_model, d_ff or cfg.d_ff, cfg.params_dtype
-    s = {"w_in": ParamSpec((d, f), dtype), "w_out": ParamSpec((f, d), dtype)}
+def mlp_specs(cfg, tp: int = TP, d_ff=None, dtype=None, fsdp=False):
+    dtype = dtype or cfg.params_dtype
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    in_sp = P("data" if fsdp else None, "model")
+    out_sp = P("model", "data" if fsdp else None)
+    s = {"w_in": ParamSpec((d, f), dtype, in_sp), "w_out": ParamSpec((f, d), dtype, out_sp)}
     if cfg.act == "swiglu":
-        s["w_gate"] = ParamSpec((d, f), dtype)
+        s["w_gate"] = ParamSpec((d, f), dtype, in_sp)
     return s
 
 
@@ -361,19 +379,21 @@ def apply_mlp(cfg, p, x, policy):
 # embeddings / logits
 
 
-def embed_specs(cfg):
+def embed_specs(cfg, tp: int = TP):
+    vocab_ax = "model" if cfg.vocab_size % tp == 0 else None
     return {"table": ParamSpec((cfg.vocab_size, cfg.d_model), cfg.params_dtype,
-                               init="small")}
+                               P(vocab_ax, None), init="small")}
 
 
 def embed(p, tokens, policy):
     return p["table"][tokens].to(policy.compute)
 
 
-def logits_specs(cfg):
+def logits_specs(cfg, tp: int = TP):
     if cfg.tie_embeddings:
         return {}
-    return {"w": ParamSpec((cfg.d_model, cfg.vocab_size), cfg.params_dtype)}
+    vocab_ax = "model" if cfg.vocab_size % tp == 0 else None
+    return {"w": ParamSpec((cfg.d_model, cfg.vocab_size), cfg.params_dtype, P(None, vocab_ax))}
 
 
 def logits(cfg, p_lm, p_embed, x, policy):

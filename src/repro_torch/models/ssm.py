@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.common import DTypePolicy, ParamSpec, ShapeDtype
+from repro_torch.common import DTypePolicy, P, ParamSpec, ShapeDtype
 from repro_torch.kernels.ssm_scan import ops as scan_ops
 from repro_torch.models import layers as L
 
@@ -39,21 +39,23 @@ def _dinner(cfg):
 # Mamba-1
 
 
-def mamba1_specs(cfg):
+def mamba1_specs(cfg, tp: int = 1):
+    """The reference's Mamba-1 specs: ``d_inner`` over 'model' (its
+    partition specs name the axis at any ``tp``)."""
     s = cfg.ssm
     d, din, n = cfg.d_model, _dinner(cfg), s.d_state
     dtr = s.dt_rank or d // 16
     dt = cfg.params_dtype
     return {
-        "in_proj": ParamSpec((d, 2 * din), dt),
-        "conv_w": ParamSpec((s.d_conv, din), dt, init="small"),
-        "conv_b": ParamSpec((din,), _F32, init="zeros"),
-        "x_proj": ParamSpec((din, dtr + 2 * n), dt),
-        "dt_proj": ParamSpec((dtr, din), dt, init="small"),
-        "dt_bias": ParamSpec((din,), _F32, init="zeros"),
-        "a_log": ParamSpec((din, n), _F32, init="ones"),
-        "d_skip": ParamSpec((din,), _F32, init="ones"),
-        "out_proj": ParamSpec((din, d), dt),
+        "in_proj": ParamSpec((d, 2 * din), dt, P(None, "model")),
+        "conv_w": ParamSpec((s.d_conv, din), dt, P(None, "model"), init="small"),
+        "conv_b": ParamSpec((din,), _F32, P("model"), init="zeros"),
+        "x_proj": ParamSpec((din, dtr + 2 * n), dt, P("model", None)),
+        "dt_proj": ParamSpec((dtr, din), dt, P(None, "model"), init="small"),
+        "dt_bias": ParamSpec((din,), _F32, P("model"), init="zeros"),
+        "a_log": ParamSpec((din, n), _F32, P("model", None), init="ones"),
+        "d_skip": ParamSpec((din,), _F32, P("model"), init="ones"),
+        "out_proj": ParamSpec((din, d), dt, P("model", None)),
     }
 
 
@@ -111,23 +113,25 @@ def mamba1_block(cfg, p, x, policy: DTypePolicy, state=None):
 # Mamba-2 (SSD)
 
 
-def mamba2_specs(cfg):
+def mamba2_specs(cfg, tp: int = 1):
+    """The reference's Mamba-2 specs: the x/z projection and ``d_inner``
+    over 'model', the small B/C/dt projection replicated."""
     s = cfg.ssm
     d, din, n = cfg.d_model, _dinner(cfg), s.d_state
     nh = din // s.head_dim
     dt = cfg.params_dtype
     return {
-        "in_proj": ParamSpec((d, 2 * din), dt),
-        "bcdt_proj": ParamSpec((d, 2 * n + nh), dt),
-        "conv_x_w": ParamSpec((s.d_conv, din), dt, init="small"),
-        "conv_x_b": ParamSpec((din,), _F32, init="zeros"),
-        "conv_bc_w": ParamSpec((s.d_conv, 2 * n), dt, init="small"),
-        "conv_bc_b": ParamSpec((2 * n,), _F32, init="zeros"),
-        "a_log": ParamSpec((nh,), _F32, init="ones"),
-        "dt_bias": ParamSpec((nh,), _F32, init="zeros"),
-        "d_skip": ParamSpec((nh,), _F32, init="ones"),
-        "norm_scale": ParamSpec((din,), _F32, init="ones"),
-        "out_proj": ParamSpec((din, d), dt),
+        "in_proj": ParamSpec((d, 2 * din), dt, P(None, "model")),
+        "bcdt_proj": ParamSpec((d, 2 * n + nh), dt, P(None, None)),
+        "conv_x_w": ParamSpec((s.d_conv, din), dt, P(None, "model"), init="small"),
+        "conv_x_b": ParamSpec((din,), _F32, P("model"), init="zeros"),
+        "conv_bc_w": ParamSpec((s.d_conv, 2 * n), dt, P(None, None), init="small"),
+        "conv_bc_b": ParamSpec((2 * n,), _F32, P(), init="zeros"),
+        "a_log": ParamSpec((nh,), _F32, P(), init="ones"),
+        "dt_bias": ParamSpec((nh,), _F32, P(), init="zeros"),
+        "d_skip": ParamSpec((nh,), _F32, P(), init="ones"),
+        "norm_scale": ParamSpec((din,), _F32, P("model"), init="ones"),
+        "out_proj": ParamSpec((din, d), dt, P("model", None)),
     }
 
 

@@ -20,6 +20,12 @@ when ``cfg.attn_impl == "flash"`` and S >= 512; no cache; each layer, or
 each hybrid group, under ``torch.utils.checkpoint`` as ``cfg.remat``
 says), ``prefill`` (chunked flash attention, returns the KV entries) and
 ``decode`` (grouped-query attention against the cache).
+
+Over a mesh (``forward(mesh=)``) the batch is this rank's block of the
+batch axes and the MoE layers take the expert-parallel paths on this
+rank's expert blocks (``moe.apply_moe``); every other weight is whole on
+each rank.  Tensor parallelism of the other weights over 'model', which
+their partition specs describe, is ROADMAP module item 14.
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch import tree as T
-from repro_torch.common import ParamSpec, spec_map
+from repro_torch.common import P, ParamSpec, spec_map, with_sharding
 from repro_torch.models import layers as L
 from repro_torch.models.moe import apply_moe, moe_specs
 from repro_torch.models.ssm import mamba1_specs, mamba2_specs, ssm_block, ssm_state_shape
@@ -39,58 +45,59 @@ _F32 = torch.float32
 
 
 def stack_specs(tree, n: int):
-    """Prepend a layer axis of size n to every spec in the tree."""
-    return spec_map(lambda s: ParamSpec((n,) + s.shape, s.dtype, init=s.init), tree)
+    """Prepend a layer axis of size n to every spec in the tree (not sharded)."""
+    return spec_map(lambda s: ParamSpec((n,) + s.shape, s.dtype, P(None, *s.pspec),
+                                        init=s.init), tree)
 
 
-def _attn_block_specs(cfg):
-    return {"ln": L.norm_specs(cfg), "attn": L.attn_specs(cfg)}
+def _attn_block_specs(cfg, tp):
+    return {"ln": L.norm_specs(cfg), "attn": L.attn_specs(cfg, tp)}
 
 
-def _dense_layer_specs(cfg, d_ff=None):
+def _dense_layer_specs(cfg, tp, d_ff=None):
     return {
         "ln1": L.norm_specs(cfg),
-        "attn": L.attn_specs(cfg),
+        "attn": L.attn_specs(cfg, tp),
         "ln2": L.norm_specs(cfg),
-        "mlp": L.mlp_specs(cfg, d_ff=d_ff),
+        "mlp": L.mlp_specs(cfg, tp, d_ff=d_ff),
     }
 
 
-def _moe_layer_specs(cfg):
+def _moe_layer_specs(cfg, tp, fsdp):
     return {
         "ln1": L.norm_specs(cfg),
-        "attn": L.attn_specs(cfg),
+        "attn": L.attn_specs(cfg, tp),
         "ln2": L.norm_specs(cfg),
-        "moe": moe_specs(cfg),
+        "moe": moe_specs(cfg, tp, fsdp=fsdp),
     }
 
 
-def _ssm_layer_specs(cfg):
+def _ssm_layer_specs(cfg, tp):
     sfn = mamba1_specs if cfg.ssm.version == 1 else mamba2_specs
-    return {"ln": L.norm_specs(cfg), "ssm": sfn(cfg)}
+    return {"ln": L.norm_specs(cfg), "ssm": sfn(cfg, tp)}
 
 
 def n_groups(cfg):
     return cfg.n_layers // cfg.attn_every
 
 
-def decoder_specs(cfg):
-    s = {"embed": L.embed_specs(cfg), "final_norm": L.norm_specs(cfg)}
-    s.update(L.logits_specs(cfg))  # adds "w" unless tied
+def decoder_specs(cfg, tp: int = L.TP, fsdp: bool = False):
+    s = {"embed": L.embed_specs(cfg, tp), "final_norm": L.norm_specs(cfg)}
+    s.update(L.logits_specs(cfg, tp))  # adds "w" unless tied
     fam = cfg.family
     if fam in ("dense", "vlm"):
-        s["layers"] = stack_specs(_dense_layer_specs(cfg), cfg.n_layers)
+        s["layers"] = stack_specs(_dense_layer_specs(cfg, tp), cfg.n_layers)
     elif fam == "moe":
         m = cfg.moe
         if m.first_k_dense:
-            s["dense_layers"] = stack_specs(_dense_layer_specs(cfg, d_ff=m.d_ff_dense),
+            s["dense_layers"] = stack_specs(_dense_layer_specs(cfg, tp, d_ff=m.d_ff_dense),
                                             m.first_k_dense)
-        s["layers"] = stack_specs(_moe_layer_specs(cfg), cfg.n_layers - m.first_k_dense)
+        s["layers"] = stack_specs(_moe_layer_specs(cfg, tp, fsdp), cfg.n_layers - m.first_k_dense)
     elif fam == "ssm":
-        s["layers"] = stack_specs(_ssm_layer_specs(cfg), cfg.n_layers)
+        s["layers"] = stack_specs(_ssm_layer_specs(cfg, tp), cfg.n_layers)
     elif fam == "hybrid":
-        s["shared_attn"] = _attn_block_specs(cfg)
-        s["layers"] = stack_specs(stack_specs(_ssm_layer_specs(cfg), cfg.attn_every),
+        s["shared_attn"] = _attn_block_specs(cfg, tp)
+        s["layers"] = stack_specs(stack_specs(_ssm_layer_specs(cfg, tp), cfg.attn_every),
                                   n_groups(cfg))
     else:
         raise ValueError(fam)
@@ -168,13 +175,16 @@ def dense_layer(cfg, p, x, policy, *, mode, angles, cache=None, pos=None):
     return x + y, new_cache
 
 
-def moe_layer(cfg, p, x, policy, *, mode, angles, cache=None, pos=None):
-    """``dense_layer`` with the MoE block in the MLP's place.  Returns (x,
+def moe_layer(cfg, p, x, policy, *, mode, angles, cache=None, pos=None, mesh=None,
+              fsdp=False):
+    """``dense_layer`` with the MoE block in the MLP's place (over ``mesh``
+    an expert-parallel path, ``ep_moe_decode`` in decode mode).  Returns (x,
     new_cache, aux)."""
     a, new_cache = attn_apply(cfg, p, L.apply_norm(cfg, p["ln1"], x), policy,
                               mode=mode, angles=angles, cache=cache, pos=pos)
     x, h = residual(x, a)
-    y, aux = apply_moe(cfg, p["moe"], L.apply_norm(cfg, p["ln2"], h).to(x.dtype), policy)
+    y, aux = apply_moe(cfg, p["moe"], L.apply_norm(cfg, p["ln2"], h).to(x.dtype), policy,
+                       mesh=mesh, fsdp=fsdp, decode=(mode == "decode"))
     return x + y, new_cache, aux
 
 
@@ -252,15 +262,18 @@ def _remat(cfg, fn, *args):
     return ckpt.checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
 
 
-def forward(cfg, params, batch, policy, *, mode, cache=None, pos=None):
+def forward(cfg, params, batch, policy, *, mode, mesh=None, fsdp=False, cache=None, pos=None):
     """Core forward.  Returns (hidden, new_cache, aux_loss): aux sums the MoE
     layers' load-balance losses (zero for the other families).  For decode,
     ``cache`` is the stacked cache of the layout above and ``pos`` the
     position written (an int); train returns no cache (None) and runs each
-    layer (hybrid: each group) through ``_remat``."""
+    layer (hybrid: each group) through ``_remat``.  Over ``mesh`` the batch
+    and cache are this rank's blocks of the batch axes and ``params`` hold
+    this rank's expert blocks (``model.run_pspecs``)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
     h, angles = _embed_and_angles(cfg, params, batch, policy, mode, pos)
+    h = with_sharding(h, mesh, L.batch_pspec(None, None))
     aux = torch.zeros((), dtype=_F32, device=h.device)
     decode, train = mode == "decode", mode == "train"
     kw = dict(mode=mode, angles=angles, pos=pos if decode else 0)
@@ -277,7 +290,8 @@ def forward(cfg, params, batch, policy, *, mode, cache=None, pos=None):
                 c = _layer(cache[name], i) if decode else None
                 if fam == "moe" and name == "layers":
                     h, c_out, a = run(lambda lp, h, c: moe_layer(cfg, lp, h, policy, cache=c,
-                                                                 **kw), lp, h, c)
+                                                                 mesh=mesh, fsdp=fsdp, **kw),
+                                      lp, h, c)
                     aux = aux + a
                 else:
                     h, c_out = run(lambda lp, h, c: dense_layer(cfg, lp, h, policy, cache=c,

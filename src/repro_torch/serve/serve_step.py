@@ -8,6 +8,11 @@ the prompt; ``greedy_generate(pad_to=)`` pads its sequence axis, found by
 ``cache_seq_axes``, so decode appends.  An ssm state has no sequence axis
 and the encdec cross cache is fixed-length memory, so ``pad_to`` leaves
 both as they are.
+
+Over a mesh (``mesh=``) the batch and the cache are this rank's blocks of
+the batch axes and the weights are in ``model.run_pspecs``' layout: the MoE
+layers run expert-parallel (``ep_moe`` at prefill, ``ep_moe_decode`` at
+decode); every rank issues the same steps.
 """
 from __future__ import annotations
 
@@ -16,16 +21,16 @@ import torch
 from repro_torch import tree as T
 
 
-def make_prefill(model):
+def make_prefill(model, mesh=None):
     def prefill(params, batch):
-        return model.prefill(params, batch)
+        return model.prefill(params, batch, mesh=mesh)
 
     return prefill
 
 
-def make_decode_step(model):
+def make_decode_step(model, mesh=None):
     def decode_step(params, cache, batch, pos):
-        return model.decode_step(params, cache, batch, pos)
+        return model.decode_step(params, cache, batch, pos, mesh=mesh)
 
     return decode_step
 
@@ -44,7 +49,8 @@ def cache_seq_axes(cfg, cache, seq: int, batch: int):
     from repro_torch.models.model import cache_specs
 
     def probe(s):
-        return [x for _, x in T.leaves(cache_specs(cfg, ShapeConfig("probe", s, batch, "decode")))]
+        sds, _ = cache_specs(cfg, ShapeConfig("probe", s, batch, "decode"))
+        return [x for _, x in T.leaves(sds)]
 
     lo, hi = probe(seq), probe(seq + 1)
     live = [x for _, x in T.leaves(cache)]
@@ -88,12 +94,13 @@ def decode_batch(cfg, tokens, pos: int):
     return db
 
 
-def greedy_generate(model, params, batch, steps: int, pad_to: int | None = None):
+def greedy_generate(model, params, batch, steps: int, mesh=None, pad_to: int | None = None):
     """Prefill, then ``steps - 1`` greedy decode steps -> tokens (B, steps)
     int32, the first from the prefill's logits.  Without ``pad_to`` a dense
     cache has no room past the prompt, and each decode write lands on its
-    last position, as the reference's clamped write does."""
-    cache, lg = model.prefill(params, batch)
+    last position, as the reference's clamped write does.  Over ``mesh``,
+    this rank's batch block and its tokens."""
+    cache, lg = model.prefill(params, batch, mesh=mesh)
     b, seq = batch["tokens"].shape
     if pad_to:
         cache = _pad_seq(model.cfg, cache, seq, b, pad_to)
@@ -101,6 +108,6 @@ def greedy_generate(model, params, batch, steps: int, pad_to: int | None = None)
     for i in range(steps - 1):
         lg, cache = model.decode_step(params, cache,
                                       decode_batch(model.cfg, toks[-1][:, None], seq + i),
-                                      seq + i)
+                                      seq + i, mesh=mesh)
         toks.append(torch.argmax(lg[:, -1], dim=-1).to(torch.int32))
     return torch.stack(toks, dim=1)

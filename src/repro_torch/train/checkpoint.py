@@ -11,6 +11,12 @@ float32, int8 or int32 tree written by either package restores in the
 other.  A bf16 leaf (no numpy dtype on either host) is stored as its
 uint16 bits with ``bfloat16`` in the manifest and restored with
 ``.view(torch.bfloat16)``.
+
+Elasticity, as the reference's: the file holds the global arrays, so a
+restore may use another mesh than the save.  ``save(shardings=)`` of a
+tree of this rank's blocks gathers the global arrays (every rank calls
+it) and rank 0 writes them; ``restore(shardings=)`` gives each rank its
+blocks of the new layout.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
+from repro_torch.common import shard, unshard
 
 _BF16 = "bfloat16"
 
@@ -44,14 +51,34 @@ def _sha256(path: Path) -> str:
     return digest.hexdigest()
 
 
-def save(ckpt_dir, step: int, tree, async_write: bool = False):
+def save(ckpt_dir, step: int, tree, async_write: bool = False, shardings=None):
     """Atomic checkpoint write of a tree of tensors.  Returns the final path,
     or the writing thread with ``async_write`` (the device-to-host copies are
-    made before it starts)."""
+    made before it starts).  With ``shardings`` (a tree like ``tree`` of
+    ``NamedSharding``), ``tree`` holds this rank's blocks: every rank of the
+    mesh calls ``save``, each leaf's global array is all-gathered in turn
+    (one leaf's copy at a time on the device), rank 0 writes them and,
+    without ``async_write``, the others wait for the write."""
     ckpt_dir = Path(ckpt_dir)
     final = ckpt_dir / f"step_{step:08d}"
     tmp = ckpt_dir / f"step_{step:08d}.tmp"
     leaves = T.leaves(tree)
+    writer = True
+    if shardings is not None:
+        import torch.distributed as dist
+
+        where = dict(T.leaves(shardings))
+        writer = dist.get_rank() == 0
+        gathered = []
+        for path, x in leaves:
+            g = unshard(x, where[path])
+            gathered.append((path, g.to("cpu", copy=g is x) if writer else None))
+            del g
+        leaves = gathered
+        if not writer:
+            if not async_write:
+                dist.barrier()
+            return final
     host = [_host(x) for _, x in leaves]
     dtypes = [_BF16 if x.dtype == torch.bfloat16 else str(a.dtype)
               for (_, x), a in zip(leaves, host)]
@@ -83,6 +110,8 @@ def save(ckpt_dir, step: int, tree, async_write: bool = False):
         t.start()
         return t
     _write()
+    if shardings is not None:
+        dist.barrier()
     return final
 
 
@@ -108,11 +137,14 @@ def latest_step(ckpt_dir) -> int | None:
     return None
 
 
-def restore(ckpt_dir, like_tree, step: int | None = None, device=None):
+def restore(ckpt_dir, like_tree, step: int | None = None, device=None, shardings=None):
     """Restore into the structure of ``like_tree`` (a tree of tensors, or of
     specs with ``shape``/``dtype``).  Returns (tree, step).  Each leaf goes
     to its like-leaf's device if that is a tensor, else to ``device``
-    (``cuda`` unless given)."""
+    (``cuda`` unless given).  With ``shardings`` (a tree like ``like_tree``
+    of ``NamedSharding``), each leaf is this rank's block of it, on the
+    mesh's device unless ``device`` is given: an elastic restore onto any
+    mesh."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -127,11 +159,18 @@ def restore(ckpt_dir, like_tree, step: int | None = None, device=None):
     if len(leaves) != manifest["n_leaves"]:
         raise ValueError(f"checkpoint {path} holds {manifest['n_leaves']} leaves, the tree "
                          f"{len(leaves)}")
+    where = dict(T.leaves(shardings)) if shardings is not None else {}
     out = {}
     for i, ((p, like), dt) in enumerate(zip(leaves, manifest["dtypes"])):
         a = data[f"leaf_{i}"]
         x = (torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) if dt == _BF16
              else torch.from_numpy(a))
+        if p in where:
+            from repro_torch.launch.mesh import mesh_device
+
+            dev = mesh_device(where[p].mesh) if device is None else torch.device(device)
+            out[p] = shard(x.to(dev), where[p])
+            continue
         dev = like.device if isinstance(like, torch.Tensor) else T.resolve_device(device)
         out[p] = x.to(dev)
     return T.map_with_path(lambda p, _: out[p], like_tree), step

@@ -3,9 +3,9 @@
 (config, step) gives the same tokens bit for bit.
 
 A small active alphabet with a periodic copy structure (x[t] a function of
-x[t - period]) and 10% noise, so the loss falls within a few steps.  The
-reference's placement of a batch over a mesh (``device_batch_at(mesh=)``)
-is ROADMAP module item 12.
+x[t - period]) and 10% noise, so the loss falls within a few steps.
+``device_batch_at(mesh=)`` returns this rank's block of the batch placed as
+the reference places it: axis 0 of every key over the batch axes.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
+from repro_torch.common import P, named, shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,12 +44,19 @@ def batch_at(cfg: DataConfig, step: int) -> dict:
 
 def device_batch_at(cfg: DataConfig, step: int, mesh=None, extras=None, device=None) -> dict:
     """``batch_at`` plus ``extras(cfg, step)``'s arrays, on ``device``
-    (``cuda`` unless given)."""
-    if mesh is not None:
-        raise NotImplementedError("placing a batch over a mesh is not ported yet: "
-                                  "ROADMAP module item 12")
-    device = T.resolve_device(device)
+    (``cuda`` unless given).  Over ``mesh``, this rank's block of each key
+    under the reference's placement ``P(("data", "pod"), None, ...)``, on
+    the mesh's device: axis 0 of every key, ``mrope_pos``'s rows too, so
+    a data degree that does not divide its 3 rows raises the reference's
+    ``ValueError`` and one that does gives each rank a row (ROADMAP F9)."""
     batch = batch_at(cfg, step)
     if extras:
         batch.update(extras(cfg, step))
-    return {k: v.to(device) for k, v in batch.items()}
+    if mesh is None:
+        device = T.resolve_device(device)
+        return {k: v.to(device) for k, v in batch.items()}
+    from repro_torch.launch.mesh import mesh_device
+
+    device = mesh_device(mesh) if device is None else torch.device(device)
+    return {k: shard(v.to(device), named(mesh, P(("data", "pod"), *([None] * (v.dim() - 1)))))
+            for k, v in batch.items()}

@@ -1,11 +1,18 @@
-"""AdamW with a global gradient clip and optional int8 moments (counterpart
-of ``repro/train/optimizer.py``), on one card.
+"""AdamW with a global gradient clip, ZeRO-1 sharded moments and optional
+int8 moments (counterpart of ``repro/train/optimizer.py``).
+
+ZeRO-1: a moment gets an extra split over 'data' on the largest axis its
+parameter's spec leaves free (``zero1_pspec``), so its memory a device
+drops by the data degree.  Over a mesh ``adamw_update`` takes this rank's
+blocks of p, g, m and v in one layout (``layout``): each leaf's sum of
+squares is taken on its block and summed over the axes the block is split
+on, so the global norm counts every entry once; an int8 moment's row
+maximum is taken over the ranks that split its last axis.
 
 int8 moments (``moments_dtype=torch.int8``, kimi-k2's): blockwise
 symmetric quantization along the last axis (a float32 scale per row),
 dequantized transiently inside the update, so a moment costs one byte per
-parameter.  The reference's ZeRO-1 sharding of the moments over the
-``data`` axis (``zero1_pspec``) is ROADMAP module item 12.
+parameter (ROADMAP F5: small entries of v round to 0, as the reference's).
 
 The update is the reference's formula written out in float32 torch ops,
 leaf by leaf (a large leaf in slabs along its leading axis, which bounds
@@ -24,9 +31,11 @@ import math
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as T
-from repro_torch.common import ParamSpec, spec_map
+from repro_torch.common import P, ParamSpec, entry_axes, spec_map
+from repro_torch.launch import mesh as M
 
 _F32 = torch.float32
 
@@ -53,28 +62,42 @@ def schedule(oc: OptConfig, step):
     return oc.lr * warm * 0.5 * (1.0 + torch.cos(math.pi * t))
 
 
-def zero1_pspec(spec):
-    raise NotImplementedError("ZeRO-1 sharding of the moments over a mesh is not ported "
-                              "yet: ROADMAP module item 12")
+def zero1_pspec(spec: ParamSpec) -> P:
+    """Add 'data' sharding on the largest axis the param pspec leaves free
+    (of a size divisible by 16; skipped when the pspec already uses the
+    data axis, e.g. FSDP weights)."""
+    entries = list(spec.pspec) + [None] * (len(spec.shape) - len(spec.pspec))
+    used = {a for e in entries for a in entry_axes(e)}
+    if "data" in used:
+        return P(*entries)
+    best, best_size = None, 0
+    for i, (e, n) in enumerate(zip(entries, spec.shape)):
+        if e is None and n % 16 == 0 and n > best_size:
+            best, best_size = i, n
+    if best is None:
+        return P(*entries)
+    entries[best] = "data"
+    return P(*entries)
 
 
 def _moment_specs(param_specs, oc: OptConfig):
     def one(s: ParamSpec):
+        zp = zero1_pspec(s)
         if oc.moments_dtype == torch.int8:
-            return {"q": ParamSpec(s.shape, torch.int8, init="zeros"),
-                    "scale": ParamSpec(s.shape[:-1], _F32, init="zeros")}
-        return ParamSpec(s.shape, _F32, init="zeros")
+            return {"q": ParamSpec(s.shape, torch.int8, zp, init="zeros"),
+                    "scale": ParamSpec(s.shape[:-1], _F32, P(*zp[:-1]), init="zeros")}
+        return ParamSpec(s.shape, _F32, zp, init="zeros")
 
     return spec_map(one, param_specs)
 
 
 def opt_specs(param_specs, oc: OptConfig):
-    """The optimizer state's spec tree: the reference's keys, shapes and
-    dtypes (its sharding dropped)."""
+    """The optimizer state's spec tree: the reference's keys, shapes, dtypes
+    and partition specs."""
     return {
         "m": _moment_specs(param_specs, oc),
         "v": _moment_specs(param_specs, oc),
-        "step": ParamSpec((), torch.int32, init="zeros"),
+        "step": ParamSpec((), torch.int32, P(), init="zeros"),
     }
 
 
@@ -96,18 +119,21 @@ def _dequant(mom):
     return mom
 
 
-def _requant(val, like):
+def _requant(val, like, row_max=None):
     """``val`` in ``like``'s form: an int8 moment's rows rescaled to their
-    largest magnitude and rounded half to even (as ``jnp.round``)."""
+    largest magnitude and rounded half to even (as ``jnp.round``).
+    ``row_max`` turns each row's local maximum into the row's maximum over
+    the ranks that hold its other blocks."""
     if _is_moment(like):
-        scale = torch.amax(torch.abs(val), dim=-1) / 127.0 + 1e-12
+        top = torch.amax(torch.abs(val), dim=-1)
+        scale = (top if row_max is None else row_max(top)) / 127.0 + 1e-12
         return {"q": torch.round(val / scale[..., None]).to(torch.int8), "scale": scale}
     return val
 
 
-def _store(mom, val):
+def _store(mom, val, row_max=None):
     if _is_moment(mom):
-        new = _requant(val, mom)
+        new = _requant(val, mom, row_max)
         mom["q"].copy_(new["q"])
         mom["scale"].copy_(new["scale"])
     else:
@@ -136,27 +162,49 @@ def _at(x, sl):
     return x[sl]
 
 
-def global_norm(tree):
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
+def global_norm(tree, mesh=None, layout=None):
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares; over
+    ``mesh`` each leaf's sum taken on its block and summed over the axes its
+    ``layout`` entry splits it on."""
     total = 0
-    for _, x in T.leaves(tree):
-        total = total + torch.sum(torch.square(x.to(_F32)))
+    spans = dict(T.leaves(layout)) if mesh is not None else {}
+    for path, x in T.leaves(tree):
+        ss = torch.sum(torch.square(x.to(_F32)))
+        axes = _split_axes(spans.get(path, P()))
+        if axes:
+            ss = M.all_reduce(ss, mesh, axes)
+        total = total + ss
     return torch.sqrt(total)
 
 
+def _split_axes(pspec) -> tuple[str, ...]:
+    return tuple(a for e in pspec for a in entry_axes(e))
+
+
 @torch.no_grad()
-def adamw_update(oc: OptConfig, params, grads, opt_state):
+def adamw_update(oc: OptConfig, params, grads, opt_state, mesh=None, layout=None):
     """One AdamW step: writes the new parameters into ``params`` and the new
     moments and step into ``opt_state`` (in place) and returns (params,
-    opt_state, {"grad_norm", "lr"}), the metrics as device tensors."""
+    opt_state, {"grad_norm", "lr"}), the metrics as device tensors.  Over
+    ``mesh``, every leaf of params, grads and moments is this rank's block
+    of the layout ``layout`` gives it (a tree like params of partition
+    specs; an int8 moment's scale is split as its ``q`` without the last
+    axis)."""
     step = opt_state["step"] + 1
     lr = schedule(oc, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, layout)
     clip = torch.clamp(oc.grad_clip / (gnorm + 1e-9), max=1.0)
     stepf = step.to(_F32)
     corr1, corr2 = 1 - oc.b1 ** stepf, 1 - oc.b2 ** stepf
     flat_m, flat_v = moment_leaves(opt_state["m"]), moment_leaves(opt_state["v"])
-    for (_, p), (_, g), m, v in zip(T.leaves(params), T.leaves(grads), flat_m, flat_v):
+    spans = dict(T.leaves(layout)) if mesh is not None else {}
+    for (path, p), (_, g), m, v in zip(T.leaves(params), T.leaves(grads), flat_m, flat_v):
+        row_max = None
+        ps = spans.get(path, P())
+        last = entry_axes(ps[p.dim() - 1]) if len(ps) >= p.dim() > 0 else ()
+        if last:
+            def row_max(top, axes=last):
+                return M.all_reduce(top, mesh, axes, dist.ReduceOp.MAX)
         for sl in _slabs(p):  # elementwise: slabs only bound the float32 temporaries
             pp, gg, mm, vv = (_at(x, sl) for x in (p, g, m, v))
             gg = gg.to(_F32) * clip
@@ -166,7 +214,7 @@ def adamw_update(oc: OptConfig, params, grads, opt_state):
             vhat = v_new / corr2
             delta = mhat / (torch.sqrt(vhat) + oc.eps) + oc.weight_decay * pp.to(_F32)
             pp.copy_((pp.to(_F32) - lr * delta).to(p.dtype))
-            _store(mm, m_new)
-            _store(vv, v_new)
+            _store(mm, m_new, row_max)
+            _store(vv, v_new, row_max)
     opt_state["step"].copy_(step)
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}

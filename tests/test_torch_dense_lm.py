@@ -385,7 +385,7 @@ def test_cache_specs_match_jax(arch):
     want = jax.tree.map(lambda s: (s.shape, str(s.dtype)),
                         jax_cache_specs(jconfigs.get_config(arch), "decode_32k", tp=1)[0])
     got = T.tree_map(lambda s: (s.shape, str(s.dtype).removeprefix("torch.")),
-                     cache_specs(configs.get_config(arch), "decode_32k"))
+                     cache_specs(configs.get_config(arch), "decode_32k")[0])
     assert got == want
 
 

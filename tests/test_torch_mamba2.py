@@ -252,7 +252,7 @@ def test_cache_specs_match_jax():
         want = jax.tree.map(lambda s: (s.shape, str(s.dtype)),
                             jax_cache_specs(jconfigs.get_config(ARCH), shape, tp=1)[0])
         got = T.tree_map(lambda s: (s.shape, str(s.dtype).removeprefix("torch.")),
-                         cache_specs(configs.get_config(ARCH), shape))
+                         cache_specs(configs.get_config(ARCH), shape)[0])
         assert got == want
 
 

@@ -178,7 +178,7 @@ def test_cache_specs_match_jax():
     want = jax.tree.map(lambda s: (s.shape, str(s.dtype)),
                         jax_cache_specs(jax_get_config(ARCH), "decode_32k", tp=1)[0])
     got = T.tree_map(lambda s: (s.shape, str(s.dtype).removeprefix("torch.")),
-                     cache_specs(cfg, "decode_32k"))
+                     cache_specs(cfg, "decode_32k")[0])
     assert got == want
 
 
@@ -225,18 +225,28 @@ def test_params_from_numpy_refuses_mismatch(case):
 
 
 def test_unported_paths_raise():
-    """What the port still refuses names its ROADMAP item: a train step and
-    the expert-parallel MoE over a mesh (12).  Every family builds."""
+    """What the port refused until the LM mesh paths landed (ROADMAP item 12)
+    now runs: a train step over a mesh builds, and ``apply_moe(mesh=)``
+    routes as the reference's (an expert count the 'model' axis does not
+    divide, or a mesh with no 'model' axis, takes ``dense_moe``; a dividing
+    one the expert-parallel path).  Every family builds."""
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.train_step import make_train_step
+    from torch_parity import StandInMesh
 
     cfg = get_smoke_config(ARCH)
-    with pytest.raises(NotImplementedError, match="module item 12"):
-        make_train_step(build(cfg), OptConfig(), mesh=object())
-    moe_cfg = get_smoke_config("llama4-scout-17b-a16e")
-    with pytest.raises(NotImplementedError, match="module item 12"):
-        moe.apply_moe(moe_cfg, {}, torch.zeros(1, 1, moe_cfg.d_model), DTypePolicy(),
-                      mesh=object())
+    assert callable(make_train_step(build(cfg), OptConfig(), mesh=StandInMesh(
+        (1, 1), ("data", "model"))))
+    moe_cfg = get_smoke_config("llama4-scout-17b-a16e")  # 4 experts
+    p = T.tree_map(torch.from_numpy, init_numpy(moe.moe_specs(moe_cfg), seed=3))
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 3, moe_cfg.d_model)).astype(np.float32))
+    want = moe.dense_moe(moe_cfg, p, x, DTypePolicy())
+    for mesh in (StandInMesh((1, 3), ("data", "model")), StandInMesh((2,), ("segment",))):
+        assert not moe.expert_parallel(moe_cfg, mesh)
+        got = moe.apply_moe(moe_cfg, p, x, DTypePolicy(), mesh=mesh)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert moe.expert_parallel(moe_cfg, StandInMesh((1, 2), ("data", "model")))
     mamba2 = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, version=2))
     assert build(mamba2).specs["layers"]["ssm"].keys() == ssm.mamba2_specs(mamba2).keys()
     for arch in ARCH_IDS:

@@ -110,12 +110,34 @@ def test_data_has_learnable_structure():
 
 
 def test_device_batch_at_places_and_refuses_a_mesh():
+    """Placed on the device; over a mesh, this rank's block of axis 0 of
+    every key, ``mrope_pos``'s 3 rows too, as the reference places it: a
+    data degree that does not divide 3 raises the reference's error (its
+    message's tail, from ``jax.device_put``), one that does cuts the rows
+    (ROADMAP F9)."""
+    from torch_parity import StandInMesh
+
     dc = data.DataConfig(512, 16, 2)
     extras = lambda cfg, step: {"enc_feats": torch.zeros((2, 16, 8), dtype=torch.bfloat16)}
     got = data.device_batch_at(dc, 3, extras=extras, device="cpu")
     assert set(got) == {"tokens", "enc_feats"} and got["tokens"].device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="item 12"):
-        data.device_batch_at(dc, 3, mesh=object(), device="cpu")
+    whole = data.batch_at(dc, 3)["tokens"]
+    mrope = lambda cfg, step: {"mrope_pos": torch.zeros((3, 2, 16), dtype=torch.int32)}
+    mesh = StandInMesh((2, 1), ("data", "model"), coordinate=(1, 0))
+    with pytest.raises(ValueError, match=r"which implies that the global size of its dimension "
+                       r"0 should be divisible by 2, but it is equal to 3 \(full shape: "
+                       r"\(3, 2, 16\)\)"):
+        data.device_batch_at(dc, 3, mesh=mesh, extras=mrope, device="cpu")
+    block = data.device_batch_at(dc, 3, mesh=mesh, device="cpu")["tokens"]
+    assert torch.equal(block, whole[1:2])
+    dc3 = data.DataConfig(512, 16, 3)
+    rows = data.device_batch_at(dc3, 3, mesh=StandInMesh((3,), ("data",), (2,)),
+                                extras=lambda cfg, step: {"mrope_pos": torch.arange(
+                                    3 * 3 * 16, dtype=torch.int32).reshape(3, 3, 16)},
+                                device="cpu")
+    assert torch.equal(rows["tokens"], data.batch_at(dc3, 3)["tokens"][2:3])
+    assert torch.equal(rows["mrope_pos"], torch.arange(96, 144, dtype=torch.int32).reshape(
+        1, 3, 16))
 
 
 # ---------------------------------------------------------------------------
@@ -269,13 +291,23 @@ def test_requant_rounds_half_to_even():
 
 
 def test_mesh_paths_refuse():
+    """The mesh paths refused until ROADMAP item 12's LM half landed now
+    answer as the reference's: ``zero1_pspec`` and ``grad_pspecs`` give its
+    layouts and ``make_train_step(mesh=)`` builds a step."""
+    from repro_torch.common import P
+    from torch_parity import StandInMesh
+
     model = build(configs.get_smoke_config(ARCH))
+    jmodel = jax_build(jconfigs.get_smoke_config(ARCH), tp=1)
     oc = optimizer.OptConfig()
-    for call in (lambda: train_step.make_train_step(model, oc, mesh=object()),
-                 lambda: train_step.grad_pspecs(model),
-                 lambda: optimizer.zero1_pspec(ParamSpec((16, 16)))):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            call()
+    assert callable(train_step.make_train_step(model, oc, mesh=StandInMesh(
+        (2, 2), ("data", "model"))))
+    want = jax.tree.leaves(jts.grad_pspecs(jmodel),
+                           is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    assert [tuple(p) for _, p in T.leaves(train_step.grad_pspecs(model))] == \
+        [tuple(p) for p in want]
+    assert optimizer.zero1_pspec(ParamSpec((16, 16))) == P("data", None)
+    assert tuple(jopt.zero1_pspec(JParamSpec((16, 16)))) == ("data", None)
 
 
 # ---------------------------------------------------------------------------

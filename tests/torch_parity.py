@@ -71,6 +71,25 @@ def run_torch_world(code: str, world_size: int, workdir, timeout: float = 240.0)
     return out
 
 
+class StandInMesh:
+    """A mesh's names, shape and this rank's coordinates without a process
+    group: enough for the layout decisions that need no collective (which
+    path ``apply_moe`` takes, the blocks ``common.shard`` cuts, building a
+    sharded train step)."""
+
+    device_type = "cpu"
+
+    def __init__(self, shape, names, coordinate=None):
+        self.shape, self.mesh_dim_names = tuple(shape), tuple(names)
+        self._coordinate = tuple(coordinate or (0,) * len(shape))
+
+    def size(self):
+        return int(np.prod(self.shape))
+
+    def get_coordinate(self):
+        return self._coordinate
+
+
 def assert_tree_equal(jax_tree, torch_tree, what="tree"):
     """Same keys, shapes, dtypes and values, bit for bit."""
     want = tree.leaves(jax.tree.map(np.asarray, jax_tree))
