@@ -124,11 +124,12 @@ and fails (non-zero exit, no result line) unless every phase holds:
      and split's card trees equal to the CPU's; (c) the job at a full
      crossbar's width (256x256x256 spiking, an 8x256x4 dense half) fused on
      the three placements: 3107 spikes in 400 rounds with both halves
-     right, its wall per round and profiles, and one round on ``vmap`` and
-     on ``threads`` under sync-debug "error"; (d) late injection and late
-     readback raise the reference's message on both dispatch paths; (e)
-     sq-vs-pll on this card: fig5snn, fullxbar, Googlenet-conv1 and the
-     full-width hybrid on ``sequential``, ``threads``, ``vmap`` per-round
+     right, its wall per round, profiles of its first 48 rounds fused and
+     per-round, and one round on ``vmap`` and on ``threads`` under
+     sync-debug "error"; (d) late injection and late readback raise the
+     reference's message on both dispatch paths; (e) sq-vs-pll on this
+     card: fig5snn, fullxbar, Googlenet-conv1 and the full-width hybrid's
+     first 48 rounds on ``sequential``, ``threads``, ``vmap`` per-round
      and fused, wall per round, trees leaf-equal, whether the ``threads``
      workers' kernels overlapped on the card (a profile's streams), and no
      ``vp-seg`` thread left after ``close()``;
@@ -254,10 +255,17 @@ and fails (non-zero exit, no result line) unless every phase holds:
      placed by ``state_shardings`` against ``make_train_step()`` from the
      same state: qwen3-1.7b whole and falcon-mamba-7b at depth 8 (the scan's
      forward and backward kernels, launches counted) bit-equal after 2
-     steps, llama4-scout at depth 1 within LM_MESH_TRAIN_TOL; (c) qwen3's
-     state after its mesh steps through ``checkpoint.save(shardings=)`` and
-     ``restore(shardings=)``, leaf-equal.  ``--phase 16`` runs it alone
+     steps, llama4-scout at depth 1 within LM_MESH_TRAIN_TOL; (c) the
+     state of qwen3-1.7b cut to 2 layers after one mesh step through
+     ``checkpoint.save(shardings=)`` and ``restore(shardings=)``,
+     leaf-equal.  ``--phase 16`` runs it alone
      (making the depth-1 weights on the host) and prints no result line.
+     Every weight is held and run as its spec's block over 'model' (tensor
+     parallelism): on this mesh each block is the whole weight and every
+     collective over 'model' is skipped, which the phase counts
+     (``ModelCollectives``) for one decode step and one train step; it
+     prints the prefill, decode and step times beside MESH_TIMES_BEFORE_TP (the
+     mesh paths before tensor parallelism, on the same card).
 
 A VP main path's kernel launches (phases 2, 3, 6, 7, 9, 10, 11, 12 and 15) are counted on
 the card: the fused tick, the fused completion and the slot scan each add
@@ -489,6 +497,11 @@ HYBRID_STRATEGIES = ("split", "packed", "auto")
 HYBRID_MODES = (("vmap", True), ("vmap", False), ("sequential", None), ("threads", None))
 HYBRID_COUNTED = ("snn_tick", "finish_ops", "slot_scan")
 PROFILED_ROUNDS = 8  # rounds of a threads run in the profile that looks for overlap
+# the full-width hybrid job's first rounds, where a phase-10 comparison needs
+# no finished job: its fused and per-round profiles (c) and its four backends
+# side by side (e); the whole job (400 rounds) took 87 s on sequential,
+# threads and per-round and 2 x 250,000 profiled kernels
+HYBRID_CUT_ROUNDS = 48
 HYBRID_TARGET = {'bench_snn': {'expected_total': 325,
                'split': {'segments': 4,
                          'rounds': 80,
@@ -1585,6 +1598,16 @@ LM_MESH_TRAIN = {
                 opt=dict(lr=1e-3, warmup_steps=1, total_steps=100)),
 }
 LM_MESH_TRAIN_TOL = dict(loss=1e-3, lr_units=2.05)
+# 16c: the checkpoint round trip of qwen3-1.7b cut to 2 layers after one
+# mesh step (0.41 B parameters, about 4.6 GiB of npz): the whole model's
+# 19.23 GiB took 119 s of the card's host I/O and hashing
+LM_MESH_CKPT_LAYERS = 2
+# phase 16's mesh times before tensor parallelism of the non-expert weights
+# (every weight outside the MoE layers held whole, the size-1 NCCL
+# collectives issued), on an NVIDIA H100 80GB HBM3 at 700.00 W: printed
+# beside this run's, no claim made
+MESH_TIMES_BEFORE_TP = {"prefill_ms": 158.683, "decode_ms": 27.560,
+                        "step_ms": {QWEN: 541.263, FALCON: 271.333, SCOUT: 668.195}}
 
 
 def check(cond, msg):
@@ -3902,28 +3925,58 @@ def from_arch_phase():
     return launches
 
 
+def host_params(specs, seed):
+    """``init_numpy(specs[name], seed)`` of each model on a thread of its
+    own: each model draws from its own generator, and numpy fills an array
+    without holding the GIL, so the models' host weights are made side by
+    side and each is what its own ``init_numpy`` gives.  Returns {name:
+    future of (arrays, seconds)}; pop a model's future when it is used, so
+    its arrays are freed."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.common import init_numpy
+
+    def make(model_specs):
+        t0 = time.perf_counter()
+        arrays = init_numpy(model_specs, seed=seed)
+        return arrays, time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(len(specs), thread_name_prefix="host-params")
+    futures = {name: pool.submit(make, sp) for name, sp in specs.items()}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def made_note(made_s, wait_s):
+    return (f"weights made on the host in {made_s:.1f} s (each model on a thread of its "
+            f"own, waited {wait_s:.1f} s)")
+
+
 def dense_lm_jax_phase():
     """The four dense architectures at full width, depth 2, against the JAX
     package's numbers for the same weights and prompt (DENSE_TARGET)."""
     import dataclasses
 
-    from repro_torch.common import init_numpy
     from repro_torch.configs import get_config
     from repro_torch.models.model import build, params_from_numpy
     from repro_torch.serve.serve_step import _pad_seq, greedy_generate
 
     spec = DENSE_JAX
+    cfgs = {arch: dataclasses.replace(get_config(arch), n_layers=spec["layers"])
+            for arch in DENSE_LM}
+    models = {arch: build(cfg) for arch, cfg in cfgs.items()}
+    made = host_params({arch: m.specs for arch, m in models.items()}, spec["weight_seed"])
     for arch in DENSE_LM:
         want = DENSE_TARGET[arch]
-        cfg = dataclasses.replace(get_config(arch), n_layers=spec["layers"])
-        model = build(cfg)
+        cfg, model = cfgs[arch], models.pop(arch)
         t0 = time.perf_counter()
-        params = params_from_numpy(model.specs, init_numpy(model.specs,
-                                                           seed=spec["weight_seed"]))
+        arrays, made_s = made.pop(arch).result()
+        wait_s = time.perf_counter() - t0
+        params = params_from_numpy(model.specs, arrays)
+        del arrays
         prompt = np.random.default_rng(spec["prompt_seed"]).integers(
             0, cfg.vocab_size, (spec["batch"], spec["prompt"])).astype(np.int32)
         batch = {"tokens": torch.from_numpy(prompt).cuda()}
-        host_s = time.perf_counter() - t0
         toks = greedy_generate(model, params, batch, steps=spec["steps"],
                                pad_to=spec["pad_to"]).cpu().numpy()
         want_toks, margins = np.array(want["tokens"]), np.array(want["margins"])
@@ -3951,8 +4004,8 @@ def dense_lm_jax_phase():
               f"{int((toks == want_toks).sum())} of {toks.size} in all); logits at "
               f"{len(want['sample'])} vocab indices off the JAX package's by at most "
               f"{errs[0]} (prefill) and {errs[1]} (last decode step), on average {means[0]} "
-              f"and {means[1]}, tolerances {DENSE_TOL} and {DENSE_MEAN_TOL}; weights made on "
-              f"the host in {host_s:.1f} s", flush=True)
+              f"and {means[1]}, tolerances {DENSE_TOL} and {DENSE_MEAN_TOL}; "
+              f"{made_note(made_s, wait_s)}", flush=True)
         del params, cache, lg
         torch.cuda.empty_cache()
 
@@ -4161,22 +4214,25 @@ def families_jax_phase(mesh_check=False):
     the mesh of one (``lm_mesh_jax_check``)."""
     import dataclasses
 
-    from repro_torch.common import init_numpy
     from repro_torch.configs import get_config
     from repro_torch.models.model import build, params_from_numpy
     from repro_torch.serve.serve_step import _pad_seq, decode_batch, greedy_generate
 
     spec = FAMILIES_JAX
-    for arch, depth in FAMILIES_DEPTH.items():
+    cfgs = {arch: get_config(arch) if depth is None else
+            dataclasses.replace(get_config(arch), n_layers=depth)
+            for arch, depth in FAMILIES_DEPTH.items()}
+    models = {arch: build(cfg) for arch, cfg in cfgs.items()}
+    made = host_params({arch: m.specs for arch, m in models.items()}, spec["weight_seed"])
+    for arch in FAMILIES_DEPTH:
         want = FAMILIES_TARGET[arch]
-        cfg = get_config(arch)
-        cfg = cfg if depth is None else dataclasses.replace(cfg, n_layers=depth)
-        model = build(cfg)
+        cfg, model = cfgs[arch], models.pop(arch)
         t0 = time.perf_counter()
-        params = params_from_numpy(model.specs, init_numpy(model.specs,
-                                                           seed=spec["weight_seed"]))
+        arrays, made_s = made.pop(arch).result()
+        wait_s = time.perf_counter() - t0
+        params = params_from_numpy(model.specs, arrays)
+        del arrays
         batch = families_batch(cfg, spec["batch"], spec["prompt"])
-        host_s = time.perf_counter() - t0
         toks = greedy_generate(model, params, batch, steps=spec["steps"],
                                pad_to=spec["pad_to"]).cpu().numpy()
         want_toks, margins = np.array(want["tokens"]), np.array(want["margins"])
@@ -4202,8 +4258,7 @@ def families_jax_phase(mesh_check=False):
                   f"package's by at most {errs[0]} (prefill) and {errs[1]} (last decode step), "
                   f"tokens equal at {int((toks == want_toks).sum())} of {toks.size}: not held "
                   f"(the JAX package's own eager and jitted prefills differ by "
-                  f"{want['jax_spread']} here); weights made on the host in {host_s:.1f} s",
-                  flush=True)
+                  f"{want['jax_spread']} here); {made_note(made_s, wait_s)}", flush=True)
         else:
             compared, skipped = same_greedy(f"{arch} 13a", toks, want_toks, margins,
                                             FAMILIES_TOL)
@@ -4216,8 +4271,7 @@ def families_jax_phase(mesh_check=False):
                   f"in all); logits at {len(want['sample'])} vocab indices off the JAX "
                   f"package's by at most {errs[0]} (prefill) and {errs[1]} (last decode "
                   f"step), on average {means[0]} and {means[1]}, tolerances {FAMILIES_TOL} and "
-                  f"{FAMILIES_MEAN_TOL}; weights made on the host in {host_s:.1f} s",
-                  flush=True)
+                  f"{FAMILIES_MEAN_TOL}; {made_note(made_s, wait_s)}", flush=True)
         if mesh_check and arch == SCOUT:
             del cache, lg
             lm_mesh_jax_check(cfg, model, params, batch)
@@ -4828,16 +4882,30 @@ def hybrid_phase():
     job = hybrid_job("full_width")
     for strategy in HYBRID_STRATEGIES:
         add(hybrid_run("full_width", job, strategy, "vmap", True)[3])
-    # where the time goes: split fused and per-round, each timed unprofiled
-    # (uncounted) and then profiled
+    t_b = time.perf_counter()
+    # where the time goes: split fused and per-round over the job's first
+    # rounds, each timed unprofiled (uncounted) and then profiled
     for fused in (True, False):
-        secs = hybrid_run("full_width", job, "split", "vmap", fused, count=False)[2]
-        ctl = hybrid_controller(job, "split")[0]
-        captured = fused and ready(ctl) is not None
-        profile_run(f"hybrid full_width split/vmap {'fused' if fused else 'per-round'}",
-                    lambda: ctl.run(max_rounds=2000, check_every=HYBRID_CHECK_EVERY,
-                                    fused=fused),
-                    lambda: ctl.rounds_run, "round", secs, top=0 if captured else 8)
+        path = "fused" if fused else "per-round"
+        ctls = [hybrid_controller(job, "split")[0] for _ in range(2)]
+        caps = [ready(c) if fused else None for c in ctls]
+        run = lambda c: c.run(max_rounds=HYBRID_CUT_ROUNDS, check_every=HYBRID_CHECK_EVERY,
+                              fused=fused)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(ctls[0])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(ctls[0].rounds_run == HYBRID_CUT_ROUNDS,
+              f"hybrid full_width split/vmap {path}: {ctls[0].rounds_run} rounds")
+        print(f"hybrid full_width split/vmap/{path} on cuda, its first "
+              f"{HYBRID_CUT_ROUNDS} rounds: {secs:.6f} s, {secs / HYBRID_CUT_ROUNDS * 1e6:.1f} "
+              f"us/round{capture_note(caps[0])}", flush=True)
+        profile_run(f"hybrid full_width split/vmap {path}", lambda: run(ctls[1]),
+                    lambda: ctls[1].rounds_run, "round", secs, top=0 if caps[1] is not None else 8)
+        for c in ctls:
+            c.close()
+    print(f"hybrid full_width: profiles {time.perf_counter() - t_b:.1f} s", flush=True)
 
     for backend in ("vmap", "threads"):
         sync_free_phase(f"hybrid full_width split/{backend}",
@@ -4930,7 +4998,8 @@ def backends_phase(card):
     jobs = [("fig5snn uniform", spiking(fig5, None), 2000),
             ("fullxbar uniform", spiking(fx, FULLXBAR["in_cap"]), 2000),
             ("Googlenet-conv1 uniform/cim", dense, 2000),
-            ("hybrid full_width split", lambda b: hybrid_controller(full, "split", b)[0], 2000)]
+            ("hybrid full_width split", lambda b: hybrid_controller(full, "split", b)[0],
+             HYBRID_CUT_ROUNDS)]
     before = set(threading.enumerate())
     for name, make, max_rounds in jobs:
         walls, trees, rounds = {}, {}, set()
@@ -6510,10 +6579,13 @@ def lm_mesh_serve(card, mesh):
         want = ({"dense_moe": n * steps, "ep_moe": 0, "ep_moe_decode": 0} if m is None else
                 {"dense_moe": 0, "ep_moe": n, "ep_moe_decode": n * (steps - 1)})
         check(calls == want, f"16a {label}: MoE paths {calls}, want {want}")
+        before = ("" if m is None else
+                  f" (before tensor parallelism: prefill {MESH_TIMES_BEFORE_TP['prefill_ms']} ms, "
+                  f"decode {MESH_TIMES_BEFORE_TP['decode_ms']} ms)")
         print(f"16a {SCOUT} depth {n} {label} ({calls}), B={b}, prompt {prompt}, {steps} greedy "
               f"tokens: {total_s:.6f} s in all; prefill {1e3 * prefill_s:.3f} ms, decode "
               f"{1e3 * decode_s:.3f} ms per token, {b * steps / total_s:.1f} generated tokens/s "
-              f"({card})", flush=True)
+              f"({card}){before}", flush=True)
         profile_run(f"16a {label} prefill", lambda: (model.prefill(params, batch, mesh=m),
                                                      torch.cuda.synchronize()),
                     lambda: 1, "prefill", prefill_s)
@@ -6522,6 +6594,11 @@ def lm_mesh_serve(card, mesh):
         profile_run(f"16a {label} decode step", lambda: (
             model.decode_step(params, cache, db, prompt, mesh=m), torch.cuda.synchronize()),
             lambda: 1, "step", decode_s)
+        if m is not None:
+            with ModelCollectives() as calls:
+                model.decode_step(params, cache, db, prompt, mesh=m)
+                torch.cuda.synchronize()
+            calls.report(f"16a {SCOUT} depth {n}: one decode step")
         runs[label] = toks.cpu().numpy()
         del cache, lg
     dense_toks, dense_lgs = greedy_logits(model, params, batch, steps, spec["pad_to"])
@@ -6564,10 +6641,50 @@ def place(tree_, shardings_):
     return tree_
 
 
+class ModelCollectives:
+    """Counts the collectives called while it is open, by (collective,
+    axes, "issued" or "skipped"), forward and backward passes alike: it
+    wraps ``launch.mesh._skip``, the check every collective makes first."""
+
+    def __enter__(self):
+        from repro_torch.launch import mesh as M
+
+        self.counts, self._skip = {}, M._skip
+
+        def counted(op, mesh, axes):
+            one = self._skip(op, mesh, axes)
+            key = (op, M._axes(axes), "skipped" if one else "issued")
+            self.counts[key] = self.counts.get(key, 0) + 1
+            return one
+
+        M._skip = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import mesh as M
+
+        M._skip = self._skip
+
+    def report(self, label):
+        """Print the calls over 'model' by collective, and check that a mesh
+        of one issued none (each was skipped: its group has one rank)."""
+        how, by_op = {"issued": 0, "skipped": 0}, {}
+        for (op, axes, h), n in sorted(self.counts.items()):
+            if "model" in axes:
+                how[h] += n
+                name = f"{op} over {'+'.join(axes)}"
+                by_op[name] = by_op.get(name, 0) + n
+        check(how["issued"] == 0 and how["skipped"] > 0,
+              f"{label}: collectives over 'model' {how} on the mesh of one")
+        print(f"{label}: {how['skipped']} collectives over 'model' called, all skipped (a "
+              f"group of one rank), {how['issued']} issued: {by_op}", flush=True)
+
+
 def lm_mesh_train(card, mesh):
     """16b: train steps over the mesh of one against the single-card steps
-    from the same state; 16c: qwen3-1.7b's state after its mesh steps saved
-    with ``checkpoint.save(shardings=)`` and restored onto the mesh.
+    from the same state; 16c: the state of qwen3-1.7b at
+    LM_MESH_CKPT_LAYERS after one mesh step saved with
+    ``checkpoint.save(shardings=)`` and restored onto the mesh.
     Returns the scan kernels' launches in falcon-mamba-7b's mesh steps."""
     import dataclasses
 
@@ -6605,14 +6722,20 @@ def lm_mesh_train(card, mesh):
                     b = (device_batch_at(dc, i, mesh=m) if m is not None else
                          {k: v.cuda() for k, v in batch_at(dc, i).items()})
                     torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    state, met = step_fn(state, b)
-                    torch.cuda.synchronize()
-                    secs.append(time.perf_counter() - t0)
+                    with ModelCollectives() as calls:  # the last step's are reported
+                        t0 = time.perf_counter()
+                        state, met = step_fn(state, b)
+                        torch.cuda.synchronize()
+                        secs.append(time.perf_counter() - t0)
                     metrics.append({k: float(v) for k, v in met.items()})
                 fwd, bwd = ops.selective_scan_fused.launches, ops.selective_scan_fused_bwd.launches
+                before = ("" if m is None else " (before tensor parallelism: "
+                          f"{MESH_TIMES_BEFORE_TP['step_ms'][arch]} ms, the last step)")
                 print(f"{label} {name}: step {' '.join(f'{1e3 * t:.3f}' for t in secs)} ms, "
-                      f"loss {' '.join(str(x['loss']) for x in metrics)} ({card})", flush=True)
+                      f"loss {' '.join(str(x['loss']) for x in metrics)} ({card}){before}",
+                      flush=True)
+                if m is not None:
+                    calls.report(f"{label}: its last step")
                 if spec["exact"] or m is not None:
                     out[name] = (state, metrics, fwd, bwd)
                 else:  # no room for two states: the params to the host
@@ -6651,18 +6774,31 @@ def lm_mesh_train(card, mesh):
                   f"{pm[0]['loss']} (relative {rel:.2e}, tolerance {tol['loss']}), grad_norm "
                   f"{mm[0]['grad_norm']} against {pm[0]['grad_norm']}, params at most "
                   f"{d / lr:.3f} lr apart (tolerance {tol['lr_units']} lr)", flush=True)
-        if arch == QWEN:
-            checkpoint_onto_mesh(label, model, oc, meshed, sh)
         del out, plain, meshed
         gc.collect()
         torch.cuda.empty_cache()
+
+    spec = LM_MESH_TRAIN[QWEN]
+    cfg = dataclasses.replace(get_config(QWEN), n_layers=LM_MESH_CKPT_LAYERS)
+    model = build(cfg)
+    oc = optimizer.OptConfig(**spec["opt"], moments_dtype=torch.float32)
+    sh = train_step.state_shardings(model, oc, mesh)
+    state = place(train_state(model, oc, model.init(torch.Generator("cuda").manual_seed(0))),
+                  sh)
+    dc = DataConfig(cfg.vocab_size, spec["seq"], spec["batch"], seed=7)
+    state, _ = train_step.make_train_step(model, oc, mesh=mesh)(
+        state, device_batch_at(dc, 0, mesh=mesh))
+    checkpoint_onto_mesh(f"{QWEN} (depth {cfg.n_layers}, one mesh step)", model, oc, state, sh)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
 def checkpoint_onto_mesh(label, model, oc, state, sh):
-    """16c: ``checkpoint.save(shardings=)`` of the state after the mesh
-    steps (the global arrays, gathered), ``restore(shardings=)`` onto the
-    mesh: every leaf equal."""
+    """16c: ``checkpoint.save(shardings=)`` of a state on the mesh (the
+    global arrays, gathered), ``restore(shardings=)`` onto the mesh: every
+    leaf equal."""
     import shutil
 
     from repro_torch import tree
@@ -6685,7 +6821,7 @@ def checkpoint_onto_mesh(label, model, oc, state, sh):
     diff = [p for (p, a), (_, b) in zip(tree.leaves(state), tree.leaves(restored))
             if not (a.dtype == b.dtype and a.device == b.device and torch.equal(a, b))]
     check(got == at and not diff, f"16c: step {got}, leaves differ: {diff[:5]}")
-    print(f"16c {label}: its state after the mesh steps saved with save(shardings=) "
+    print(f"16c {label}: its state saved with save(shardings=) "
           f"({nbytes / 2**30:.2f} GiB of npz) in {save_s:.2f} s and restored onto the mesh "
           f"with restore(shardings=) (sha256 checked) in {restore_s:.2f} s: all "
           f"{len(tree.leaves(state))} leaves equal ({free / 2**30:.1f} GiB of disk free before)",
@@ -6840,15 +6976,25 @@ def main(argv):
     phase("9 wide and recurrent networks")
     launches.update(wide_recurrent_phase())
     phase("10 hybrid jobs and the threads backend")
+    t0 = time.perf_counter()
     scan_row = next(row for row in rows if row["name"] == "slot_scan")
     scan_row["max_abs_err"] = max(scan_row["max_abs_err"], spike_store_phase())
+    t1 = time.perf_counter()
     for name, n in hybrid_phase().items():
         launches[name] += n
+    t2 = time.perf_counter()
     backends_phase(card)
+    print(f"phase 10: 10a {t1 - t0:.1f} s, 10b-d {t2 - t1:.1f} s, 10e "
+          f"{time.perf_counter() - t2:.1f} s", flush=True)
     phase("11 observability and the job-axis server")
-    for part in (obs_stats_phase(), obs_traced_phase(card), serve_phase(card)):
-        for name, n in part.items():
+    secs = []
+    for part in (obs_stats_phase, lambda: obs_traced_phase(card), lambda: serve_phase(card)):
+        t0 = time.perf_counter()
+        for name, n in part().items():
             launches[name] += n
+        secs.append(time.perf_counter() - t0)
+    print("phase 11: " + ", ".join(f"11{c} {t:.1f} s" for c, t in zip("abc", secs)),
+          flush=True)
     phase("15 the multi-device backends on the mesh of one card")
     for name, n in mesh_phase(card).items():
         launches[name] += n

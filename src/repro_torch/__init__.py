@@ -31,10 +31,12 @@ controller's ``shard_map`` backend, the sharded job axis and
 ``tp``, ``common.shard``/``unshard``), its expert-parallel MoE
 (``models.moe.ep_moe``, ``ep_moe_decode``), the ZeRO-1 train step over a
 mesh (``make_train_step(mesh=)``), ``device_batch_at(mesh=)`` and
-``checkpoint.restore(shardings=)``; and one-card FLOP accounting
-(``analysis.roofline``).  Still to come (ROADMAP): tensor parallelism of
-the non-expert weights over 'model' (item 14) and a counterpart of the
-reference's ``launch/dryrun.py`` (item 15).
+``checkpoint.restore(shardings=)``; tensor parallelism of every other
+weight over 'model' as its partition spec splits it (attention heads, the
+MLP's ff axis, the vocab, Mamba's ``d_inner``), served and trained; and
+one-card FLOP accounting (``analysis.roofline``).  Still to come
+(ROADMAP): split-KV decode (item 16) and a counterpart of the reference's
+``launch/dryrun.py`` (item 15).
 
 Entry points put state on ``cuda`` unless the caller passes
 ``device="cpu"``; with no GPU they raise instead of moving to the CPU.

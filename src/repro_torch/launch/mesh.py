@@ -20,6 +20,18 @@ collectives ``psum``, ``pmean`` and ``all_gather`` (``lax.psum``,
 ``lax.pmean``, ``lax.all_gather(tiled=True)``), whose backward passes are
 their transposes: ``psum``'s the ``psum`` of the cotangents,
 ``all_gather``'s the sum of the cotangents' blocks (a reduce-scatter).
+Tensor parallelism adds ``pmax`` (``lax.pmax``, no gradient: the
+vocab-parallel cross-entropy's shift) and ``argmax`` (the first maximal
+index of a tensor split along its last dim, from each block's (max, index)
+pair: greedy decoding over vocab blocks).
+
+A collective over axes whose size is 1 is skipped: it returns its input
+(``all_reduce``, ``gather``, ``reduce_scatter`` and every function built on
+them, forward and backward passes alike), so a mesh of one runs the
+single-device arithmetic.  Every collective asks ``_skip`` first, the one
+place a harness wraps to count them.  A sum of 16-bit floats is taken in
+float32 and rounded once, as XLA promotes the reference's bf16 all-reduces
+(and reduce-scatters) to float32.
 """
 from __future__ import annotations
 
@@ -151,9 +163,16 @@ def axis_group(mesh, axes):
     return cache[axes]
 
 
-def gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
-    """The blocks of every rank along ``axes`` concatenated on ``dim`` in
-    block order (a tiled all-gather; no gradient)."""
+_HALF = (torch.bfloat16, torch.float16)  # summed in float32
+
+
+def _skip(op: str, mesh, axes) -> bool:
+    """True where ``axes``' size is 1: the collective ``op`` (its name, for
+    a wrapper that counts the calls) has nothing to exchange."""
+    return axis_size(mesh, _axes(axes)) == 1
+
+
+def _gather(x, mesh, axes, dim):
     group, order = axis_group(mesh, axes)
     parts = [torch.empty_like(x) for _ in order]
     dist.all_gather(parts, x.contiguous(), group=group)
@@ -163,23 +182,42 @@ def gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     return torch.cat(by_block, dim=dim)
 
 
+def gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """The blocks of every rank along ``axes`` concatenated on ``dim`` in
+    block order (a tiled all-gather; no gradient)."""
+    if _skip("all_gather", mesh, axes):
+        return x
+    return _gather(x, mesh, axes, dim)
+
+
 def all_reduce(x: torch.Tensor, mesh, axes, op=None, inplace=False) -> torch.Tensor:
     """``x`` reduced (summed unless ``op``) over ``axes`` (no gradient): a
-    new tensor, or ``x`` itself (contiguous) with ``inplace``."""
+    new tensor, or ``x`` itself (contiguous) with ``inplace``; ``x`` itself
+    over axes of size 1."""
+    op = dist.ReduceOp.SUM if op is None else op
+    if _skip("all_reduce" if op == dist.ReduceOp.SUM else "all_reduce_max", mesh, axes):
+        return x
     group, _ = axis_group(mesh, axes)
+    if op == dist.ReduceOp.SUM and x.dtype in _HALF:
+        out = x.float()
+        dist.all_reduce(out, op=op, group=group)
+        return x.copy_(out) if inplace else out.to(x.dtype)
     out = x if inplace else x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, op=dist.ReduceOp.SUM if op is None else op, group=group)
+    dist.all_reduce(out, op=op, group=group)
     return out
 
 
 def reduce_scatter(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     """This rank's block along ``dim`` of the sum over ``axes`` of ``x``
     (no gradient)."""
+    if _skip("reduce_scatter", mesh, axes):
+        return x
     group, order = axis_group(mesh, axes)
-    chunks = x.chunk(len(order), dim=dim)
+    wide = x.float() if x.dtype in _HALF else x
+    chunks = wide.chunk(len(order), dim=dim)
     out = torch.empty_like(chunks[0], memory_format=torch.contiguous_format)
     dist.reduce_scatter(out, [chunks[b].contiguous() for b in order], group=group)
-    return out
+    return out.to(x.dtype)
 
 
 class _Psum(torch.autograd.Function):
@@ -217,3 +255,48 @@ def pmean(x: torch.Tensor, mesh, axes) -> torch.Tensor:
 def all_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     """``lax.all_gather(x, axes, axis=dim, tiled=True)``."""
     return _AllGather.apply(x, mesh, _axes(axes), dim)
+
+
+class _MeanGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh, ctx.axes) / axis_size(ctx.mesh, ctx.axes), None, None
+
+
+def mean_grad(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The identity, whose backward replaces each rank's cotangent by its
+    mean over ``axes`` (one all-reduce).  Each rank differentiates its own
+    copy of the loss and ``psum``'s backward is a ``psum``, so where a
+    tensor whole on every rank of ``axes`` enters a computation split over
+    them, each rank's cotangent is its share of their sum; the mean keeps
+    the sum and makes the cotangent the same on every rank, as the
+    reference's transpose of such a point (GSPMD's all-reduce, a
+    ``shard_map`` input's ``psum``) gives it, so the cotangents upstream
+    are rounded as the reference rounds them."""
+    return _MeanGrad.apply(x, mesh, _axes(axes))
+
+
+def pmax(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``lax.pmax``: the elementwise maximum over ``axes`` (no gradient)."""
+    return all_reduce(x.detach(), mesh, _axes(axes), op=dist.ReduceOp.MAX)
+
+
+def argmax(x: torch.Tensor, mesh, axes, offset: int) -> torch.Tensor:
+    """``torch.argmax(x_global, -1)`` where ``x`` is this rank's block of
+    ``x_global`` along its last dim, starting at global index ``offset``:
+    each block's (max, first index) pair is all-gathered (values as float32,
+    indices as int64: gloo takes no uint32 or bool) and the pairs combined by
+    value, then by the lowest global index, so ties go to the first maximal
+    index as ``torch.argmax``'s do.  int64 (B...,)."""
+    idx = torch.argmax(x.detach(), dim=-1, keepdim=True)
+    val, idx = x.detach().gather(-1, idx), idx + offset
+    if _skip("argmax", mesh, axes):
+        return idx[..., 0]
+    vals, idxs = _gather(val.float(), mesh, _axes(axes), -1), _gather(idx, mesh, _axes(axes), -1)
+    best = vals.amax(-1, keepdim=True)
+    return torch.where(vals == best, idxs, torch.iinfo(torch.int64).max).amin(-1)

@@ -21,14 +21,35 @@ reference's launchers build at tp = 1.  Training adds ``cross_entropy`` and ``fl
 (the reference's custom VJP as a ``torch.autograd.Function``); the train
 path's dense attention is ``dense_attention(causal=True)``, differentiated
 by autograd.
+
+Tensor parallelism over 'model' (``mesh=``): each rank holds its block of
+every weight whose spec names 'model' and runs the Megatron layout on it,
+with the collectives GSPMD inserts for the reference written out
+(``launch/mesh.py``).  Attention runs on the rank's head block (``Heads``:
+the global index of its first query head, F8's padded count, the kv heads
+each query head reads), its output row-parallel through ``wo`` and summed
+over 'model'; the MLP is column-parallel through ``w_in``/``w_gate`` and
+row-parallel through ``w_out``, then summed; the embedding gathers the
+rank's vocab rows (zero rows for tokens outside them) and sums; ``logits``
+returns the rank's vocab block, never gathered; ``cross_entropy`` takes its
+max and its sum of exponentials over 'model' and the target's logit from
+the block that holds it.  Where a tensor whole on every rank enters a
+split computation (``model_input``), its cotangents are averaged over
+'model' in the backward (``mesh.mean_grad``), where the reference's
+transposes all-reduce them.  Whether a dim is split is read off the
+block's size (``split_over_model``); on a 'model' axis of one every block
+is the whole and every collective is skipped, so the arithmetic is the
+single device's.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
 from repro_torch.common import P, ParamSpec
+from repro_torch.launch import mesh as M
 
 _F32 = torch.float32
 TP = 1  # the model-axis size the port builds at by default
@@ -37,6 +58,43 @@ DATA_AXES = ("data", "pod")  # batch shards over both; 'pod' absent on 1-pod mes
 
 def batch_pspec(*rest):
     return P(DATA_AXES, *rest)
+
+
+# ---------------------------------------------------------------------------
+# the 'model' axis
+
+
+def has_model(mesh) -> bool:
+    return mesh is not None and "model" in mesh.mesh_dim_names
+
+
+def tp_size(mesh) -> int:
+    """The 'model' axis size of ``mesh`` (1 without a mesh or the axis)."""
+    return M.axis_size(mesh, "model") if has_model(mesh) else 1
+
+
+def tp_index(mesh) -> int:
+    """This rank's block index along 'model' (0 without a mesh or the axis)."""
+    return M.axis_index(mesh, "model") if has_model(mesh) else 0
+
+
+def split_over_model(mesh, local: int, whole: int) -> bool:
+    """Whether a dim of ``whole`` entries held as ``local`` of them is split
+    over 'model': a smaller block, or any block on a 'model' axis of one (its
+    one block: the collectives are called and skipped)."""
+    return has_model(mesh) and (local < whole or tp_size(mesh) == 1)
+
+
+def model_sum(x, mesh, split: bool):
+    """A row-parallel partial summed over 'model' (``x`` where not split)."""
+    return M.psum(x, mesh, "model") if split else x
+
+
+def model_input(x, mesh, split: bool):
+    """``x``, whole on every 'model' rank, entering a computation split over
+    'model': its cotangents averaged over 'model' in the backward
+    (``mesh.mean_grad``; ``x`` where not split)."""
+    return M.mean_grad(x, mesh, "model") if split else x
 
 
 def norm_specs(cfg, d=None):
@@ -159,18 +217,59 @@ def attn_specs(cfg, tp: int = TP, dtype=None):
     return s
 
 
-def mask_pad_heads(cfg, o):
-    """Zero the padded heads' attention output (B, S, Hpad, Dh)."""
-    hpad = o.shape[2]
-    if hpad == cfg.n_heads:
+def mask_pad_heads(cfg, o, lo: int = 0, total: int | None = None):
+    """Zero the padded heads' attention output (B, S, H, Dh): heads ``lo``
+    to ``lo + H`` of ``total`` (H: the whole) padded heads."""
+    total = o.shape[2] if total is None else total
+    if total == cfg.n_heads:
         return o
-    mask = (torch.arange(hpad, device=o.device) < cfg.n_heads).to(o.dtype)
+    mask = (lo + torch.arange(o.shape[2], device=o.device) < cfg.n_heads).to(o.dtype)
     return o * mask[None, None, :, None]
 
 
-def qkv_project(cfg, p, x, policy, angles=None, x_kv=None):
+@dataclasses.dataclass(frozen=True)
+class Heads:
+    """This rank's query heads: ``lo`` (the global index of its first) to
+    ``lo + n`` of ``total`` (padded) heads; ``kv``: None where its kv block
+    is grouped as ``expand_kv`` groups it, else the index (into the whole kv
+    heads, replicated when 'model' does not divide them) of the kv head each
+    of its query heads reads: ``(lo + j) // (total // Hkv)``, F8's grouping;
+    ``split``: whether the heads are split over 'model' (the output
+    projection gives a partial sum)."""
+
+    lo: int
+    n: int
+    total: int
+    kv: torch.Tensor | None
+    split: bool
+
+
+def heads(cfg, p, mesh=None) -> Heads:
+    """``Heads`` of the attention weights ``p`` (this rank's blocks)."""
+    hq, hkv = p["wq"].shape[-2], p["wk"].shape[-2]
+    if not split_over_model(mesh, hq, cfg.n_heads):
+        return Heads(0, hq, hq, None, False)
+    tp = tp_size(mesh)
+    lo, total = tp_index(mesh) * hq, hq * tp
+    kv = None
+    if hkv == cfg.n_kv_heads and tp > 1:  # kv heads whole: take the ones read
+        kv = (lo + torch.arange(hq, device=p["wk"].device)) // (total // hkv)
+    return Heads(lo, hq, total, kv, True)
+
+
+def select_kv(k, hd: Heads):
+    """k (B, S, Hkv, Dh) as the kv heads this rank's query heads read:
+    (B, S, n, Dh) where ``hd.kv`` picks them, else ``k`` itself."""
+    return k if hd.kv is None else k.index_select(2, hd.kv)
+
+
+def qkv_project(cfg, p, x, policy, angles=None, x_kv=None, mesh=None):
     """q (B,Sq,Hq,Dh) from x and k/v (B,Skv,Hkv,Dh) from ``x_kv`` (x itself
-    unless given); qk-norm before RoPE."""
+    unless given); qk-norm before RoPE.  With ``mesh``, x (and ``x_kv``)
+    enter this rank's heads (``model_input``) where they are split."""
+    if heads(cfg, p, mesh).split:
+        x = model_input(x, mesh, True)
+        x_kv = None if x_kv is None else model_input(x_kv, mesh, True)
     cdt = policy.compute
     xq = x.to(cdt)
     xkv = (x if x_kv is None else x_kv).to(cdt)
@@ -312,11 +411,49 @@ def flash_attention_train(q, k, v, chunk_q=512, chunk_k=512):
                                      min(chunk_k, k.shape[1]))
 
 
-def cross_entropy(lg, targets, mask=None):
+class _VocabLogsumexp(torch.autograd.Function):
+    """logsumexp over the last dim of logits split over 'model': the max
+    and the sum of exponentials all-reduced, each written as
+    ``torch.logsumexp`` computes them (the max of an infinite row taken as
+    0), so one block of the whole gives its values bit for bit.  Backward
+    as ``torch.logsumexp``'s, ``g * exp(x - lse)``, with ``g`` first summed
+    over 'model': every rank's loss reads the same lse."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        m = M.pmax(torch.amax(x, dim=-1, keepdim=True), mesh, "model")
+        m = m.masked_fill(m.abs() == torch.inf, 0)
+        s = M.all_reduce(torch.sum(torch.exp(x - m), dim=-1), mesh, "model")
+        lse = torch.log(s) + m[..., 0]
+        ctx.save_for_backward(x, lse)
+        ctx.mesh = mesh
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        g = M.all_reduce(g, ctx.mesh, "model")
+        return g[..., None] * torch.exp(x - lse[..., None]), None
+
+
+def cross_entropy(lg, targets, mask=None, mesh=None, vocab=None):
     """Mean next-token cross-entropy of (B, S, V) logits in float32
-    (logsumexp minus the target's logit); with ``mask``, its weighted mean."""
+    (logsumexp minus the target's logit); with ``mask``, its weighted mean.
+    With ``mesh`` and ``vocab`` (the whole vocab), ``lg`` may be this rank's
+    block of the vocab over 'model' (``logits``): the logsumexp over the
+    blocks (``_VocabLogsumexp``) and the target's logit from the rank that
+    holds it, summed over 'model'."""
     lg = lg.to(_F32)
-    nll = torch.logsumexp(lg, dim=-1) - lg.gather(-1, targets[..., None].long())[..., 0]
+    v = lg.shape[-1]
+    if vocab is not None and split_over_model(mesh, v, vocab):
+        lo = tp_index(mesh) * v
+        local = targets.long() - lo
+        inside = (local >= 0) & (local < v)
+        tgt = lg.gather(-1, local.clamp(0, v - 1)[..., None])[..., 0]
+        tgt = M.psum(torch.where(inside, tgt, 0.0), mesh, "model")
+        nll = _VocabLogsumexp.apply(lg, mesh) - tgt
+    else:
+        nll = torch.logsumexp(lg, dim=-1) - lg.gather(-1, targets[..., None].long())[..., 0]
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
     return nll.mean()
@@ -364,15 +501,20 @@ def gelu(x):
     return x * (0.5 * (1.0 + torch.tanh(k * (x + c * (x * x * x)))))
 
 
-def apply_mlp(cfg, p, x, policy):
+def apply_mlp(cfg, p, x, policy, mesh=None):
+    """The MLP on ``p``'s blocks: with ``mesh`` (a 'model' axis) the ff
+    axis is this rank's block (its spec always names 'model') and the
+    output is summed over 'model'; without, a partial sum where the blocks
+    are (``moe.ep_moe``'s shared expert joins its own all-reduce)."""
     cdt = policy.compute
-    xc = x.to(cdt)
+    split = has_model(mesh)
+    xc = model_input(x.to(cdt), mesh, split)
     h = xc @ p["w_in"].to(cdt)
     if cfg.act == "swiglu":
         h = silu(xc @ p["w_gate"].to(cdt)) * h
     else:
         h = gelu(h)
-    return h @ p["w_out"].to(cdt)
+    return model_sum(h @ p["w_out"].to(cdt), mesh, split)
 
 
 # ---------------------------------------------------------------------------
@@ -385,8 +527,22 @@ def embed_specs(cfg, tp: int = TP):
                                P(vocab_ax, None), init="small")}
 
 
-def embed(p, tokens, policy):
-    return p["table"][tokens].to(policy.compute)
+def embed(p, tokens, policy, mesh=None, vocab=None):
+    """The tokens' rows of the table in the compute dtype.  With ``mesh``
+    and ``vocab`` the table may be this rank's vocab block: tokens outside
+    it give zero rows and the rows are summed over 'model' (exact: one
+    nonzero a token) before the cast."""
+    table = p["table"]
+    v = table.shape[0]
+    if vocab is None or not split_over_model(mesh, v, vocab):
+        return table[tokens].to(policy.compute)
+    if v == vocab:
+        rows = table[tokens]
+    else:
+        local = tokens.long() - tp_index(mesh) * v
+        inside = (local >= 0) & (local < v)
+        rows = torch.where(inside[..., None], table[local.clamp(0, v - 1)], 0)
+    return M.psum(rows, mesh, "model").to(policy.compute)
 
 
 def logits_specs(cfg, tp: int = TP):
@@ -396,8 +552,13 @@ def logits_specs(cfg, tp: int = TP):
     return {"w": ParamSpec((cfg.d_model, cfg.vocab_size), cfg.params_dtype, P(None, vocab_ax))}
 
 
-def logits(cfg, p_lm, p_embed, x, policy):
+def logits(cfg, p_lm, p_embed, x, policy, mesh=None):
+    """Logits of the vocab rows ``p_lm``/``p_embed`` hold: this rank's vocab
+    block over 'model' where the vocab is split (never gathered, as the
+    reference's)."""
     cdt = policy.compute
+    v = p_embed["table"].shape[0] if cfg.tie_embeddings else p_lm["w"].shape[-1]
+    x = model_input(x, mesh, split_over_model(mesh, v, cfg.vocab_size))
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", x.to(cdt), p_embed["table"].to(cdt))
     return x.to(cdt) @ p_lm["w"].to(cdt)

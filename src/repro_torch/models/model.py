@@ -14,13 +14,18 @@ when tp-only sharding leaves over 4 GiB a device (``fsdp_params``), KV
 caches over the batch axes, kv heads over 'model' or the sequence over
 what is left.  Over a mesh the port runs explicit SPMD: ``Model.loss``,
 ``prefill`` and ``decode_step`` take this rank's batch block and the run
-layout of the weights (``run_pspecs``: the MoE layers' expert-parallel
-blocks, every other weight whole).
+layout of the weights (``run_pspecs``: every weight's spec over the mesh,
+the MoE layers' expert-parallel blocks, FSDP's 'data' gathered), so each
+rank holds and computes its 'model' block of every weight whose spec
+splits it; the logits they return are this rank's vocab block.  The cache
+keeps its sequence axis whole (``cache_specs``' split-KV sequence axes
+are ROADMAP item 16).
 ``params_from_numpy`` takes parameters as numpy arrays — the JAX package's
 (``jax.tree.map(np.asarray, model.init(key))``) or ``common.init_numpy``'s —
 and returns the port's tensors after checking every key, shape and dtype
 against the spec tree (a bf16 leaf comes as its uint16 bits:
-``common.numpy_dtype``).
+``common.numpy_dtype``); on a mesh, cut each rank's blocks from them with
+``common.shard``.
 """
 from __future__ import annotations
 
@@ -31,8 +36,8 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
-from repro_torch.common import (DTypePolicy, P, ShapeDtype, bf16_tensor, filter_pspec,
-                                init_params, numpy_dtype, param_bytes, spec_map)
+from repro_torch.common import (DTypePolicy, P, ShapeDtype, bf16_tensor, entry_axes,
+                                filter_pspec, init_params, numpy_dtype, param_bytes, spec_map)
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
@@ -60,12 +65,16 @@ class Model:
     specs: Any
 
     def init(self, generator: torch.Generator, device=None):
+        """The whole parameters (on a mesh too: place them with
+        ``common.shard`` of ``run_pspecs`` or ``state_shardings`` after)."""
         return init_params(self.specs, generator, device)
 
     def loss(self, params, batch, mesh=None):
         """Next-token cross-entropy plus the MoE load-balance loss: returns
         (ce + aux, {"ce", "aux"}), float32 scalars.  Over ``mesh``, of this
-        rank's batch block with the weights in ``run_pspecs``' layout."""
+        rank's batch block with the weights in ``run_pspecs``' layout (the
+        cross-entropy over the vocab blocks: the same on every 'model'
+        rank)."""
         cfg = self.cfg
         if cfg.family == "encdec":
             h = ED.encdec_loss_forward(cfg, params, batch, self.policy, mesh=mesh)
@@ -73,23 +82,25 @@ class Model:
         else:
             h, _, aux = TF.forward(cfg, params, batch, self.policy, mode="train", mesh=mesh,
                                    fsdp=needs_fsdp(cfg))
-        lg = TF.lm_logits(cfg, params, h, self.policy)
-        ce = L.cross_entropy(lg[:, :-1], batch["tokens"][:, 1:])
+        lg = TF.lm_logits(cfg, params, h, self.policy, mesh)
+        ce = L.cross_entropy(lg[:, :-1], batch["tokens"][:, 1:], mesh=mesh,
+                             vocab=cfg.vocab_size)
         return ce + aux, {"ce": ce, "aux": aux}
 
     def prefill(self, params, batch, mesh=None):
-        """Returns (cache, last-token logits)."""
+        """Returns (cache, last-token logits): over ``mesh``, this rank's
+        blocks of both."""
         cfg = self.cfg
         if cfg.family == "encdec":
             memory = ED.encode(cfg, params, batch["enc_feats"], self.policy, mesh=mesh)
-            xkv = ED.cross_kv(cfg, params, memory, self.policy)
+            xkv = ED.cross_kv(cfg, params, memory, self.policy, mesh)
             h, self_c = ED.decode_forward(cfg, params, batch["tokens"], self.policy,
                                           mode="prefill", xkv=xkv, mesh=mesh)
             cache = {"self": self_c, "cross": xkv}
         else:
             h, cache, _ = TF.forward(cfg, params, batch, self.policy, mode="prefill", mesh=mesh,
                                      fsdp=needs_fsdp(cfg))
-        return cache, TF.lm_logits(cfg, params, h[:, -1:], self.policy)
+        return cache, TF.lm_logits(cfg, params, h[:, -1:], self.policy, mesh)
 
     def decode_step(self, params, cache, batch, pos, mesh=None):
         """One token for every sequence in the batch. Returns (logits, cache)."""
@@ -102,7 +113,7 @@ class Model:
         else:
             h, new_cache, _ = TF.forward(cfg, params, batch, self.policy, mode="decode",
                                          mesh=mesh, fsdp=needs_fsdp(cfg), cache=cache, pos=pos)
-        return TF.lm_logits(cfg, params, h, self.policy), new_cache
+        return TF.lm_logits(cfg, params, h, self.policy, mesh), new_cache
 
 
 def fsdp_params(cfg: ModelConfig, tp: int = TP) -> bool:
@@ -134,13 +145,25 @@ def build(cfg: ModelConfig, tp: int = TP) -> Model:
     return Model(cfg=cfg, policy=DTypePolicy(params=cfg.params_dtype), specs=specs)
 
 
+def _without_data(pspec: P) -> P:
+    """``pspec`` with 'data' dropped (FSDP's split, gathered for the step)."""
+    def drop(e):
+        kept = tuple(a for a in entry_axes(e) if a != "data")
+        return None if not kept else kept[0] if len(kept) == 1 else kept
+
+    return P(*(drop(e) for e in pspec))
+
+
 def run_pspecs(model: Model, mesh):
     """The weights' layout the forward takes over ``mesh`` (a pspec tree like
-    the specs, filtered to the mesh's axes): where the expert-parallel paths
-    run, the MoE layers' ``moe.ep_pspecs`` behind their layer axis; every
-    other leaf whole (P())."""
+    the specs, filtered to the mesh's axes): each leaf's own spec without
+    'data' (a leaf FSDP splits over 'data' is gathered for the step), so a
+    leaf whose spec names 'model' is this rank's block of it; where the
+    expert-parallel paths run, the MoE layers' ``moe.ep_pspecs`` behind
+    their layer axis (their FSDP'd expert ff axis stays over 'data': the
+    paths gather it layer by layer)."""
     cfg = model.cfg
-    run = spec_map(lambda s: P(), model.specs)
+    run = spec_map(lambda s: filter_pspec(_without_data(s.pspec), mesh), model.specs)
     if cfg.family == "moe" and MOE.expert_parallel(cfg, mesh):
         run["layers"]["moe"] = spec_map(lambda ps: filter_pspec(P(None, *ps), mesh),
                                         MOE.ep_pspecs(cfg, needs_fsdp(cfg)))

@@ -14,8 +14,9 @@ Three paths, routed by ``apply_moe`` as the reference routes them:
   rank routes its tokens, scatters those assigned to its experts into an
   (E_local, C, d) bf16 buffer (cumsum dispatch, no sort), runs the expert
   GEMMs, gathers each (token, k)'s row back weighted by its gate, adds the
-  shared expert's partial product (its ff axis is over 'model') and sums
-  over 'model': one all-reduce a layer.  With ``fsdp`` the experts' ff axis
+  shared expert's partial product (its ff axis is over 'model', and
+  ``apply_mlp`` without a mesh leaves it a partial) and sums over 'model':
+  one all-reduce a layer, the shared expert's included once.  With ``fsdp`` the experts' ff axis
   is also over 'data' and is all-gathered first.
 - ``ep_moe_decode`` (decode shapes): the tokens are all-gathered over
   'data' instead, every rank computes its (experts x resident ff slice)
@@ -40,7 +41,7 @@ import torch.nn.functional as F
 
 from repro_torch.common import P, ParamSpec, spec_map
 from repro_torch.launch import mesh as M
-from repro_torch.models.layers import DATA_AXES, apply_mlp, silu
+from repro_torch.models.layers import DATA_AXES, apply_mlp, silu, split_over_model
 
 _F32 = torch.float32
 
@@ -147,10 +148,13 @@ def _expert_ffn(cfg, w_in, w_gate, w_out, buf, cdt):
     return torch.einsum("ecf,efd->ecd", h, w_out.to(cdt))
 
 
-def dense_moe(cfg, p, x, policy):
+def dense_moe(cfg, p, x, policy, mesh=None):
     """Every token through every expert, weighted by its gates (zero for the
     experts it was not routed to); no capacity, nothing dropped.  Returns
-    (y (B, S, d), aux)."""
+    (y (B, S, d), aux).  Over ``mesh`` the experts are whole (a 'model' axis
+    that does not divide them cannot hold their spec's blocks); the shared
+    expert runs on its ff block, summed over 'model', where it is held as
+    one (``layers.split_over_model``), else whole."""
     m = cfg.moe
     cdt = policy.compute
     b, s, d = x.shape
@@ -167,7 +171,8 @@ def dense_moe(cfg, p, x, policy):
     y_e = torch.einsum("tef,efd->ted", h, p["w_out"].to(cdt))
     y = torch.einsum("ted,te->td", y_e, weight.to(cdt))
     if m.n_shared:
-        y = y + apply_mlp(cfg, p["shared"], x2, policy)
+        split = split_over_model(mesh, p["shared"]["w_in"].shape[-1], m.d_ff_expert * m.n_shared)
+        y = y + apply_mlp(cfg, p["shared"], x2, policy, mesh=mesh if split else None)
     return y.reshape(b, s, d), aux
 
 
@@ -207,7 +212,7 @@ def ep_moe(cfg, p, x, policy, mesh, fsdp: bool = False):
     e_loc = e_total // tp
     b, s, d = x.shape
     t = b * s
-    x2 = x.reshape(t, d)
+    x2 = M.mean_grad(x.reshape(t, d), mesh, "model")  # whole on every 'model' rank
     gates, experts, aux = _route(cfg, p, x2)
     cap = _capacity(cfg, t)
     pos = _positions_in_expert(experts, e_total)  # (T, k)
@@ -244,7 +249,7 @@ def ep_moe_decode(cfg, p, x, policy, mesh, fsdp: bool):
     dp = M.axis_size(mesh, "data") if "data" in mesh.mesh_dim_names else 1
     e_loc = m.n_experts // tp
     b, s, d = x.shape
-    x2 = x.reshape(b * s, d)
+    x2 = M.mean_grad(x.reshape(b * s, d), mesh, "model")  # whole on every 'model' rank
     x_all = M.all_gather(x2, mesh, "data", 0) if dp > 1 else x2  # (T_pod, d)
     t_all = x_all.shape[0]
     gates, experts, aux = _route(cfg, p, x_all)
@@ -281,4 +286,4 @@ def apply_moe(cfg, p, x, policy, mesh=None, fsdp=False, decode=False):
                 mesh, _present(mesh, DATA_AXES)) <= 4096:
             return ep_moe_decode(cfg, p, x, policy, mesh, fsdp=fsdp)
         return ep_moe(cfg, p, x, policy, mesh, fsdp=fsdp)
-    return dense_moe(cfg, p, x, policy)
+    return dense_moe(cfg, p, x, policy, mesh)

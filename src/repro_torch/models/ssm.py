@@ -18,6 +18,18 @@ order; the reference computes it in plain JAX (no Pallas kernel).  Both
 blocks are differentiable: the fused scan through its autograd Function
 (``ops.SelectiveScanFused``, a CUDA backward on the card), the SSD
 through autograd.
+
+Over a mesh (``mesh=``) both blocks run on this rank's ``d_inner`` block
+(Mamba-2: its heads), as the specs split it over 'model'.  ``in_proj``'s
+block is a block of the concatenated ``[x | z]`` axis (at tp = 2 rank 0
+holds all of x, rank 1 all of z), so its output is gathered over 'model'
+and each rank keeps its x and z channels (``_split_xz``, GSPMD's reshard
+after the split); the held weight stays the spec's block.  Mamba-1's
+``x_proj`` and both blocks' ``out_proj`` are row-parallel, summed over
+'model'; the scan runs on (B, S, d_inner / tp, N).  Mamba-2 takes its
+heads' columns of the replicated ``dt``, ``a_log``, ``dt_bias`` and
+``d_skip``, and its gated RMSNorm's mean over ``d_inner`` is a sum over
+'model'.  The decode states hold the rank's channels and heads.
 """
 from __future__ import annotations
 
@@ -26,6 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.common import DTypePolicy, P, ParamSpec, ShapeDtype
 from repro_torch.kernels.ssm_scan import ops as scan_ops
+from repro_torch.launch import mesh as M
 from repro_torch.models import layers as L
 
 _F32 = torch.float32
@@ -75,8 +88,22 @@ def _causal_conv(x, w, b, state=None):
     return y + b.to(x.dtype), new_state
 
 
-def _mamba1_core(cfg, p, xin, h0, policy):
-    """xin (B,S,din) post-conv activations; h0 (B,din,N) float32. One fused scan."""
+def _split_xz(xz, mesh, din: int):
+    """x and z (each (B, S, din / tp)) of this rank's channels from its
+    block of ``in_proj``'s output: the blocks gathered over 'model', then
+    this rank's slice of each half (``xz`` split in two without a mesh)."""
+    if not L.has_model(mesh):
+        return torch.split(xz, [din, din], dim=-1)
+    loc = xz.shape[-1] // 2
+    full = M.all_gather(xz, mesh, "model", -1)
+    lo = L.tp_index(mesh) * loc
+    return full[..., lo:lo + loc], full[..., din + lo:din + lo + loc]
+
+
+def _mamba1_core(cfg, p, xin, h0, policy, mesh=None):
+    """xin (B,S,din) post-conv activations; h0 (B,din,N) float32. One fused
+    scan.  Over ``mesh``, this rank's channels, ``x_proj`` summed over
+    'model'."""
     s = cfg.ssm
     n = s.d_state
     dtr = s.dt_rank or cfg.d_model // 16
@@ -84,7 +111,9 @@ def _mamba1_core(cfg, p, xin, h0, policy):
     seq = xin.shape[1]
     chunk = min(s.chunk, seq)
     assert seq % chunk == 0, (seq, chunk)
-    xbc = xin.to(cdt) @ p["x_proj"].to(cdt)  # (B,S,dtr+2N)
+    split = L.has_model(mesh)
+    xbc = L.model_sum(xin.to(cdt) @ p["x_proj"].to(cdt), mesh, split)  # (B,S,dtr+2N)
+    xbc = L.model_input(xbc, mesh, split)  # into dt_proj's block and the scan
     dt_in, bmat, cmat = torch.split(xbc.to(_F32), [dtr, n, n], dim=-1)
     dt = F.softplus(dt_in @ p["dt_proj"].to(_F32) + p["dt_bias"])
     a = -torch.exp(p["a_log"])  # (din, N)
@@ -92,21 +121,20 @@ def _mamba1_core(cfg, p, xin, h0, policy):
                                          p["d_skip"], chunk=chunk)
 
 
-def mamba1_block(cfg, p, x, policy: DTypePolicy, state=None):
+def mamba1_block(cfg, p, x, policy: DTypePolicy, state=None, mesh=None):
     """Full block. state = None (prefill, h0 = 0) or dict for the decode carry."""
     cdt = policy.compute
     b = x.shape[0]
-    din = _dinner(cfg)
-    xz = x.to(cdt) @ p["in_proj"].to(cdt)
-    xin, z = torch.split(xz, [din, din], dim=-1)
+    xz = L.model_input(x.to(cdt), mesh, L.has_model(mesh)) @ p["in_proj"].to(cdt)
+    xin, z = _split_xz(xz, mesh, _dinner(cfg))
     conv_state = None if state is None else state["conv"]
-    h0 = (torch.zeros((b, din, cfg.ssm.d_state), dtype=_F32, device=x.device)
+    h0 = (torch.zeros((b, xin.shape[-1], cfg.ssm.d_state), dtype=_F32, device=x.device)
           if state is None else state["ssm"])
     xin, new_conv = _causal_conv(xin, p["conv_w"].to(cdt), p["conv_b"], conv_state)
     xin = F.silu(xin)
-    y, h_last = _mamba1_core(cfg, p, xin, h0, policy)
+    y, h_last = _mamba1_core(cfg, p, xin, h0, policy, mesh)
     out = (y.to(cdt) * F.silu(z)) @ p["out_proj"].to(cdt)
-    return out, {"conv": new_conv, "ssm": h_last}
+    return L.model_sum(out, mesh, L.has_model(mesh)), {"conv": new_conv, "ssm": h_last}
 
 
 # ---------------------------------------------------------------------------
@@ -167,18 +195,21 @@ def _ssd_core(cfg, xh, bmat, cmat, dt, a_log, h0):
     return torch.cat(ys, dim=1), h
 
 
-def mamba2_block(cfg, p, x, policy: DTypePolicy, state=None):
+def mamba2_block(cfg, p, x, policy: DTypePolicy, state=None, mesh=None):
     """Full block. state = None (prefill, zero carries) or the decode carry
-    ``{"conv_x", "conv_bc", "ssm"}``."""
+    ``{"conv_x", "conv_bc", "ssm"}``.  Over ``mesh``, this rank's heads."""
     s = cfg.ssm
     cdt = policy.compute
     b, seq, _ = x.shape
     din, n = _dinner(cfg), s.d_state
-    nh, pd = din // s.head_dim, s.head_dim
-    xz = x.to(cdt) @ p["in_proj"].to(cdt)
-    xin, z = torch.split(xz, [din, din], dim=-1)
+    split = L.has_model(mesh)
+    xz = L.model_input(x.to(cdt), mesh, split) @ p["in_proj"].to(cdt)
+    xin, z = _split_xz(xz, mesh, din)
+    dl = xin.shape[-1]  # this rank's channels
+    nh, pd = dl // s.head_dim, s.head_dim
+    heads = slice(L.tp_index(mesh) * nh, (L.tp_index(mesh) + 1) * nh)
     bcdt = x.to(cdt) @ p["bcdt_proj"].to(cdt)
-    bc, dt_in = bcdt[..., :2 * n], bcdt[..., 2 * n:]
+    bc, dt_in = bcdt[..., :2 * n], L.model_input(bcdt[..., 2 * n:], mesh, split)[..., heads]
     xin, new_conv_x = _causal_conv(xin, p["conv_x_w"].to(cdt), p["conv_x_b"],
                                    None if state is None else state["conv_x"])
     bc, new_conv_bc = _causal_conv(bc, p["conv_bc_w"].to(cdt), p["conv_bc_b"],
@@ -186,32 +217,35 @@ def mamba2_block(cfg, p, x, policy: DTypePolicy, state=None):
     # silu(xin) meets only its float32 cast: XLA drops the product's
     # rounding to bf16 there (the logistic is still rounded per op)
     xh = (xin.to(_F32) * L.logistic(xin).to(_F32)).reshape(b, seq, nh, pd)
-    bc = L.silu(bc)
+    bc = L.model_input(L.silu(bc), mesh, split)  # into this rank's heads
     bmat, cmat = torch.split(bc, [n, n], dim=-1)
-    dt = F.softplus(dt_in.to(_F32) + p["dt_bias"])  # (B,S,H)
+    dt = F.softplus(dt_in.to(_F32) + p["dt_bias"][heads])  # (B,S,H)
     h0 = (torch.zeros((b, nh, n, pd), dtype=_F32, device=x.device)
           if state is None else state["ssm"])
-    y, h_last = _ssd_core(cfg, xh, bmat.to(_F32), cmat.to(_F32), dt, p["a_log"], h0)
-    y = y + xh * (dt * p["d_skip"])[..., None]  # dt-scaled skip (Mamba-2's D term)
-    y = y.reshape(b, seq, din)
-    # gated RMSNorm, then the out-projection
+    y, h_last = _ssd_core(cfg, xh, bmat.to(_F32), cmat.to(_F32), dt, p["a_log"][heads], h0)
+    y = y + xh * (dt * p["d_skip"][heads])[..., None]  # dt-scaled skip (Mamba-2's D term)
+    y = y.reshape(b, seq, dl)
+    # gated RMSNorm (its mean over all of d_inner: this block's share of it
+    # summed over 'model'; a factor of 1 without), then the out-projection
     yz = y * L.silu(z.to(_F32))
-    var = (yz * yz).mean(-1, keepdim=True)
+    var = L.model_sum((yz * yz).mean(-1, keepdim=True) * (dl / din), mesh, split)
+    var = L.model_input(var, mesh, split)
     yz = yz * torch.rsqrt(var + 1e-6) * p["norm_scale"]
-    out = yz.to(cdt) @ p["out_proj"].to(cdt)
+    out = L.model_sum(yz.to(cdt) @ p["out_proj"].to(cdt), mesh, split)
     return out, {"conv_x": new_conv_x, "conv_bc": new_conv_bc, "ssm": h_last}
 
 
-def ssm_block(cfg, p, x, policy, state=None):
+def ssm_block(cfg, p, x, policy, state=None, mesh=None):
     if cfg.ssm.version == 1:
-        return mamba1_block(cfg, p, x, policy, state)
-    return mamba2_block(cfg, p, x, policy, state)
+        return mamba1_block(cfg, p, x, policy, state, mesh)
+    return mamba2_block(cfg, p, x, policy, state, mesh)
 
 
-def ssm_state_shape(cfg, batch: int):
-    """Decode-state shapes and dtypes for one layer."""
+def ssm_state_shape(cfg, batch: int, tp: int = 1):
+    """Decode-state shapes and dtypes for one layer (of one rank's channels
+    and heads at ``tp``)."""
     s = cfg.ssm
-    din = _dinner(cfg)
+    din = _dinner(cfg) // tp
     if s.version == 1:
         return {
             "conv": ShapeDtype((batch, s.d_conv - 1, din), torch.bfloat16),

@@ -22,10 +22,15 @@ says), ``prefill`` (chunked flash attention, returns the KV entries) and
 ``decode`` (grouped-query attention against the cache).
 
 Over a mesh (``forward(mesh=)``) the batch is this rank's block of the
-batch axes and the MoE layers take the expert-parallel paths on this
-rank's expert blocks (``moe.apply_moe``); every other weight is whole on
-each rank.  Tensor parallelism of the other weights over 'model', which
-their partition specs describe, is ROADMAP module item 14.
+batch axes and every weight is this rank's block of its partition spec
+(``model.run_pspecs``): the MoE layers take the expert-parallel paths on
+their expert blocks (``moe.apply_moe``); attention runs on the rank's head
+block, the MLP on its ff block and the Mamba blocks on its ``d_inner``
+channels, each summed over 'model' after its row-parallel projection
+(``layers``, ``ssm``); the embedding and the logits on its vocab block.  A
+KV cache holds the rank's kv-head block where 'model' divides the kv heads,
+every kv head where it does not (the query heads then read the ones they
+need, ``layers.Heads``); an ssm state holds the rank's channels.
 """
 from __future__ import annotations
 
@@ -123,35 +128,43 @@ def _grouped_decode_attention(q, k_cache, v_cache, length):
     return o.reshape(b, 1, hq, dh)
 
 
-def attn_apply(cfg, p, x, policy, *, mode, angles, cache=None, pos=None):
+def attn_apply(cfg, p, x, policy, *, mode, angles, cache=None, pos=None, mesh=None):
     """Attention sub-block body. Returns (out, new_cache): None for train,
     the (k, v) new entries for prefill, the updated (k_cache, v_cache) for
-    decode.
+    decode.  Over ``mesh``, on this rank's heads (``layers.heads``), the
+    output summed over 'model'; the cache holds this rank's kv heads.
 
     The decode write goes to ``min(pos, Smax - 1)``: the reference's
     ``dynamic_update_slice`` clamps its start so the update fits, so a
     cache with no room left (no ``pad_to``) has its last position
     overwritten while attention reads ``pos + 1`` positions (all of them)."""
-    q, k, v = L.qkv_project(cfg, p["attn"], x, policy, angles=angles)
+    q, k, v = L.qkv_project(cfg, p["attn"], x, policy, angles=angles, mesh=mesh)
+    hd = L.heads(cfg, p["attn"], mesh)
     nh = q.shape[2]
+
+    def out(o):
+        o = L.mask_pad_heads(cfg, o, hd.lo, hd.total)
+        return L.model_sum(L.attn_out(p["attn"], o, policy), mesh, hd.split)
+
     if mode == "train":
-        ke, ve = L.expand_kv(k, nh), L.expand_kv(v, nh)
+        ke, ve = (L.expand_kv(L.select_kv(t, hd), nh) for t in (k, v))
         if cfg.attn_impl == "flash" and q.shape[1] >= 512:
             o = L.flash_attention_train(q, ke, ve)
         else:
             o = L.dense_attention(q, ke, ve, causal=True)
-        return L.attn_out(p["attn"], L.mask_pad_heads(cfg, o), policy), None
+        return out(o), None
     if mode == "prefill":
-        o = L.flash_prefill_attention(q, L.expand_kv(k, nh), L.expand_kv(v, nh))
-        return L.attn_out(p["attn"], L.mask_pad_heads(cfg, o), policy), (k, v)
+        o = L.flash_prefill_attention(q, *(L.expand_kv(L.select_kv(t, hd), nh) for t in (k, v)))
+        return out(o), (k, v)
     if mode == "decode":
         k_cache, v_cache = cache
         start = min(pos, k_cache.shape[1] - 1)
         k_cache, v_cache = k_cache.clone(), v_cache.clone()
         k_cache[:, start:start + 1] = k.to(k_cache.dtype)
         v_cache[:, start:start + 1] = v.to(v_cache.dtype)
-        o = _grouped_decode_attention(q, k_cache, v_cache, pos + 1)
-        return L.attn_out(p["attn"], L.mask_pad_heads(cfg, o), policy), (k_cache, v_cache)
+        o = _grouped_decode_attention(q, L.select_kv(k_cache, hd), L.select_kv(v_cache, hd),
+                                      pos + 1)
+        return out(o), (k_cache, v_cache)
     raise ValueError(mode)
 
 
@@ -165,13 +178,14 @@ def residual(x, a):
     return h.to(x.dtype), h
 
 
-def dense_layer(cfg, p, x, policy, *, mode, angles, cache=None, pos=None):
+def dense_layer(cfg, p, x, policy, *, mode, angles, cache=None, pos=None, mesh=None):
     """Pre-norm attention and MLP, each added to the residual stream;
     ``ln2`` reads the first sum in float32 (``residual``)."""
     a, new_cache = attn_apply(cfg, p, L.apply_norm(cfg, p["ln1"], x), policy,
-                              mode=mode, angles=angles, cache=cache, pos=pos)
+                              mode=mode, angles=angles, cache=cache, pos=pos, mesh=mesh)
     x, h = residual(x, a)
-    y = L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], h).to(x.dtype), policy)
+    y = L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], h).to(x.dtype), policy,
+                    mesh=mesh)
     return x + y, new_cache
 
 
@@ -181,16 +195,16 @@ def moe_layer(cfg, p, x, policy, *, mode, angles, cache=None, pos=None, mesh=Non
     an expert-parallel path, ``ep_moe_decode`` in decode mode).  Returns (x,
     new_cache, aux)."""
     a, new_cache = attn_apply(cfg, p, L.apply_norm(cfg, p["ln1"], x), policy,
-                              mode=mode, angles=angles, cache=cache, pos=pos)
+                              mode=mode, angles=angles, cache=cache, pos=pos, mesh=mesh)
     x, h = residual(x, a)
     y, aux = apply_moe(cfg, p["moe"], L.apply_norm(cfg, p["ln2"], h).to(x.dtype), policy,
                        mesh=mesh, fsdp=fsdp, decode=(mode == "decode"))
     return x + y, new_cache, aux
 
 
-def ssm_layer(cfg, p, x, policy, state=None):
+def ssm_layer(cfg, p, x, policy, state=None, mesh=None):
     y, new_state = ssm_block(cfg, p["ssm"], L.apply_norm(cfg, p["ln"], x), policy,
-                             state=state)
+                             state=state, mesh=mesh)
     return x + y, new_state
 
 
@@ -198,10 +212,10 @@ def ssm_layer(cfg, p, x, policy, state=None):
 # forward
 
 
-def _embed_and_angles(cfg, params, batch, policy, mode, pos):
+def _embed_and_angles(cfg, params, batch, policy, mode, pos, mesh=None):
     tokens = batch["tokens"]
-    h = L.embed(params["embed"], tokens, policy) * L.as_constant(math.sqrt(cfg.d_model),
-                                                                 policy.compute)
+    h = L.embed(params["embed"], tokens, policy, mesh=mesh, vocab=cfg.vocab_size)
+    h = h * L.as_constant(math.sqrt(cfg.d_model), policy.compute)
     if cfg.family == "vlm" and "vision_embeds" in batch and mode != "decode":
         nv = batch["vision_embeds"].shape[1]
         h = torch.cat([batch["vision_embeds"].to(h.dtype), h[:, nv:]], dim=1)
@@ -268,11 +282,12 @@ def forward(cfg, params, batch, policy, *, mode, mesh=None, fsdp=False, cache=No
     ``cache`` is the stacked cache of the layout above and ``pos`` the
     position written (an int); train returns no cache (None) and runs each
     layer (hybrid: each group) through ``_remat``.  Over ``mesh`` the batch
-    and cache are this rank's blocks of the batch axes and ``params`` hold
-    this rank's expert blocks (``model.run_pspecs``)."""
+    and cache are this rank's blocks of the batch axes (and of the kv heads
+    and ssm channels over 'model') and ``params`` hold this rank's blocks
+    (``model.run_pspecs``)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
-    h, angles = _embed_and_angles(cfg, params, batch, policy, mode, pos)
+    h, angles = _embed_and_angles(cfg, params, batch, policy, mode, pos, mesh)
     h = with_sharding(h, mesh, L.batch_pspec(None, None))
     aux = torch.zeros((), dtype=_F32, device=h.device)
     decode, train = mode == "decode", mode == "train"
@@ -295,43 +310,45 @@ def forward(cfg, params, batch, policy, *, mode, mesh=None, fsdp=False, cache=No
                     aux = aux + a
                 else:
                     h, c_out = run(lambda lp, h, c: dense_layer(cfg, lp, h, policy, cache=c,
-                                                                **kw), lp, h, c)
+                                                                mesh=mesh, **kw), lp, h, c)
                 outs.append(c_out)
             new_cache[name] = None if train else T.stack(outs)
     elif fam == "ssm":
         outs = []
         for i, lp in enumerate(_layers(params["layers"])):
             c = None if cache is None else _layer(cache["layers"], i)
-            h, c_out = run(lambda lp, h, c: ssm_layer(cfg, lp, h, policy, state=c), lp, h, c)
+            h, c_out = run(lambda lp, h, c: ssm_layer(cfg, lp, h, policy, state=c, mesh=mesh),
+                           lp, h, c)
             outs.append(c_out)
         new_cache["layers"] = None if train else T.stack(outs)
     elif fam == "hybrid":
-        h, new_cache["groups"] = _hybrid_groups(cfg, params, h, policy, cache, kw, run)
+        h, new_cache["groups"] = _hybrid_groups(cfg, params, h, policy, cache, kw, run, mesh)
     else:
         raise ValueError(fam)
     return _finish(cfg, params, h), (None if train else new_cache), aux
 
 
-def _hybrid_groups(cfg, params, h, policy, cache, kw, run):
+def _hybrid_groups(cfg, params, h, policy, cache, kw, run, mesh=None):
     """The hybrid walk: before each group of ``attn_every`` Mamba-2 layers
     the one shared attention block, its KV cache per group.  Prefill and
-    train start the Mamba-2 layers from zero states, as the reference does;
-    train keeps no cache and runs each group through ``run``."""
+    train start the Mamba-2 layers from zero states (this rank's heads and
+    channels over ``mesh``), as the reference does; train keeps no cache and
+    runs each group through ``run``."""
     shared = params["shared_attn"]
     if cache is not None:
         gc_in = cache["groups"]
     else:
         gc_in = {"attn": None, "ssm": _zero_ssm_states(cfg, h.shape[0], n_groups(cfg),
                                                        inner=cfg.attn_every,
-                                                       device=h.device)}
+                                                       device=h.device, tp=L.tp_size(mesh))}
 
     def group(gp, h, attn_c, states_in):
         a, attn_c = attn_apply(cfg, shared, L.apply_norm(cfg, shared["ln"], h), policy,
-                               cache=attn_c, **kw)
+                               cache=attn_c, mesh=mesh, **kw)
         h = h + a
         states = []
         for j, lp in enumerate(_layers(gp)):
-            h, st = ssm_layer(cfg, lp, h, policy, state=_layer(states_in, j))
+            h, st = ssm_layer(cfg, lp, h, policy, state=_layer(states_in, j), mesh=mesh)
             states.append(st)
         return h, attn_c, states
 
@@ -344,16 +361,17 @@ def _hybrid_groups(cfg, params, h, policy, cache, kw, run):
     return h, (T.stack(outs) if outs else None)
 
 
-def _zero_ssm_states(cfg, batch, n, inner=None, device=None):
+def _zero_ssm_states(cfg, batch, n, inner=None, device=None, tp=1):
     lead = (n,) if inner is None else (n, inner)
     return {k: torch.zeros(lead + s.shape, dtype=s.dtype, device=device)
-            for k, s in ssm_state_shape(cfg, batch).items()}
+            for k, s in ssm_state_shape(cfg, batch, tp).items()}
 
 
 def _finish(cfg, params, h):
     return L.apply_norm(cfg, params["final_norm"], h)
 
 
-def lm_logits(cfg, params, h, policy):
+def lm_logits(cfg, params, h, policy, mesh=None):
+    """Logits: over ``mesh``, this rank's vocab block (``layers.logits``)."""
     head = {"w": params["w"]} if "w" in params else {}
-    return L.logits(cfg, head, params["embed"], h, policy)
+    return L.logits(cfg, head, params["embed"], h, policy, mesh=mesh)

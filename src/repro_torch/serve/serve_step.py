@@ -10,15 +10,20 @@ and the encdec cross cache is fixed-length memory, so ``pad_to`` leaves
 both as they are.
 
 Over a mesh (``mesh=``) the batch and the cache are this rank's blocks of
-the batch axes and the weights are in ``model.run_pspecs``' layout: the MoE
-layers run expert-parallel (``ep_moe`` at prefill, ``ep_moe_decode`` at
-decode); every rank issues the same steps.
+the batch axes (the cache also of the kv heads and ssm channels over
+'model') and the weights are in ``model.run_pspecs``' layout: tensor
+parallel over 'model' where their specs split them, the MoE layers
+expert-parallel (``ep_moe`` at prefill, ``ep_moe_decode`` at decode);
+every rank issues the same steps.  The logits are this rank's vocab block,
+so the greedy token is combined over 'model' (``next_token``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import tree as T
+from repro_torch.launch import mesh as M
+from repro_torch.models import layers as L
 
 
 def make_prefill(model, mesh=None):
@@ -69,7 +74,8 @@ def cache_seq_axes(cfg, cache, seq: int, batch: int):
 
 
 def _pad_seq(cfg, cache, seq, batch, pad_to):
-    """Zero-pad every sequence-addressed cache leaf to ``pad_to`` positions."""
+    """Zero-pad every sequence-addressed cache leaf to ``pad_to`` positions
+    (a rank's blocks too: the sequence axis is never split)."""
     axes = dict(zip([p for p, _ in T.leaves(cache)], cache_seq_axes(cfg, cache, seq, batch)))
 
     def pad(path, x):
@@ -94,20 +100,32 @@ def decode_batch(cfg, tokens, pos: int):
     return db
 
 
+def next_token(cfg, lg, mesh=None):
+    """The greedy tokens (B,) int32 of last-position logits ``lg`` (B, V):
+    ``torch.argmax``'s first maximal index; over ``mesh``, of the whole
+    vocab where ``lg`` is this rank's vocab block (``mesh.argmax``)."""
+    v = lg.shape[-1]
+    if not L.split_over_model(mesh, v, cfg.vocab_size):
+        return torch.argmax(lg, dim=-1).to(torch.int32)
+    return M.argmax(lg, mesh, "model", L.tp_index(mesh) * v).to(torch.int32)
+
+
 def greedy_generate(model, params, batch, steps: int, mesh=None, pad_to: int | None = None):
     """Prefill, then ``steps - 1`` greedy decode steps -> tokens (B, steps)
     int32, the first from the prefill's logits.  Without ``pad_to`` a dense
     cache has no room past the prompt, and each decode write lands on its
     last position, as the reference's clamped write does.  Over ``mesh``,
-    this rank's batch block and its tokens."""
+    this rank's batch block and its tokens (the same on every 'model'
+    rank)."""
+    cfg = model.cfg
     cache, lg = model.prefill(params, batch, mesh=mesh)
     b, seq = batch["tokens"].shape
     if pad_to:
-        cache = _pad_seq(model.cfg, cache, seq, b, pad_to)
-    toks = [torch.argmax(lg[:, -1], dim=-1).to(torch.int32)]
+        cache = _pad_seq(cfg, cache, seq, b, pad_to)
+    toks = [next_token(cfg, lg[:, -1], mesh)]
     for i in range(steps - 1):
         lg, cache = model.decode_step(params, cache,
-                                      decode_batch(model.cfg, toks[-1][:, None], seq + i),
+                                      decode_batch(cfg, toks[-1][:, None], seq + i),
                                       seq + i, mesh=mesh)
-        toks.append(torch.argmax(lg[:, -1], dim=-1).to(torch.int32))
+        toks.append(next_token(cfg, lg[:, -1], mesh))
     return torch.stack(toks, dim=1)

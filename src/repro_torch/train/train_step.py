@@ -18,8 +18,9 @@ state is held in ``state_shardings``' layout and the batch is this rank's
 block of the batch axes.  Each rank:
 - gathers the weights into the layout the forward takes
   (``model.run_pspecs``): a leaf whose spec names 'data' (FSDP) is held as
-  its block and gathered for the whole step, the MoE layers' experts stay
-  in their expert-parallel blocks;
+  its block and gathered for the whole step, a leaf whose spec names
+  'model' stays its 'model' block (tensor parallelism), the MoE layers'
+  experts stay in their expert-parallel blocks;
 - takes its local loss and its gradient; each microbatch's gradient is
   summed over the ranks that share the block (reduce-scattered over 'data'
   into ``grad_pspecs``' blocks), divided by the mesh size and added into a
@@ -32,10 +33,17 @@ The metrics are the means over the mesh, as the reference's global ones;
 reference's ``pmean``.  With ``accum_steps > 1`` a microbatch is the
 reference's: rows ``[j B/a, (j+1) B/a)`` of the global batch, each rank
 its block of them (the batch is all-gathered over the batch axes first).
-Held layouts: every leaf as its partition spec says, except that a leaf
-outside the MoE layers is whole over 'model' (tensor parallelism of those
-weights is ROADMAP module item 14); ``shardings`` of the specs still gives
-the reference's full layout.
+Held layouts: every leaf as its partition spec says (``shardings`` of the
+state specs, the moments with ZeRO-1's 'data' split).
+
+The gradient.  Every rank's loss is the loss of its batch block, the same
+on each 'model' rank, and each collective's backward is its transpose
+(``psum``'s a ``psum``), so a rank's gradient of its block of a leaf is the
+gradient of the sum of all ranks' losses: 'model' times its share of the
+mean loss where the leaf is split over 'model', a share of it per rank
+where it is whole.  Summing over the ranks that hold the block (the axes
+the run layout does not split) and dividing by the mesh size gives the
+mean loss's gradient in both cases (``_reduce_grad``).
 """
 from __future__ import annotations
 
@@ -91,29 +99,11 @@ def _value_and_grad(model, params, batch, mesh=None):
 # layouts over a mesh
 
 
-def _held(path, pspec, moe_ep):
-    """A leaf's held spec: as given, without 'model' outside the MoE layers
-    (or everywhere when the experts do not run expert-parallel)."""
-    if moe_ep and "/moe/" in path:
-        return pspec
-
-    def drop(e):
-        kept = tuple(a for a in entry_axes(e) if a != "model")
-        return None if not kept else kept[0] if len(kept) == 1 else kept
-
-    return P(*(drop(e) for e in pspec))
-
-
 def _layouts(model, oc, mesh):
     """{"params", "grads", "opt"}: pspec trees (filtered to the mesh) of the
-    state's held layout and of the gradient accumulators."""
-    from repro_torch.models import moe as MOE
-
-    ep = model.cfg.family == "moe" and MOE.expert_parallel(model.cfg, mesh)
-
-    def held(tree):
-        return T.map_with_path(lambda path, ps: filter_pspec(_held(path, ps, ep), mesh), tree)
-
+    state's held layout, each leaf's spec, and of the gradient
+    accumulators."""
+    held = lambda tree: T.tree_map(lambda ps: filter_pspec(ps, mesh), tree)
     pspec_tree = lambda specs: spec_map(lambda s: s.pspec, specs)
     opt = opt_specs(model.specs, oc)
     return {"params": held(pspec_tree(model.specs)), "grads": held(grad_pspecs(model)),

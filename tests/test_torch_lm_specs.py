@@ -39,7 +39,7 @@ from repro.train import optimizer as jax_opt
 from repro.train import train_step as jax_train_step
 from repro_torch import configs
 from repro_torch import tree as T
-from repro_torch.common import DTypePolicy, init_numpy, init_params
+from repro_torch.common import DTypePolicy, P, init_numpy, init_params
 from repro_torch.launch import mesh as M
 from repro_torch.models import layers, moe
 from repro_torch.models import model as tmodel
@@ -384,3 +384,138 @@ def test_train_step_on_a_mesh_of_one_equals_the_single_device_step(mesh1, arch):
             np.testing.assert_array_equal(b, a, err_msg=path)
         elif path.startswith("/params/"):
             assert np.abs(a - b).max() <= 2.05 * 1e-3, path
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over 'model': the run and held layouts are the specs'
+
+
+def _named_axes(pspec):
+    return {a for e in pspec for a in ((e,) if isinstance(e, str) else (e or ()))}
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_run_and_held_layouts_are_the_specs_over_the_mesh(arch, tp):
+    """On a (data, model) = (2, tp) mesh, every leaf of the smoke config
+    built at ``tp``: ``run_pspecs`` and ``state_shardings``' params are its
+    spec's pspec filtered to the mesh (the MoE layers' expert-parallel
+    blocks are their specs' too), the moments its ZeRO-1 pspec (an int8
+    moment's scale that without its last axis); and no leaf whose spec
+    names 'model' is whole on a rank: its block, cut by ``common.shard``,
+    is smaller than the leaf by the 'model' size along that dim."""
+    from repro_torch.common import entry_axes, filter_pspec, shard
+    from torch_parity import StandInMesh
+
+    model = tmodel.build(configs.get_smoke_config(arch), tp=tp)
+    specs = dict(T.leaves(model.specs))
+    for coord in ((0, 0), (1, tp - 1)):
+        mesh = StandInMesh((2, tp), ("data", "model"), coord)
+        run = dict(T.leaves(tmodel.run_pspecs(model, mesh)))
+        for mdt in (torch.float32, torch.int8):
+            oc = optimizer.OptConfig(moments_dtype=mdt)
+            held = train_step.state_shardings(model, oc, mesh)
+            params = dict(T.leaves(held["params"]))
+            for path, s in specs.items():
+                want = filter_pspec(s.pspec, mesh)
+                assert run[path] == want and params[path].spec == want, (path, run[path])
+            zp = {p: filter_pspec(optimizer.zero1_pspec(s), mesh) for p, s in specs.items()}
+            for name in ("m", "v"):
+                for path, sh in T.leaves(held["opt"][name]):
+                    if mdt == torch.int8:
+                        leaf, part = path.rsplit("/", 1)
+                        want = zp[leaf] if part == "q" else P(*zp[leaf][:len(specs[leaf].shape) - 1])
+                    else:
+                        want = zp[path]
+                    assert sh.spec == want, (name, path, sh.spec, want)
+        for path, s in specs.items():
+            block = shard(torch.empty(s.shape, dtype=torch.bfloat16), train_step.NamedSharding(
+                mesh, run[path]))
+            for i, e in enumerate(s.pspec):
+                if "model" in entry_axes(e):
+                    assert block.shape[i] * tp == s.shape[i], (path, block.shape, s.shape)
+            assert ("model" in _named_axes(s.pspec)) == ("model" in _named_axes(run[path])), path
+
+
+def test_shard_refuses_a_block_that_does_not_divide():
+    """qwen3-1.7b's smoke config at tp = 3: ``mlp_specs`` puts 'model' on
+    d_ff = 128, which 3 does not divide, so ``common.shard`` refuses it as
+    ``jax.device_put`` does (so do llama4-scout's 4 experts); with d_ff =
+    192 every leaf places (its 4 heads pad to 6, F8; its 2 kv heads and its
+    vocab of 512 stay whole)."""
+    from repro_torch.common import named, shard
+    from torch_parity import StandInMesh
+
+    mesh = StandInMesh((1, 3), ("data", "model"), (0, 1))
+    cfg = configs.get_smoke_config("qwen3-1.7b")
+    w_in = tmodel.build(cfg, tp=3).specs["layers"]["mlp"]["w_in"]
+    with pytest.raises(ValueError, match="should be divisible by 3, but it is equal to 128"):
+        shard(torch.zeros(w_in.shape), named(mesh, w_in.pspec))
+    experts = tmodel.build(configs.get_smoke_config(SCOUT), tp=3).specs["layers"]["moe"]["w_in"]
+    with pytest.raises(ValueError, match="should be divisible by 3, but it is equal to 4"):
+        shard(torch.zeros(experts.shape), named(mesh, experts.pspec))
+    model = tmodel.build(dataclasses.replace(cfg, d_ff=192), tp=3)
+    run = dict(T.leaves(tmodel.run_pspecs(model, mesh)))
+    for path, s in T.leaves(model.specs):
+        block = shard(torch.zeros(s.shape), named(mesh, run[path]))
+        assert block.numel() * ("model" in _named_axes(run[path]) and 3 or 1) == \
+            torch.Size(s.shape).numel(), path
+    assert model.specs["layers"]["attn"]["wq"].shape[2] == 6
+    assert "model" not in _named_axes(run["/layers/attn/wk"]) | _named_axes(run["/embed/table"])
+
+
+FAMILIES = ["qwen3-1.7b", "kimi-k2-1t-a32b", "qwen2-vl-72b", "falcon-mamba-7b", "zamba2-2.7b",
+            "whisper-tiny"]
+
+
+def _count_model_collectives(monkeypatch):
+    """A dict {"issued": n, "skipped": n} that counts the collectives over
+    'model' (alone or with other axes) until it is cleared:
+    ``launch.mesh._skip``, the check every collective makes first, wrapped."""
+    counts, skip = {"issued": 0, "skipped": 0}, M._skip
+
+    def counted(op, mesh, axes):
+        one = skip(op, mesh, axes)
+        if "model" in M._axes(axes):
+            counts["skipped" if one else "issued"] += 1
+        return one
+
+    monkeypatch.setattr(M, "_skip", counted)
+    return counts
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_mesh_of_one_serves_bit_equal_and_skips_its_collectives(mesh1, arch, monkeypatch):
+    """On the (1, 1) gloo world every weight is its one 'model' block: the
+    prefill's and a decode step's logits are bit-equal to the single-device
+    run's (kimi-k2's MoE layers take ``ep_moe`` there, ``dense_moe`` without
+    a mesh: held at 2e-2), and every collective over 'model' the tensor
+    parallel code calls is skipped (``launch.mesh._skip`` counted): none
+    is issued."""
+    from repro_torch.serve.serve_step import _pad_seq, decode_batch
+
+    mesh, _ = mesh1
+    cfg = configs.get_smoke_config(arch)
+    model = tmodel.build(cfg)
+    params = tmodel.params_from_numpy(model.specs, init_numpy(model.specs, seed=0), "cpu")
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32))}
+    if cfg.family == "encdec":
+        batch["enc_feats"] = torch.from_numpy(
+            rng.normal(0, 1, (2, 16, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    outs, counting = {}, _count_model_collectives(monkeypatch)
+    for m in (None, mesh):
+        counting.update(issued=0, skipped=0)
+        cache, lg = model.prefill(params, batch, mesh=m)
+        cache = _pad_seq(cfg, cache, 8, 2, 9)
+        tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+        lg2, _ = model.decode_step(params, cache, decode_batch(cfg, tok, 8), 8, mesh=m)
+        outs[m is not None] = (lg, lg2, dict(counting))
+    (a, a2, none), (b, b2, counts) = outs[False], outs[True]
+    assert none == {"issued": 0, "skipped": 0}
+    assert counts["issued"] == 0 and counts["skipped"] > 0, counts
+    if cfg.family == "moe":
+        np.testing.assert_allclose(b.float().numpy(), a.float().numpy(), **EP)
+        np.testing.assert_allclose(b2.float().numpy(), a2.float().numpy(), **EP)
+    else:
+        assert torch.equal(a, b) and torch.equal(a2, b2)
