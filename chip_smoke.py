@@ -281,6 +281,7 @@ and 16b, ``ssm_scan_fused_bwd``'s from falcon-mamba-7b's training in phases
 """
 from __future__ import annotations
 
+import functools
 import gc
 import hashlib
 import json
@@ -1608,6 +1609,21 @@ LM_MESH_CKPT_LAYERS = 2
 # beside this run's, no claim made
 MESH_TIMES_BEFORE_TP = {"prefill_ms": 158.683, "decode_ms": 27.560,
                         "step_ms": {QWEN: 541.263, FALCON: 271.333, SCOUT: 668.195}}
+# 16a's decode ms per token on the mesh of one with the sequence whole (the
+# expert-parallel run before split-KV decode), on an NVIDIA H100 80GB HBM3
+# at 700.00 W: printed beside this run's, no claim made
+MESH_DECODE_BEFORE_SPLIT_KV = (27.559, 27.747)
+# 16d: one attention layer's decode at llama4-scout's full width (40 query
+# heads, 8 kv heads, head dim 128), B=4, 1040 cached positions (16a's
+# pad_to) of which 1025 valid; the cache cut into 2 and 4 blocks and
+# combined on the card against the whole-sequence attention, of the largest
+# output: bf16 within two roundings (each block's weights round to bf16 at
+# another scale, then the output; 4.2e-3 on a CPU), float32 within its
+# reassociated sums (5.2e-7 on a CPU); at length 700, 4 blocks of 260: the
+# last wholly masked
+SPLIT_KV = dict(batch=4, heads=40, kv_heads=8, head_dim=128, cached=1040, length=1025,
+                masked_length=700, blocks=(2, 4), seed=11)
+SPLIT_KV_TOL, SPLIT_KV_TOL_F32 = 2 ** -6, 1e-5
 
 
 def check(cond, msg):
@@ -6486,17 +6502,19 @@ def greedy_logits(model, params, batch, steps, pad_to, mesh=None, feed=None):
     steps), [last-position logits (B, V) float32 of each step]); with
     ``feed`` (B, steps) the decode steps take its tokens instead of their
     own argmax."""
-    from repro_torch.serve.serve_step import _pad_seq, decode_batch
+    from repro_torch.serve.serve_step import _pad_seq, decode_batch, decode_layout_of
 
     cache, lg = model.prefill(params, batch, mesh=mesh)
     b, seq = batch["tokens"].shape
-    cache = _pad_seq(model.cfg, cache, seq, b, pad_to)
+    layout = None if mesh is None else decode_layout_of(model, batch, mesh, pad_to)
+    cache = _pad_seq(model.cfg, cache, seq, b, pad_to, mesh=mesh, layout=layout)
     out = [lg[:, -1].float()]
     toks = [torch.argmax(lg[:, -1], dim=-1).to(torch.int32)]
     for i in range(steps - 1):
         tok = toks[-1] if feed is None else feed[:, i]
         lg, cache = model.decode_step(params, cache, decode_batch(model.cfg, tok[:, None].contiguous(),
-                                                                  seq + i), seq + i, mesh=mesh)
+                                                                  seq + i), seq + i, mesh=mesh,
+                                      layout=layout)
         out.append(lg[:, -1].float())
         toks.append(torch.argmax(lg[:, -1], dim=-1).to(torch.int32))
     return torch.stack(toks, dim=1), out
@@ -6547,7 +6565,8 @@ def lm_mesh_serve(card, mesh):
 
     from repro_torch.configs import get_config
     from repro_torch.models.model import build
-    from repro_torch.serve.serve_step import _pad_seq, decode_batch, greedy_generate
+    from repro_torch.serve.serve_step import (_pad_seq, decode_batch, decode_layout_of,
+                                              greedy_generate)
 
     spec = LM_MESH_SERVE
     cfg = dataclasses.replace(get_config(SCOUT), n_layers=spec["layers"])
@@ -6581,7 +6600,9 @@ def lm_mesh_serve(card, mesh):
         check(calls == want, f"16a {label}: MoE paths {calls}, want {want}")
         before = ("" if m is None else
                   f" (before tensor parallelism: prefill {MESH_TIMES_BEFORE_TP['prefill_ms']} ms, "
-                  f"decode {MESH_TIMES_BEFORE_TP['decode_ms']} ms)")
+                  f"decode {MESH_TIMES_BEFORE_TP['decode_ms']} ms; before split-KV decode, with "
+                  f"the sequence whole: decode {MESH_DECODE_BEFORE_SPLIT_KV[0]}-"
+                  f"{MESH_DECODE_BEFORE_SPLIT_KV[1]} ms)")
         print(f"16a {SCOUT} depth {n} {label} ({calls}), B={b}, prompt {prompt}, {steps} greedy "
               f"tokens: {total_s:.6f} s in all; prefill {1e3 * prefill_s:.3f} ms, decode "
               f"{1e3 * decode_s:.3f} ms per token, {b * steps / total_s:.1f} generated tokens/s "
@@ -6589,16 +6610,18 @@ def lm_mesh_serve(card, mesh):
         profile_run(f"16a {label} prefill", lambda: (model.prefill(params, batch, mesh=m),
                                                      torch.cuda.synchronize()),
                     lambda: 1, "prefill", prefill_s)
-        cache = _pad_seq(cfg, cache, prompt, b, spec["pad_to"])
+        layout = None if m is None else decode_layout_of(model, batch, m, spec["pad_to"])
+        cache = _pad_seq(cfg, cache, prompt, b, spec["pad_to"], mesh=m, layout=layout)
         db = decode_batch(cfg, toks[:, :1].contiguous(), prompt)
         profile_run(f"16a {label} decode step", lambda: (
-            model.decode_step(params, cache, db, prompt, mesh=m), torch.cuda.synchronize()),
-            lambda: 1, "step", decode_s)
+            model.decode_step(params, cache, db, prompt, mesh=m, layout=layout),
+            torch.cuda.synchronize()), lambda: 1, "step", decode_s)
         if m is not None:
             with ModelCollectives() as calls:
-                model.decode_step(params, cache, db, prompt, mesh=m)
+                model.decode_step(params, cache, db, prompt, mesh=m, layout=layout)
                 torch.cuda.synchronize()
             calls.report(f"16a {SCOUT} depth {n}: one decode step")
+            calls.report_split_kv(f"16a {SCOUT} depth {n}: one decode step", layout, n)
         runs[label] = toks.cpu().numpy()
         del cache, lg
     dense_toks, dense_lgs = greedy_logits(model, params, batch, steps, spec["pad_to"])
@@ -6615,6 +6638,20 @@ def lm_mesh_serve(card, mesh):
           and all(bool(torch.isfinite(x).all()) for x in ep_lgs),
           f"16a depth 4: expert-parallel logits off dense_moe's by {max(errs)} at most, "
           f"{max(means)} on average")
+    with WholeSequenceDecode():
+        old_toks = greedy_generate(model, params, batch, steps=steps, mesh=mesh,
+                                   pad_to=spec["pad_to"])
+        _, old_lgs = greedy_logits(model, params, batch, steps, spec["pad_to"], mesh=mesh,
+                                   feed=dense_toks)
+    same = (np.array_equal(old_toks.cpu().numpy(), runs["expert-parallel"])
+            and all(torch.equal(a, o) for a, o in zip(ep_lgs, old_lgs)))
+    check(same, "16a: the split-KV decode on the mesh of one is not bit-equal to the path with "
+                "the sequence whole")
+    print(f"16a {SCOUT} depth {cfg.n_layers}: split-KV decode on the mesh of one (cache "
+          f"layout {decode_layout_of(model, batch, mesh, spec['pad_to'])['layers'][0]}, every "
+          f"collective skipped) bit-equal to the whole-sequence decode it replaces: "
+          f"{dense_toks.numel()} tokens and the fed logits of {steps} steps", flush=True)
+    del old_lgs
     print(f"16a {SCOUT} depth {cfg.n_layers}: the expert-parallel logits (fed dense_moe's "
           f"tokens) off dense_moe's by at most {max(errs)} over the whole vocab at {steps} steps "
           f"(prefill {errs[0]}), on average at most {max(means)} (tolerances {FAMILIES_TOL}, "
@@ -6678,6 +6715,132 @@ class ModelCollectives:
               f"{label}: collectives over 'model' {how} on the mesh of one")
         print(f"{label}: {how['skipped']} collectives over 'model' called, all skipped (a "
               f"group of one rank), {how['issued']} issued: {by_op}", flush=True)
+
+    def report_split_kv(self, label, layout, n_layers):
+        """Check that split-KV decode took its global max over the axes
+        ``layout`` splits the attention caches' sequence over once per
+        attention layer (``mesh.pmax``, which nothing else calls over them),
+        every call skipped on the mesh of one; print the calls over those
+        axes."""
+        from repro_torch.common import entry_axes
+        from repro_torch.models.layers import kv_spec
+
+        seq = entry_axes(kv_spec(layout["layers"])[1])
+        calls = {f"{op} {h}": n for (op, axes, h), n in sorted(self.counts.items())
+                 if seq and axes == seq}
+        check(calls.get("all_reduce_max skipped") == n_layers
+              and not any(k.endswith("issued") for k in calls),
+              f"{label}: split-KV collectives over {seq}: {calls}")
+        print(f"{label}: the collectives over the cache's sequence axes {seq} (split-KV's "
+              f"global max once per attention layer, its sums, the row gathers): {calls}, "
+              f"none issued", flush=True)
+
+
+class WholeSequenceDecode:
+    """The decode path before split-KV, swapped in while open: the write
+    and the read on the rank's cache as if it were whole
+    (``transformer.decode_write``/``decode_read`` without the layout: the
+    path a decode without a mesh takes).  On the mesh of one every block is
+    the whole, so the two paths must agree bit for bit."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer as TF
+
+        self.real = write, read = TF.decode_write, TF.decode_read
+        TF.decode_write = lambda k, v, cache, pos, mesh, kv_spec: write(k, v, cache, pos)
+        TF.decode_read = lambda q, kc, vc, length, hd, mesh, kv_spec: read(q, kc, vc, length, hd)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer as TF
+
+        TF.decode_write, TF.decode_read = self.real
+
+
+def combine_blocks(q, k, v, length, blocks, drop=()):
+    """Split-KV decode attention run block by block in one process: the
+    partial softmax of ``models.layers`` (``block_scores``,
+    ``block_weights``, ``block_output``) on ``blocks`` equal blocks of the
+    cache's positions, the collectives of ``transformer._split_decode_attention``
+    replaced by a stand-in over the blocks (the max; the sums in block
+    order, the outputs' in float32 and rounded once, as ``mesh.all_reduce``
+    sums 16-bit floats).  ``drop``: blocks left out."""
+    from repro_torch.models import layers as L
+
+    n = k.shape[1] // blocks
+    keep = [i for i in range(blocks) if i not in drop]
+    parts = [L.block_scores(q, k[:, i * n:(i + 1) * n], i * n, length) for i in keep]
+    gmax = functools.reduce(torch.maximum, [m for _, m in parts])
+    wts = [L.block_weights(s, m, gmax) for s, m in parts]
+    total = functools.reduce(torch.add, [t for _, t in wts])
+    outs = [L.block_output(w, t, total, v[:, i * n:(i + 1) * n], q.dtype).float()
+            for i, (w, t) in zip(keep, wts)]
+    return functools.reduce(torch.add, outs).to(q.dtype)
+
+
+def split_kv_check(card):
+    """16d: one full-width attention layer's decode at llama4-scout's
+    shapes, the cache cut into 2 and 4 blocks of positions and combined
+    (``combine_blocks``) on the card, against the whole-sequence
+    ``_grouped_decode_attention``: within SPLIT_KV_TOL in bf16 and
+    SPLIT_KV_TOL_F32 in float32 (of the largest output); a block wholly past
+    the length adds exactly 0 (no NaN; the same result as without it).
+    The only card check of the combine's arithmetic: the card's mesh has
+    one rank, so its collectives are skipped there.  Prints the times."""
+    from repro_torch.models.transformer import _grouped_decode_attention
+
+    spec = SPLIT_KV
+    g = torch.Generator("cuda").manual_seed(spec["seed"])
+    b, s, hq, hkv, dh = spec["batch"], spec["cached"], spec["heads"], spec["kv_heads"], \
+        spec["head_dim"]
+    mk = lambda *shape: torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16)
+    q, k, v = mk(b, 1, hq, dh), mk(b, s, hkv, dh), mk(b, s, hkv, dh)
+    length = spec["length"]
+    times = {}
+
+    def timed(label, fn, reps=50):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times[label] = start.elapsed_time(end) / reps
+
+    want = _grouped_decode_attention(q, k, v, length)
+    timed("whole", lambda: _grouped_decode_attention(q, k, v, length))
+    errs = {}
+    for n in spec["blocks"]:
+        got = combine_blocks(q, k, v, length, n)
+        timed(f"{n} blocks", lambda n=n: combine_blocks(q, k, v, length, n))
+        check(bool(torch.isfinite(got).all()), f"16d: {n} blocks: not finite")
+        err = float((got.float() - want.float()).abs().max()) / float(want.float().abs().max())
+        f32 = (combine_blocks(q.float(), k.float(), v.float(), length, n)
+               - _grouped_decode_attention(q.float(), k.float(), v.float(), length)).abs().max()
+        f32 = float(f32) / float(want.float().abs().max())
+        errs[n] = (err, f32)
+        check(err <= SPLIT_KV_TOL and f32 <= SPLIT_KV_TOL_F32,
+              f"16d: {n} blocks off the whole-sequence attention by {err} (bf16), {f32} (float32)")
+    last = spec["blocks"][-1]
+    short = spec["masked_length"]
+    n_dead = sum(1 for i in range(last) if i * (s // last) >= short)
+    masked = combine_blocks(q, k, v, short, last)
+    dropped = combine_blocks(q, k, v, short, last, drop=range(last - n_dead, last))
+    check(n_dead >= 1 and bool(torch.isfinite(masked).all()) and torch.equal(masked, dropped),
+          f"16d: a wholly masked block changed the result or gave NaN ({n_dead} dead)")
+    mask_err = float((masked.float() - _grouped_decode_attention(q, k, v, short).float()).abs()
+                     .max()) / float(masked.float().abs().max())
+    check(mask_err <= SPLIT_KV_TOL, f"16d: the masked case off the whole by {mask_err}")
+    print(f"16d split-KV decode attention at llama4-scout's shapes (B={b}, {hq} query heads, "
+          f"{hkv} kv heads, Dh {dh}, {s} cached bf16 positions, length {length}): "
+          + "; ".join(f"{n} blocks off the whole-sequence attention by {e:.3e} (bf16) and "
+                      f"{f:.3e} (float32) of its largest output" for n, (e, f) in errs.items())
+          + f" (tolerances {SPLIT_KV_TOL:.3e}, {SPLIT_KV_TOL_F32:.0e}); at length {short} "
+          f"{n_dead} of {last} blocks wholly masked: finite, equal to the combine without them, "
+          f"{mask_err:.3e} off the whole; times (one process, the blocks in turn, "
+          f"{card}): " + ", ".join(f"{k} {t:.4f} ms" for k, t in times.items()), flush=True)
 
 
 def lm_mesh_train(card, mesh):
@@ -6858,8 +7021,10 @@ def lm_mesh_phase(card, depth1=True):
         lm_mesh_serve(card, mesh)
         t2 = time.perf_counter()
         launches = lm_mesh_train(card, mesh)
+    t3 = time.perf_counter()
+    split_kv_check(card)
     print(f"phase 16: depth 1 {t1 - t0:.1f} s, 16a {t2 - t1:.1f} s, 16b-c "
-          f"{time.perf_counter() - t2:.1f} s", flush=True)
+          f"{t3 - t2:.1f} s, 16d {time.perf_counter() - t3:.1f} s", flush=True)
     return launches
 
 

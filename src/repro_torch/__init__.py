@@ -33,10 +33,11 @@ controller's ``shard_map`` backend, the sharded job axis and
 mesh (``make_train_step(mesh=)``), ``device_batch_at(mesh=)`` and
 ``checkpoint.restore(shardings=)``; tensor parallelism of every other
 weight over 'model' as its partition spec splits it (attention heads, the
-MLP's ff axis, the vocab, Mamba's ``d_inner``), served and trained; and
-one-card FLOP accounting (``analysis.roofline``).  Still to come
-(ROADMAP): split-KV decode (item 16) and a counterpart of the reference's
-``launch/dryrun.py`` (item 15).
+MLP's ff axis, the vocab, Mamba's ``d_inner``), served and trained;
+split-KV decode (every attention cache held as its partition spec splits
+it, the decode softmax combined over the ranks); and one-card FLOP
+accounting (``analysis.roofline``).  Still to come (ROADMAP): a
+counterpart of the reference's ``launch/dryrun.py`` (item 15).
 
 Entry points put state on ``cuda`` unless the caller passes
 ``device="cpu"``; with no GPU they raise instead of moving to the CPU.

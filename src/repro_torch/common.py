@@ -144,12 +144,29 @@ def with_sharding(x, mesh, pspec: P):
     return x
 
 
-def _dims(x, spec: P):
-    """[(dim, axes)] of the sharded dims of ``x`` under ``spec``."""
-    if len(spec) > x.dim():
+def _dims(ndim: int, spec: P):
+    """[(dim, axes)] of the sharded dims of an ``ndim``-dim tensor under
+    ``spec``."""
+    if len(spec) > ndim:
         raise ValueError(f"partition spec {spec} has more entries than the tensor's "
-                         f"{x.dim()} dims")
+                         f"{ndim} dims")
     return [(i, entry_axes(e)) for i, e in enumerate(spec) if e is not None]
+
+
+def check_divisible(shape: tuple[int, ...], sharding: NamedSharding):
+    """Raise ``ValueError`` where a dim of a global ``shape`` does not divide
+    into ``sharding``'s blocks, with the substance of ``jax.device_put``'s
+    message."""
+    from repro_torch.launch import mesh as M
+
+    for dim, axes in _dims(len(shape), sharding.spec):
+        n = M.axis_size(sharding.mesh, axes)
+        if shape[dim] % n:
+            raise ValueError(
+                f"a tensor was given the sharding {sharding.spec} over the mesh "
+                f"{dict(zip(sharding.mesh.mesh_dim_names, sharding.mesh.shape))}, which implies "
+                f"that the global size of its dimension {dim} should be divisible by {n}, but "
+                f"it is equal to {shape[dim]} (full shape: {shape})")
 
 
 def shard(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
@@ -160,15 +177,9 @@ def shard(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
     ``jax.device_put`` does."""
     from repro_torch.launch import mesh as M
 
-    for dim, axes in _dims(x, sharding.spec):
-        n = M.axis_size(sharding.mesh, axes)
-        if x.shape[dim] % n:
-            raise ValueError(
-                f"a tensor was given the sharding {sharding.spec} over the mesh "
-                f"{dict(zip(sharding.mesh.mesh_dim_names, sharding.mesh.shape))}, which implies "
-                f"that the global size of its dimension {dim} should be divisible by {n}, but "
-                f"it is equal to {x.shape[dim]} (full shape: {tuple(x.shape)})")
-        size = x.shape[dim] // n
+    check_divisible(tuple(x.shape), sharding)
+    for dim, axes in _dims(x.dim(), sharding.spec):
+        size = x.shape[dim] // M.axis_size(sharding.mesh, axes)
         x = x.narrow(dim, M.axis_index(sharding.mesh, axes) * size, size)
     return x.clone(memory_format=torch.contiguous_format)
 
@@ -179,7 +190,7 @@ def unshard(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
     rank of the mesh must call it (a collective)."""
     from repro_torch.launch import mesh as M
 
-    for dim, axes in _dims(x, sharding.spec):
+    for dim, axes in _dims(x.dim(), sharding.spec):
         x = M.gather(x, sharding.mesh, axes, dim)
     return x
 

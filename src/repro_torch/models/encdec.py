@@ -19,7 +19,10 @@ GSPMD, so the port's to choose) and the weights are this rank's blocks:
 encoder and decoder attention on its head block, the MLPs on its ff block,
 each summed over 'model'; ``cross_kv`` gives the rank's kv-head block; the
 embedding and the tied logits on its vocab block where the vocab divides
-(whisper-tiny's 51865 does not: it stays whole).
+(whisper-tiny's 51865 does not: it stays whole).  A decode step reads the
+self-attention cache and the cross memory as ``model.decode_layout`` splits
+them (``transformer.decode_read``: the memory's positions over 'data' where
+its length divides, the softmax combined over the blocks).
 """
 from __future__ import annotations
 
@@ -28,10 +31,11 @@ import math
 import torch
 
 from repro_torch import tree as T
-from repro_torch.common import P, ParamSpec, with_sharding
+from repro_torch.common import P, ParamSpec, entry_axes, with_sharding
+from repro_torch.launch import mesh as M
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import (_grouped_decode_attention, _layer, _layers,
-                                            attn_apply, residual, stack_specs)
+from repro_torch.models.transformer import (_layer, _layers, attn_apply, decode_read, residual,
+                                            stack_specs)
 
 MAX_DEC_POS = 32768  # decode_32k needs 32k learned decoder positions
 
@@ -116,9 +120,11 @@ def cross_kv(cfg, params, memory, policy, mesh=None):
     return torch.stack(ks), torch.stack(vs)
 
 
-def _dec_layer(cfg, lp, x, policy, *, mode, cache, xkv, pos, mesh=None):
+def _dec_layer(cfg, lp, x, policy, *, mode, cache, xkv, pos, mesh=None, kv_spec=None,
+               xkv_spec=None):
     a, self_c = attn_apply(cfg, lp, L.apply_norm(cfg, lp["ln1"], x), policy,
-                           mode=mode, angles=None, cache=cache, pos=pos, mesh=mesh)
+                           mode=mode, angles=None, cache=cache, pos=pos, mesh=mesh,
+                           kv_spec=kv_spec)
     x, xf = residual(x, a)
     # cross attention against the fixed memory K/V
     cdt = policy.compute
@@ -126,10 +132,12 @@ def _dec_layer(cfg, lp, x, policy, *, mode, cache, xkv, pos, mesh=None):
     hd = L.heads(cfg, lp["xattn"], mesh)
     xq = L.model_input(xq.to(cdt), mesh, hd.split)
     q = torch.einsum("bsd,dhk->bshk", xq, lp["xattn"]["wq"].to(cdt))
-    xk, xv = (L.select_kv(t, hd) for t in xkv)
-    if q.shape[1] == 1:
-        o = _grouped_decode_attention(q, xk, xv, xk.shape[1])
+    if q.shape[1] == 1:  # the memory's blocks where xkv_spec splits it (split-KV)
+        length = xkv[0].shape[1] * (1 if xkv_spec is None
+                                    else M.axis_size(mesh, entry_axes(xkv_spec[1])))
+        o = decode_read(q, *xkv, length, hd, mesh, xkv_spec)
     else:
+        xk, xv = (L.select_kv(t, hd) for t in xkv)
         o = L.dense_attention(q, L.expand_kv(xk, hd.n), L.expand_kv(xv, hd.n), causal=False)
     x, xf = residual(x, L.model_sum(L.attn_out(lp["xattn"], o, policy), mesh, hd.split))
     x = x + L.apply_mlp(cfg, lp["mlp"], L.apply_norm(cfg, lp["ln2"], xf).to(x.dtype), policy,
@@ -138,11 +146,12 @@ def _dec_layer(cfg, lp, x, policy, *, mode, cache, xkv, pos, mesh=None):
 
 
 def decode_forward(cfg, params, tokens, policy, *, mode, cache=None, xkv=None, pos=0,
-                   mesh=None):
+                   mesh=None, kv_spec=None, xkv_spec=None):
     """The decoder stack. tokens (B, S_dec); mode train|prefill|decode.
     ``cache`` is the stacked self-attention (k, v) for decode, ``xkv`` the
-    stacked cross (k, v).  Returns (hidden, the self-attention cache; None
-    for train)."""
+    stacked cross (k, v); over a mesh a decode step's are laid out as
+    ``kv_spec`` and ``xkv_spec`` (``model.decode_layout``).  Returns
+    (hidden, the self-attention cache; None for train)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
     s = tokens.shape[1]
@@ -156,7 +165,7 @@ def decode_forward(cfg, params, tokens, policy, *, mode, cache=None, xkv=None, p
     for i, lp in enumerate(_layers(params["dec_layers"])):
         c = _layer(cache, i) if mode == "decode" else None
         h, c_out = _dec_layer(cfg, lp, h, policy, mode=mode, cache=c, xkv=_layer(xkv, i),
-                              pos=pos, mesh=mesh)
+                              pos=pos, mesh=mesh, kv_spec=kv_spec, xkv_spec=xkv_spec)
         h = with_sharding(h, mesh, L.batch_pspec(None, None))
         outs.append(c_out)
     h = L.apply_norm(cfg, params["final_norm"], h)

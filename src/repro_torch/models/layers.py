@@ -322,6 +322,62 @@ def decode_attention(q, k_cache, v_cache, length):
     return torch.einsum("bhqk,bkhd->bqhd", w, v_cache)
 
 
+# ---------------------------------------------------------------------------
+# split-KV decode: one decode query against one block of the cache's
+# positions, and the combine of the blocks' partial softmaxes
+
+
+def row_axes(mesh) -> tuple[str, ...]:
+    """The mesh axes a decode batch's rows are split over: the reference's
+    batch axes ("pod" major), as ``cache_specs`` splits a batch of 16 or
+    more."""
+    return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+
+
+def kv_spec(entry) -> P:
+    """The (B, S, Hkv, Dh) pspec of one layer's k or v from a stacked
+    attention cache entry's pspec pair (its batch, sequence, kv-head and
+    head-dim entries; the stacking axes dropped)."""
+    return P(*list(entry[0])[-4:])
+
+
+def block_scores(q, k_block, offset: int, length):
+    """q (B, 1, Hq, Dh) against a block of the cache (B, Sb, Hkv, Dh) that
+    holds global positions ``offset`` to ``offset + Sb``, grouped as
+    ``transformer._grouped_decode_attention`` groups the heads: (the float32
+    scores (B, Hkv, G, 1, Sb), -inf at positions >= ``length``; their max
+    over the block (B, Hkv, G, 1, 1), -inf where the block is wholly
+    masked)."""
+    b, _, hq, dh = q.shape
+    hkv = k_block.shape[2]
+    s = scores(q.reshape(b, 1, hkv, hq // hkv, dh), k_block, "bqhgd,bkhd->bhgqk")
+    mask = offset + torch.arange(k_block.shape[1], device=q.device) < length
+    s = torch.where(mask, s, -torch.inf)
+    return s, s.amax(-1, keepdim=True)
+
+
+def block_weights(s, m, gmax):
+    """(the block's softmax of its scores ``s``, float32; its share of the
+    global denominator, ``sum(exp(s - m)) * exp(m - gmax)`` with ``gmax``
+    the max over every block).  A wholly masked block (``m`` = -inf) gives 0
+    for both, not the NaN of ``-inf - -inf``."""
+    live = m > -torch.inf
+    w = torch.where(live, torch.softmax(s, dim=-1), 0.0)
+    t = torch.where(live, torch.exp(s - m).sum(-1, keepdim=True) * torch.exp(m - gmax), 0.0)
+    return w, t
+
+
+def block_output(w, t, total, v_block, dtype):
+    """The block's partial output (B, 1, Hq, Dh) in ``dtype``: its weights
+    scaled by its share ``t / total`` of the global denominator, cast to
+    ``dtype`` as the reference casts its float32 softmax, times the block's
+    V.  With one block ``t / total`` is exactly 1, so the weights are
+    ``torch.softmax``'s bit for bit."""
+    w = (w * (t / total)).to(dtype)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", w, v_block)
+    return o.reshape(o.shape[0], 1, -1, o.shape[-1])
+
+
 def _flash_fwd_core(q, k, v, cq, ck):
     """The reference's triangular chunk-pair loop (pairs (i, j <= i), i
     outer) with an online softmax per query chunk.  Returns (o float32

@@ -17,9 +17,13 @@ what is left.  Over a mesh the port runs explicit SPMD: ``Model.loss``,
 layout of the weights (``run_pspecs``: every weight's spec over the mesh,
 the MoE layers' expert-parallel blocks, FSDP's 'data' gathered), so each
 rank holds and computes its 'model' block of every weight whose spec
-splits it; the logits they return are this rank's vocab block.  The cache
-keeps its sequence axis whole (``cache_specs``' split-KV sequence axes
-are ROADMAP item 16).
+splits it; the logits they return are this rank's vocab block.  A decode
+step over a mesh takes its cache in ``decode_layout``'s layout:
+``cache_specs``' pspecs at the cache's global batch and length, so each
+rank holds its block of every attention cache (its rows, kv heads and
+positions where the pspec splits them: split-KV decode) and the step
+combines the ranks' partial softmaxes (``transformer.attn_apply``); an
+ssm state is this rank's batch block and channels.
 ``params_from_numpy`` takes parameters as numpy arrays — the JAX package's
 (``jax.tree.map(np.asarray, model.init(key))``) or ``common.init_numpy``'s —
 and returns the port's tensors after checking every key, shape and dtype
@@ -36,8 +40,9 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
-from repro_torch.common import (DTypePolicy, P, ShapeDtype, bf16_tensor, entry_axes,
-                                filter_pspec, init_params, numpy_dtype, param_bytes, spec_map)
+from repro_torch.common import (DTypePolicy, P, ShapeDtype, bf16_tensor, check_divisible,
+                                entry_axes, filter_pspec, init_params, named, numpy_dtype,
+                                param_bytes, spec_map)
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
@@ -102,17 +107,26 @@ class Model:
                                      fsdp=needs_fsdp(cfg))
         return cache, TF.lm_logits(cfg, params, h[:, -1:], self.policy, mesh)
 
-    def decode_step(self, params, cache, batch, pos, mesh=None):
-        """One token for every sequence in the batch. Returns (logits, cache)."""
+    def decode_step(self, params, cache, batch, pos, mesh=None, layout=None):
+        """One token for every sequence in the batch. Returns (logits, cache).
+        Over ``mesh`` the cache is in ``layout`` (``decode_layout``'s pspec
+        tree, which it must be given: a block's shape cannot tell a split
+        cache from a short whole one), and so is the cache returned."""
         cfg = self.cfg
+        if (mesh is None) != (layout is None):
+            raise ValueError("decode_step takes the cache's layout (models.model."
+                             "decode_layout) exactly when it runs over a mesh")
         if cfg.family == "encdec":
+            kv = {} if layout is None else {"kv_spec": L.kv_spec(layout["self"]),
+                                            "xkv_spec": L.kv_spec(layout["cross"])}
             h, self_c = ED.decode_forward(cfg, params, batch["tokens"], self.policy,
                                           mode="decode", cache=cache["self"],
-                                          xkv=cache["cross"], pos=pos, mesh=mesh)
+                                          xkv=cache["cross"], pos=pos, mesh=mesh, **kv)
             new_cache = {"self": self_c, "cross": cache["cross"]}
         else:
             h, new_cache, _ = TF.forward(cfg, params, batch, self.policy, mode="decode",
-                                         mesh=mesh, fsdp=needs_fsdp(cfg), cache=cache, pos=pos)
+                                         mesh=mesh, fsdp=needs_fsdp(cfg), cache=cache, pos=pos,
+                                         layout=layout)
         return TF.lm_logits(cfg, params, h, self.policy, mesh), new_cache
 
 
@@ -313,3 +327,46 @@ def cache_specs(cfg: ModelConfig, shape: ShapeConfig | str, tp: int = TP):
         return ({"groups": {"attn": (ksd, ksd), "ssm": ssd}},
                 {"groups": {"attn": (kps, kps), "ssm": sps}})
     raise ValueError(fam)
+
+
+def attn_cache_keys(cfg: ModelConfig) -> list[tuple[str, ...]]:
+    """The key paths of a decode cache's attention entries, each a (k, v)
+    pair stacked over layers (or hybrid groups)."""
+    fam = cfg.family
+    if fam == "encdec":
+        return [("self",), ("cross",)]
+    if fam in ("dense", "vlm"):
+        return [("layers",)]
+    if fam == "moe":
+        return ([("dense_layers",)] if cfg.moe.first_k_dense else []) + [("layers",)]
+    if fam == "hybrid":
+        return [("groups", "attn")]
+    return []
+
+
+def decode_layout(model: Model, mesh, batch: int, length: int, cross_length: int | None = None):
+    """The decode cache's layout over ``mesh``: ``cache_specs``' pspec tree at
+    the cache's global ``batch`` and sequence ``length`` at the mesh's
+    'model' size, filtered to the mesh's axes (as ``run_pspecs`` filters the
+    weights).  The encoder-decoder's cross memory is laid out at
+    ``cross_length`` positions (the config's audio frames, a decode cell's,
+    unless given), as ``cache_specs`` lays out a cell's memory.  Each rank
+    holds its block of every leaf: a stacked attention entry's rows, kv
+    heads and positions where the pspec splits them.
+
+    Raises ``ValueError``, with the substance of ``jax.device_put``'s
+    message, where a pspec splits a dim its axes do not divide: the
+    reference tests a sequence it splits over 'data' against the 'model'
+    size (ROADMAP F10), so on a mesh whose 'data' and 'model' sizes differ
+    it can choose a layout that cannot be placed."""
+    cfg = model.cfg
+    tp = L.tp_size(mesh)
+    sds, pss = cache_specs(cfg, ShapeConfig("decode", length, batch, "decode"), tp)
+    if cfg.family == "encdec":
+        xsd, xps = _attn_cache_cell(cfg, batch, cfg.n_audio_frames if cross_length is None
+                                    else cross_length, cfg.n_layers, tp)
+        sds["cross"], pss["cross"] = (xsd, xsd), (xps, xps)
+    layout = T.tree_map(lambda ps: filter_pspec(ps, mesh), pss)
+    for (_, sd), (_, ps) in zip(T.leaves(sds), T.leaves(layout)):
+        check_divisible(tuple(sd.shape), named(mesh, ps))
+    return layout

@@ -30,7 +30,12 @@ channels, each summed over 'model' after its row-parallel projection
 (``layers``, ``ssm``); the embedding and the logits on its vocab block.  A
 KV cache holds the rank's kv-head block where 'model' divides the kv heads,
 every kv head where it does not (the query heads then read the ones they
-need, ``layers.Heads``); an ssm state holds the rank's channels.
+need, ``layers.Heads``); an ssm state holds the rank's channels.  A decode
+step's KV cache is laid out as ``model.decode_layout`` says (split-KV
+decode): its rows, kv heads and positions split as ``cache_specs``
+splits them at the global batch and length, the step's write on the rank
+that holds its position (``decode_write``) and the softmax combined over
+the ranks that hold the positions (``decode_read``).
 """
 from __future__ import annotations
 
@@ -41,7 +46,8 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch import tree as T
-from repro_torch.common import P, ParamSpec, spec_map, with_sharding
+from repro_torch.common import P, ParamSpec, entry_axes, spec_map, with_sharding
+from repro_torch.launch import mesh as M
 from repro_torch.models import layers as L
 from repro_torch.models.moe import apply_moe, moe_specs
 from repro_torch.models.ssm import mamba1_specs, mamba2_specs, ssm_block, ssm_state_shape
@@ -128,16 +134,91 @@ def _grouped_decode_attention(q, k_cache, v_cache, length):
     return o.reshape(b, 1, hq, dh)
 
 
-def attn_apply(cfg, p, x, policy, *, mode, angles, cache=None, pos=None, mesh=None):
+def _split_decode_attention(q, k_block, v_block, length, offset, mesh, seq_axes):
+    """Grouped decode attention of q against this rank's block of positions
+    (from global ``offset``), the softmax combined over ``seq_axes``: the
+    global max first (``pmax``), then each block's softmax and its share of
+    the denominator, summed (``psum``), then each block's weighted V,
+    summed.  Over axes of size 1 every collective is skipped and the result
+    is ``_grouped_decode_attention``'s bit for bit."""
+    s, m = L.block_scores(q, k_block, offset, length)
+    w, t = L.block_weights(s, m, M.pmax(m, mesh, seq_axes))
+    total = M.all_reduce(t, mesh, seq_axes)
+    return M.all_reduce(L.block_output(w, t, total, v_block, q.dtype), mesh, seq_axes)
+
+
+def decode_write(k, v, cache, pos, mesh=None, kv_spec=None):
+    """The decode write of the step's k/v into ``cache`` at the global
+    position ``min(pos, S - 1)``, S the cache's global length: the
+    reference's ``dynamic_update_slice`` clamps its start so the update
+    fits, so a cache with no room left (no ``pad_to``) has its last
+    position overwritten while attention reads ``pos + 1`` positions (all
+    of them; ROADMAP F2).  Over ``mesh`` the cache is the blocks
+    ``kv_spec`` lays out, and the write lands on the rank whose block holds
+    the position; where the cache holds every row, the step's rows (this
+    rank's) are gathered over the batch axes first, so every rank of a
+    block writes the same rows.  Without ``kv_spec`` the cache is whole."""
+    k_cache, v_cache = cache
+    blk, n, idx = k_cache.shape[1], 1, 0
+    if kv_spec is not None:
+        if kv_spec[0] is None:
+            k, v = (M.gather(t, mesh, L.row_axes(mesh), 0) for t in (k, v))
+        seq_axes = entry_axes(kv_spec[1])
+        n, idx = M.axis_size(mesh, seq_axes), M.axis_index(mesh, seq_axes)
+    at = min(pos, blk * n - 1) - idx * blk
+    k_cache, v_cache = k_cache.clone(), v_cache.clone()
+    if 0 <= at < blk:
+        k_cache[:, at:at + 1] = k.to(k_cache.dtype)
+        v_cache[:, at:at + 1] = v.to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+def decode_read(q, k_cache, v_cache, length, hd, mesh=None, kv_spec=None):
+    """Decode attention of q (B, 1, Hq, Dh) (this rank's query heads ``hd``)
+    against ``length`` valid global positions of the cache: without
+    ``kv_spec`` the whole cache, ``_grouped_decode_attention``.  Over
+    ``mesh`` the cache is the blocks ``kv_spec`` lays out and the softmax is
+    combined over the sequence's axes (``_split_decode_attention``).  Where
+    the sequence is split over an axis that also splits the queries (the
+    rows over 'data' where the cache holds every row, the query heads over
+    'model' where it holds every kv head) q is gathered over that axis,
+    every query's partial computed and combined, and this rank's rows and
+    heads kept; where the cache holds every row and the sequence is not
+    split over the batch axes, the rank's own rows of it are read."""
+    if kv_spec is None:
+        return _grouped_decode_attention(q, L.select_kv(k_cache, hd), L.select_kv(v_cache, hd),
+                                         length)
+    rows, seq_axes = L.row_axes(mesh), entry_axes(kv_spec[1])
+    b = q.shape[0]
+    q_rows = tuple(a for a in rows if a in seq_axes) if kv_spec[0] is None else ()
+    q = M.gather(q, mesh, q_rows, 0)
+    if kv_spec[0] is None:
+        keep, n = tuple(a for a in rows if a not in q_rows), q.shape[0]
+        k_cache, v_cache = (t.narrow(0, M.axis_index(mesh, keep) * n, n)
+                            for t in (k_cache, v_cache))
+    all_heads = hd.split and "model" in seq_axes  # then the cache holds every kv head
+    if all_heads:
+        q = M.gather(q, mesh, "model", 2)
+        kv = torch.arange(hd.total, device=q.device) // (hd.total // k_cache.shape[2])
+        k_cache, v_cache = (t.index_select(2, kv) for t in (k_cache, v_cache))
+    else:
+        k_cache, v_cache = (L.select_kv(t, hd) for t in (k_cache, v_cache))
+    blk = k_cache.shape[1]
+    o = _split_decode_attention(q, k_cache, v_cache, length,
+                                M.axis_index(mesh, seq_axes) * blk, mesh, seq_axes)
+    if all_heads:
+        o = o.narrow(2, hd.lo, hd.n)
+    return o.narrow(0, M.axis_index(mesh, q_rows) * b, b)
+
+
+def attn_apply(cfg, p, x, policy, *, mode, angles, cache=None, pos=None, mesh=None,
+               kv_spec=None):
     """Attention sub-block body. Returns (out, new_cache): None for train,
     the (k, v) new entries for prefill, the updated (k_cache, v_cache) for
-    decode.  Over ``mesh``, on this rank's heads (``layers.heads``), the
-    output summed over 'model'; the cache holds this rank's kv heads.
-
-    The decode write goes to ``min(pos, Smax - 1)``: the reference's
-    ``dynamic_update_slice`` clamps its start so the update fits, so a
-    cache with no room left (no ``pad_to``) has its last position
-    overwritten while attention reads ``pos + 1`` positions (all of them)."""
+    decode (``decode_write``, then ``decode_read``).  Over ``mesh``, on this
+    rank's heads (``layers.heads``), the output summed over 'model'; the
+    prefill's entries hold this rank's rows and kv heads, a decode cache the
+    blocks ``kv_spec`` lays out."""
     q, k, v = L.qkv_project(cfg, p["attn"], x, policy, angles=angles, mesh=mesh)
     hd = L.heads(cfg, p["attn"], mesh)
     nh = q.shape[2]
@@ -157,13 +238,8 @@ def attn_apply(cfg, p, x, policy, *, mode, angles, cache=None, pos=None, mesh=No
         o = L.flash_prefill_attention(q, *(L.expand_kv(L.select_kv(t, hd), nh) for t in (k, v)))
         return out(o), (k, v)
     if mode == "decode":
-        k_cache, v_cache = cache
-        start = min(pos, k_cache.shape[1] - 1)
-        k_cache, v_cache = k_cache.clone(), v_cache.clone()
-        k_cache[:, start:start + 1] = k.to(k_cache.dtype)
-        v_cache[:, start:start + 1] = v.to(v_cache.dtype)
-        o = _grouped_decode_attention(q, L.select_kv(k_cache, hd), L.select_kv(v_cache, hd),
-                                      pos + 1)
+        k_cache, v_cache = decode_write(k, v, cache, pos, mesh, kv_spec)
+        o = decode_read(q, k_cache, v_cache, pos + 1, hd, mesh, kv_spec)
         return out(o), (k_cache, v_cache)
     raise ValueError(mode)
 
@@ -178,11 +254,13 @@ def residual(x, a):
     return h.to(x.dtype), h
 
 
-def dense_layer(cfg, p, x, policy, *, mode, angles, cache=None, pos=None, mesh=None):
+def dense_layer(cfg, p, x, policy, *, mode, angles, cache=None, pos=None, mesh=None,
+                kv_spec=None):
     """Pre-norm attention and MLP, each added to the residual stream;
     ``ln2`` reads the first sum in float32 (``residual``)."""
     a, new_cache = attn_apply(cfg, p, L.apply_norm(cfg, p["ln1"], x), policy,
-                              mode=mode, angles=angles, cache=cache, pos=pos, mesh=mesh)
+                              mode=mode, angles=angles, cache=cache, pos=pos, mesh=mesh,
+                              kv_spec=kv_spec)
     x, h = residual(x, a)
     y = L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], h).to(x.dtype), policy,
                     mesh=mesh)
@@ -190,12 +268,13 @@ def dense_layer(cfg, p, x, policy, *, mode, angles, cache=None, pos=None, mesh=N
 
 
 def moe_layer(cfg, p, x, policy, *, mode, angles, cache=None, pos=None, mesh=None,
-              fsdp=False):
+              fsdp=False, kv_spec=None):
     """``dense_layer`` with the MoE block in the MLP's place (over ``mesh``
     an expert-parallel path, ``ep_moe_decode`` in decode mode).  Returns (x,
     new_cache, aux)."""
     a, new_cache = attn_apply(cfg, p, L.apply_norm(cfg, p["ln1"], x), policy,
-                              mode=mode, angles=angles, cache=cache, pos=pos, mesh=mesh)
+                              mode=mode, angles=angles, cache=cache, pos=pos, mesh=mesh,
+                              kv_spec=kv_spec)
     x, h = residual(x, a)
     y, aux = apply_moe(cfg, p["moe"], L.apply_norm(cfg, p["ln2"], h).to(x.dtype), policy,
                        mesh=mesh, fsdp=fsdp, decode=(mode == "decode"))
@@ -276,15 +355,18 @@ def _remat(cfg, fn, *args):
     return ckpt.checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
 
 
-def forward(cfg, params, batch, policy, *, mode, mesh=None, fsdp=False, cache=None, pos=None):
+def forward(cfg, params, batch, policy, *, mode, mesh=None, fsdp=False, cache=None, pos=None,
+            layout=None):
     """Core forward.  Returns (hidden, new_cache, aux_loss): aux sums the MoE
     layers' load-balance losses (zero for the other families).  For decode,
     ``cache`` is the stacked cache of the layout above and ``pos`` the
     position written (an int); train returns no cache (None) and runs each
     layer (hybrid: each group) through ``_remat``.  Over ``mesh`` the batch
-    and cache are this rank's blocks of the batch axes (and of the kv heads
-    and ssm channels over 'model') and ``params`` hold this rank's blocks
-    (``model.run_pspecs``)."""
+    is this rank's block of the batch axes and ``params`` hold this rank's
+    blocks (``model.run_pspecs``); the prefill returns its cache as this
+    rank's rows, kv heads and ssm channels, and a decode cache is in
+    ``layout`` (``model.decode_layout``: every attention entry as its
+    pspec splits it, the ssm states this rank's rows and channels)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
     h, angles = _embed_and_angles(cfg, params, batch, policy, mode, pos, mesh)
@@ -301,16 +383,19 @@ def forward(cfg, params, batch, policy, *, mode, mesh=None, fsdp=False, cache=No
             stacks = ["dense_layers", "layers"]
         for name in stacks:
             outs = []
+            kv = None if layout is None else L.kv_spec(layout[name])
             for i, lp in enumerate(_layers(params[name])):
                 c = _layer(cache[name], i) if decode else None
                 if fam == "moe" and name == "layers":
                     h, c_out, a = run(lambda lp, h, c: moe_layer(cfg, lp, h, policy, cache=c,
-                                                                 mesh=mesh, fsdp=fsdp, **kw),
+                                                                 mesh=mesh, fsdp=fsdp,
+                                                                 kv_spec=kv, **kw),
                                       lp, h, c)
                     aux = aux + a
                 else:
                     h, c_out = run(lambda lp, h, c: dense_layer(cfg, lp, h, policy, cache=c,
-                                                                mesh=mesh, **kw), lp, h, c)
+                                                                mesh=mesh, kv_spec=kv, **kw),
+                                   lp, h, c)
                 outs.append(c_out)
             new_cache[name] = None if train else T.stack(outs)
     elif fam == "ssm":
@@ -322,13 +407,14 @@ def forward(cfg, params, batch, policy, *, mode, mesh=None, fsdp=False, cache=No
             outs.append(c_out)
         new_cache["layers"] = None if train else T.stack(outs)
     elif fam == "hybrid":
-        h, new_cache["groups"] = _hybrid_groups(cfg, params, h, policy, cache, kw, run, mesh)
+        kv = None if layout is None else L.kv_spec(layout["groups"]["attn"])
+        h, new_cache["groups"] = _hybrid_groups(cfg, params, h, policy, cache, kw, run, mesh, kv)
     else:
         raise ValueError(fam)
     return _finish(cfg, params, h), (None if train else new_cache), aux
 
 
-def _hybrid_groups(cfg, params, h, policy, cache, kw, run, mesh=None):
+def _hybrid_groups(cfg, params, h, policy, cache, kw, run, mesh=None, kv_spec=None):
     """The hybrid walk: before each group of ``attn_every`` Mamba-2 layers
     the one shared attention block, its KV cache per group.  Prefill and
     train start the Mamba-2 layers from zero states (this rank's heads and
@@ -344,7 +430,7 @@ def _hybrid_groups(cfg, params, h, policy, cache, kw, run, mesh=None):
 
     def group(gp, h, attn_c, states_in):
         a, attn_c = attn_apply(cfg, shared, L.apply_norm(cfg, shared["ln"], h), policy,
-                               cache=attn_c, mesh=mesh, **kw)
+                               cache=attn_c, mesh=mesh, kv_spec=kv_spec, **kw)
         h = h + a
         states = []
         for j, lp in enumerate(_layers(gp)):

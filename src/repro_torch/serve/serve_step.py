@@ -9,19 +9,25 @@ the prompt; ``greedy_generate(pad_to=)`` pads its sequence axis, found by
 and the encdec cross cache is fixed-length memory, so ``pad_to`` leaves
 both as they are.
 
-Over a mesh (``mesh=``) the batch and the cache are this rank's blocks of
-the batch axes (the cache also of the kv heads and ssm channels over
-'model') and the weights are in ``model.run_pspecs``' layout: tensor
-parallel over 'model' where their specs split them, the MoE layers
-expert-parallel (``ep_moe`` at prefill, ``ep_moe_decode`` at decode);
-every rank issues the same steps.  The logits are this rank's vocab block,
-so the greedy token is combined over 'model' (``next_token``).
+Over a mesh (``mesh=``) the batch is this rank's block of the batch axes
+and the weights are in ``model.run_pspecs``' layout: tensor parallel over
+'model' where their specs split them, the MoE layers expert-parallel
+(``ep_moe`` at prefill, ``ep_moe_decode`` at decode); every rank issues the
+same steps.  The prefill's cache holds this rank's rows (and kv heads and
+ssm channels over 'model'); ``_pad_seq(mesh=, layout=)`` pads it to the
+global length and lays every attention entry out as
+``model.decode_layout`` says (split-KV decode: the rows gathered where the
+pspec keeps the batch whole, this rank's block of positions kept), and
+the decode steps read and write it in that layout.  The logits are this
+rank's vocab block, so the greedy token is combined over 'model'
+(``next_token``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import tree as T
+from repro_torch.common import entry_axes
 from repro_torch.launch import mesh as M
 from repro_torch.models import layers as L
 
@@ -34,8 +40,8 @@ def make_prefill(model, mesh=None):
 
 
 def make_decode_step(model, mesh=None):
-    def decode_step(params, cache, batch, pos):
-        return model.decode_step(params, cache, batch, pos, mesh=mesh)
+    def decode_step(params, cache, batch, pos, layout=None):
+        return model.decode_step(params, cache, batch, pos, mesh=mesh, layout=layout)
 
     return decode_step
 
@@ -73,20 +79,56 @@ def cache_seq_axes(cfg, cache, seq: int, batch: int):
     return axes
 
 
-def _pad_seq(cfg, cache, seq, batch, pad_to):
+def _pad_seq(cfg, cache, seq, batch, pad_to, mesh=None, layout=None):
     """Zero-pad every sequence-addressed cache leaf to ``pad_to`` positions
-    (a rank's blocks too: the sequence axis is never split)."""
+    (None: leave the lengths).  Over ``mesh`` (with ``layout``, the
+    decode layout at the global batch and length ``pad_to or seq``) the
+    prefill's cache, this rank's rows, becomes the decode step's blocks:
+    each attention entry (the encdec cross memory too) gathered over the
+    batch axes where its pspec keeps the batch whole and cut to this
+    rank's block of positions where it splits the sequence."""
     axes = dict(zip([p for p, _ in T.leaves(cache)], cache_seq_axes(cfg, cache, seq, batch)))
 
     def pad(path, x):
         ax = axes[path]
-        if ax is None or x.shape[ax] >= pad_to:
+        if ax is None or not pad_to or x.shape[ax] >= pad_to:
             return x
         shape = list(x.shape)
         shape[ax] = pad_to - x.shape[ax]
         return torch.cat([x, x.new_zeros(shape)], dim=ax)
 
-    return T.map_with_path(pad, cache)
+    cache = T.map_with_path(pad, cache)
+    if mesh is None:
+        return cache
+    from repro_torch.models.model import attn_cache_keys
+
+    def place(x, ps):
+        b_dim = x.dim() - 4  # (..., B, S, Hkv, Dh)
+        if ps[b_dim] is None:
+            x = M.gather(x, mesh, L.row_axes(mesh), b_dim)
+        seq_axes = entry_axes(ps[b_dim + 1])
+        blk = x.shape[b_dim + 1] // M.axis_size(mesh, seq_axes)
+        return x.narrow(b_dim + 1, M.axis_index(mesh, seq_axes) * blk, blk).contiguous()
+
+    for keys in attn_cache_keys(cfg):
+        parent, ps = cache, layout
+        for k in keys[:-1]:
+            parent, ps = parent[k], ps[k]
+        parent[keys[-1]] = T.tree_map(place, parent[keys[-1]], ps[keys[-1]])
+    return cache
+
+
+def decode_layout_of(model, batch, mesh, pad_to=None):
+    """``model.decode_layout`` for the cache ``greedy_generate`` decodes
+    from the prefill of ``batch`` (this rank's block of it over ``mesh``):
+    the global batch, the prompt's length or ``pad_to``, an encdec model's
+    memory as long as the batch's frames."""
+    from repro_torch.models.model import decode_layout
+
+    b, seq = batch["tokens"].shape
+    frames = batch["enc_feats"].shape[1] if "enc_feats" in batch else None
+    return decode_layout(model, mesh, b * M.axis_size(mesh, L.row_axes(mesh)), pad_to or seq,
+                         cross_length=frames)
 
 
 def decode_batch(cfg, tokens, pos: int):
@@ -116,16 +158,17 @@ def greedy_generate(model, params, batch, steps: int, mesh=None, pad_to: int | N
     cache has no room past the prompt, and each decode write lands on its
     last position, as the reference's clamped write does.  Over ``mesh``,
     this rank's batch block and its tokens (the same on every 'model'
-    rank)."""
+    rank); the cache in ``decode_layout_of``'s layout."""
     cfg = model.cfg
     cache, lg = model.prefill(params, batch, mesh=mesh)
     b, seq = batch["tokens"].shape
-    if pad_to:
-        cache = _pad_seq(cfg, cache, seq, b, pad_to)
+    layout = None if mesh is None else decode_layout_of(model, batch, mesh, pad_to)
+    if pad_to or mesh is not None:
+        cache = _pad_seq(cfg, cache, seq, b, pad_to, mesh=mesh, layout=layout)
     toks = [next_token(cfg, lg[:, -1], mesh)]
     for i in range(steps - 1):
         lg, cache = model.decode_step(params, cache,
                                       decode_batch(cfg, toks[-1][:, None], seq + i),
-                                      seq + i, mesh=mesh)
+                                      seq + i, mesh=mesh, layout=layout)
         toks.append(next_token(cfg, lg[:, -1], mesh))
     return torch.stack(toks, dim=1)

@@ -492,7 +492,7 @@ def test_mesh_of_one_serves_bit_equal_and_skips_its_collectives(mesh1, arch, mon
     a mesh: held at 2e-2), and every collective over 'model' the tensor
     parallel code calls is skipped (``launch.mesh._skip`` counted): none
     is issued."""
-    from repro_torch.serve.serve_step import _pad_seq, decode_batch
+    from repro_torch.serve.serve_step import _pad_seq, decode_batch, decode_layout_of
 
     mesh, _ = mesh1
     cfg = configs.get_smoke_config(arch)
@@ -507,9 +507,11 @@ def test_mesh_of_one_serves_bit_equal_and_skips_its_collectives(mesh1, arch, mon
     for m in (None, mesh):
         counting.update(issued=0, skipped=0)
         cache, lg = model.prefill(params, batch, mesh=m)
-        cache = _pad_seq(cfg, cache, 8, 2, 9)
+        layout = None if m is None else decode_layout_of(model, batch, m, 9)
+        cache = _pad_seq(cfg, cache, 8, 2, 9, mesh=m, layout=layout)
         tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
-        lg2, _ = model.decode_step(params, cache, decode_batch(cfg, tok, 8), 8, mesh=m)
+        lg2, _ = model.decode_step(params, cache, decode_batch(cfg, tok, 8), 8, mesh=m,
+                                   layout=layout)
         outs[m is not None] = (lg, lg2, dict(counting))
     (a, a2, none), (b, b2, counts) = outs[False], outs[True]
     assert none == {"issued": 0, "skipped": 0}

@@ -153,16 +153,18 @@ def _fused_inputs(b, s, d, n, seed, h0=True, d_skip=True):
             rng.normal(0, 1, (d,)).astype(np.float32) if d_skip else None)
 
 
-def _jax_fused(dt, x, b, c, a, h0, d_skip):
+def _jax_fused(dt, x, b, c, a, h0, d_skip, scan="pallas"):
     """The JAX package's Mamba-1 expansion (``chunk_step``,
     repro/models/ssm.py) feeding the Pallas kernel (h0 = 0) or its
-    reference scan, then ``y + x * d_skip``."""
+    reference scan, then ``y + x * d_skip``.  ``scan="ref"`` feeds the
+    reference scan from a zero state where h0 is None."""
     dt, x, b, c, a = (jnp.asarray(v) for v in (dt, x, b, c, a))
     da = jnp.exp(dt[..., None] * a)
     dbx = (dt * x)[..., None] * b[:, :, None, :]
-    if h0 is None:
+    if h0 is None and scan == "pallas":
         y, h = jax_ops.ssm_scan(da, dbx, c), None
     else:
+        h0 = jnp.zeros(da.shape[:1] + da.shape[2:], jnp.float32) if h0 is None else h0
         y, h = jax_ref.selective_scan(da, dbx, c, jnp.asarray(h0))
     if d_skip is not None:
         y = y + x * jnp.asarray(d_skip)
@@ -173,12 +175,53 @@ def _fused_torch(xs):
     return [None if v is None else torch.from_numpy(np.ascontiguousarray(v)) for v in xs]
 
 
+_JAX_NUMERICS = ("jax_enable_x64", "jax_default_matmul_precision", "jax_numpy_dtype_promotion",
+                 "jax_disable_jit", "jax_platforms")
+_WRAPPER = ops.selective_scan
+
+
+def _scan_state():
+    """What in the process could move either side of the comparison."""
+    import jax
+
+    scan = ops.selective_scan
+    return dict(torch_threads=torch.get_num_threads(),
+                selective_scan=getattr(scan, "__qualname__", repr(scan)),
+                selective_scan_is_the_wrapper=scan is _WRAPPER,
+                jax_interpret=jax_ops.INTERPRET, jax_devices=len(jax.devices()),
+                **{k: getattr(jax.config, k) for k in _JAX_NUMERICS})
+
+
+def _hold_three(tmp_path, xs, sides):
+    """Hold each pair of ``sides`` (name -> y) to TOL.  If one pair fails,
+    write the inputs and every output to ``tmp_path`` and name the pairs
+    that failed, the first element that differs and the process state, so
+    the side that moved can be told apart."""
+    names = list(sides)
+    bad = []
+    for i, p in enumerate(names):
+        for q in names[i + 1:]:
+            off = ~np.isclose(sides[p], sides[q], **TOL)
+            if off.any():
+                first = np.unravel_index(np.argmax(off), off.shape)
+                bad.append(f"{p} vs {q}: {off.mean():.1%} off, max "
+                           f"{np.abs(sides[p] - sides[q]).max():.3g}, first at {first} "
+                           f"({sides[p][first]!r} vs {sides[q][first]!r})")
+    if bad:
+        dump = tmp_path / "scan_mismatch.npz"
+        np.savez(dump, **{f"in{i}": v for i, v in enumerate(xs) if v is not None},
+                 **{f"y_{k}": v for k, v in sides.items()})
+        raise AssertionError("; ".join(bad) + f"; state {_scan_state()}; dumped to {dump}")
+
+
 @pytest.mark.parametrize("b,s,d,n,h0", [(1, 64, 128, 8, False), (2, 64, 128, 16, False),
                                         (2, 17, 40, 8, True), (2, 1, 40, 16, True),
                                         (1, 33, 24, 5, True), (3, 1, 8, 8, True)])
-def test_fused_plain_matches_jax_expansion(b, s, d, n, h0):
-    """h0 = 0 against the Pallas kernel in interpret mode, a given h0 (and
-    S = 1, a decode step) against the JAX reference scan."""
+def test_fused_plain_matches_jax_expansion(b, s, d, n, h0, tmp_path):
+    """h0 = 0 against the Pallas kernel in interpret mode and against the
+    JAX reference scan from a zero state (and those two against each
+    other), a given h0 (and S = 1, a decode step) against the JAX
+    reference scan."""
     xs = _fused_inputs(b, s, d, n, seed=b * s + d + n, h0=h0, d_skip=n != 5)
     y_want, h_want = _jax_fused(*xs)
     tx = _fused_torch(xs)
@@ -187,7 +230,10 @@ def test_fused_plain_matches_jax_expansion(b, s, d, n, h0):
     y, h = ops.selective_scan_fused(tx[0], tx[1], bm, cm, *tx[4:])
     assert y.dtype == torch.float32 and tuple(y.shape) == (b, s, d)
     assert tuple(h.shape) == (b, d, n)
-    np.testing.assert_allclose(y.numpy(), y_want, **TOL)
+    sides = {"port": y.numpy(), "jax_pallas" if not h0 else "jax_ref": y_want}
+    if not h0:
+        sides["jax_ref"] = _jax_fused(*xs, scan="ref")[0]
+    _hold_three(tmp_path, xs, sides)
     if h_want is not None:
         np.testing.assert_allclose(h.numpy(), h_want, **TOL)
 
