@@ -266,6 +266,24 @@ and fails (non-zero exit, no result line) unless every phase holds:
      (``ModelCollectives``) for one decode step and one train step; it
      prints the prefill, decode and step times beside MESH_TIMES_BEFORE_TP (the
      mesh paths before tensor parallelism, on the same card).
+  17. (after 16) the dry run (``launch/dryrun.py``) against the card on
+     the mesh of one: phase 16's runs (qwen3-1.7b whole, a train step at
+     B=4 x 1024; llama4-scout at depth 4, a prefill of B=4 x 1024 and a
+     decode step on a 1040-position cache), each traced on fake tensors
+     by ``dryrun.trace_step`` and run for real through the same
+     ``dryrun.cell_step`` function: the traced argument bytes equal
+     ``torch.cuda.memory_allocated()`` of the placed arguments (up to the
+     allocator's 512-byte rounding a tensor), argument + temp bytes
+     against ``max_memory_allocated()`` over the step within
+     DRYRUN_PEAK_BAND (the ratio printed), the traced FLOPs equal
+     ``roofline.from_step``'s on the card, and every collective skipped,
+     each (name, axes) as many times on the card (``ModelCollectives``)
+     as traced; then
+     qwen3-1.7b x train_4k on the (16, 16) and (2, 16, 16) production
+     meshes (``python -m repro_torch.launch.dryrun`` in two processes,
+     started first): per-device memory, the three roofline terms, the
+     bottleneck and the collective bytes by axes.  ``--phase 17`` runs it
+     alone and prints no result line.
 
 A VP main path's kernel launches (phases 2, 3, 6, 7, 9, 10, 11, 12 and 15) are counted on
 the card: the fused tick, the fused completion and the slot scan each add
@@ -1603,6 +1621,16 @@ LM_MESH_TRAIN_TOL = dict(loss=1e-3, lr_units=2.05)
 # mesh step (0.41 B parameters, about 4.6 GiB of npz): the whole model's
 # 19.23 GiB took 119 s of the card's host I/O and hashing
 LM_MESH_CKPT_LAYERS = 2
+# phase 17: the dry run against the card on the mesh of one, on phase 16's
+# runs: label -> (arch, depth (None: whole), cell (seq, batch, kind)); the
+# step's max_memory_allocated() over the traced argument + temp bytes held
+# within DRYRUN_PEAK_BAND: the ratios read on an NVIDIA H100 80GB HBM3 at
+# 700.00 W in two runs of the three steps (1.0000 to 1.0022), with 1% of
+# room below and 2% above them for the caching allocator's rounding
+DRYRUN_RUNS = {"train": (QWEN, None, (1024, 4, "train")),
+               "prefill": (SCOUT, 4, (1024, 4, "prefill")),
+               "decode": (SCOUT, 4, (1040, 4, "decode"))}
+DRYRUN_PEAK_BAND = (0.99, 1.02)
 # phase 16's mesh times before tensor parallelism of the non-expert weights
 # (every weight outside the MoE layers held whole, the size-1 NCCL
 # collectives issued), on an NVIDIA H100 80GB HBM3 at 700.00 W: printed
@@ -6679,34 +6707,30 @@ def place(tree_, shardings_):
 
 
 class ModelCollectives:
-    """Counts the collectives called while it is open, by (collective,
-    axes, "issued" or "skipped"), forward and backward passes alike: it
-    wraps ``launch.mesh._skip``, the check every collective makes first."""
+    """Counts the collectives called while it is open, forward and backward
+    passes alike: ``analysis.comm_cost.CollectiveCounter``, which
+    ``launch.mesh`` feeds at every collective it issues or skips.
+    ``counts`` maps (name, axes, "issued" or "skipped") to calls."""
 
     def __enter__(self):
-        from repro_torch.launch import mesh as M
+        from repro_torch.analysis.comm_cost import CollectiveCounter
 
-        self.counts, self._skip = {}, M._skip
-
-        def counted(op, mesh, axes):
-            one = self._skip(op, mesh, axes)
-            key = (op, M._axes(axes), "skipped" if one else "issued")
-            self.counts[key] = self.counts.get(key, 0) + 1
-            return one
-
-        M._skip = counted
+        self.counter = CollectiveCounter().__enter__()
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.launch import mesh as M
+        self.counter.__exit__(*exc)
 
-        M._skip = self._skip
+    @property
+    def counts(self):
+        return {(op, axes, "skipped" if s else "issued"): n
+                for (op, axes, s), (n, _) in sorted(self.counter.calls.items())}
 
     def report(self, label):
         """Print the calls over 'model' by collective, and check that a mesh
         of one issued none (each was skipped: its group has one rank)."""
         how, by_op = {"issued": 0, "skipped": 0}, {}
-        for (op, axes, h), n in sorted(self.counts.items()):
+        for (op, axes, h), n in self.counts.items():
             if "model" in axes:
                 how[h] += n
                 name = f"{op} over {'+'.join(axes)}"
@@ -6725,15 +6749,15 @@ class ModelCollectives:
         from repro_torch.common import entry_axes
         from repro_torch.models.layers import kv_spec
 
-        seq = entry_axes(kv_spec(layout["layers"])[1])
-        calls = {f"{op} {h}": n for (op, axes, h), n in sorted(self.counts.items())
-                 if seq and axes == seq}
+        seq = set(entry_axes(kv_spec(layout["layers"], layout["batch"]).spec[1]))
+        calls = {f"{op} {h}": n for (op, axes, h), n in self.counts.items()
+                 if seq and set(axes) == seq}
         check(calls.get("all_reduce_max skipped") == n_layers
               and not any(k.endswith("issued") for k in calls),
               f"{label}: split-KV collectives over {seq}: {calls}")
-        print(f"{label}: the collectives over the cache's sequence axes {seq} (split-KV's "
-              f"global max once per attention layer, its sums, the row gathers): {calls}, "
-              f"none issued", flush=True)
+        print(f"{label}: the collectives over the cache's sequence axes {sorted(seq)} "
+              f"(split-KV's global max once per attention layer, its sums, the row gathers): "
+              f"{calls}, none issued", flush=True)
 
 
 class WholeSequenceDecode:
@@ -7028,6 +7052,179 @@ def lm_mesh_phase(card, depth1=True):
     return launches
 
 
+def dryrun_arguments(cfg, cell, arguments, made):
+    """Real tensors on the card for ``dryrun.cell_step``'s ``arguments`` on
+    the mesh of one (every block whole): weights (or a train state) from a
+    seeded generator, serving weights kept in ``made["params"]`` for the
+    next run of the same model; tokens in the vocab, other floats normal,
+    a decode cache of zeros."""
+    from repro_torch import tree
+    from repro_torch.common import init_params
+    from repro_torch.models.model import build
+    from repro_torch.train import optimizer
+    from repro_torch.train.train_step import state_specs
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    model = build(cfg)
+
+    def data(sd):
+        if sd.dtype.is_floating_point:
+            return torch.randn(sd.shape, generator=gen, device="cuda").to(sd.dtype)
+        return torch.randint(0, cfg.vocab_size, sd.shape, generator=gen, device="cuda",
+                             dtype=sd.dtype)
+
+    out = []
+    for i, (sds, _) in enumerate(arguments):
+        if i == 0 and cell.kind == "train":
+            oc = optimizer.OptConfig(moments_dtype=cfg.moments_dtype)
+            params = model.init(gen)
+            out.append({"params": params, "opt": init_params(state_specs(model, oc)["opt"],
+                                                             gen, "cuda")})
+        elif i == 0:
+            if "params" not in made:
+                made["params"] = model.init(gen)
+            out.append(made["params"])
+        elif i == 1 and cell.kind == "decode":
+            out.append(tree.tree_map(lambda sd: torch.zeros(sd.shape, dtype=sd.dtype,
+                                                            device="cuda"), sds))
+        else:
+            out.append(tree.tree_map(data, sds))
+    return out
+
+
+def dryrun_check(label, cfg, cell, mesh, made, card):
+    """One of phase 17's runs: the trace on fake tensors, then the same
+    step on the card (its placed arguments, its peak, its FLOPs, its
+    collectives).  Returns the printed figures."""
+    from repro_torch import tree
+    from repro_torch.analysis import roofline as roof
+    from repro_torch.launch import dryrun as D
+
+    t0 = time.perf_counter()
+    rl, memory = D.trace_step(cfg, cell, mesh)
+    trace_s = time.perf_counter() - t0
+    step, arguments = D.cell_step(cfg, cell, mesh)
+
+    def held():  # (bytes allocated, bytes requested) of live tensors on the card
+        stats = torch.cuda.memory_stats()
+        return stats["allocated_bytes.all.current"], stats["requested_bytes.all.current"]
+
+    key = (cfg.name, cfg.n_layers)
+    if made.get("key") != key:  # new weights: the card's use before them is the base
+        made.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = made.get("base") or held()
+    args = dryrun_arguments(cfg, cell, arguments, made)
+    if cell.kind != "train":
+        made.update(key=key, base=base)
+    gc.collect()
+    torch.cuda.synchronize()
+    placed, requested = (b - b0 for b, b0 in zip(held(), base))
+    leaves = [x for a in args for _, x in tree.leaves(a)]
+    # the allocator rounds a request up to 512 bytes, and leaves a block
+    # of the large pool (over 1 MiB) whole where the rest would be under
+    # 1 MiB: the most it can add to each tensor
+    slack = sum(511 + (2**20 if x.nbytes > 2**20 else 0) for x in leaves)
+    traced_args = memory["argument_bytes"]
+    check(requested == traced_args and 0 <= placed - traced_args <= slack,
+          f"17 {label}: the placed arguments take {placed} bytes on the card ({requested} "
+          f"requested), the dry run counts {traced_args} ({len(leaves)} tensors)")
+    n_tensors = len(leaves)
+    torch.cuda.reset_peak_memory_stats()
+    with ModelCollectives() as calls:
+        out = step(*args)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base[0]
+    del out
+    gc.collect()
+    predicted = traced_args + memory["temp_bytes"]
+    ratio = peak / predicted
+    check(DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1],
+          f"17 {label}: max_memory_allocated over the step {peak} bytes, the dry run's argument "
+          f"+ temp {predicted}: ratio {ratio:.4f} outside {DRYRUN_PEAK_BAND}")
+    on_card = roof.from_step(step, *args)
+    check(on_card.flops == rl.flops,
+          f"17 {label}: from_step on the card counts {on_card.flops} FLOPs, the dry run {rl.flops}")
+    issued = {k: n for k, n in calls.counts.items() if k[2] == "issued"}
+    n_skipped = sum(calls.counts.values())
+    check(not issued and calls.counter.records() == rl.coll_detail["calls"] and n_skipped > 0,
+          f"17 {label}: collectives on the card {calls.counter.records()}, in the dry run "
+          f"{rl.coll_detail['calls']}")
+    del args
+    print(f"17 {label} {cfg.name} (depth {cfg.n_layers}, B={cell.global_batch} x "
+          f"{cell.seq_len}): traced in {trace_s:.2f} s; argument bytes {traced_args} traced, "
+          f"{placed} allocated on the card ({placed - traced_args} bytes of rounding over "
+          f"{n_tensors} tensors, at most {slack}); argument + temp {predicted} traced against "
+          f"max_memory_allocated {peak} over the step: ratio {ratio:.4f} (band "
+          f"{DRYRUN_PEAK_BAND}); {requested} bytes requested = traced; "
+          f"FLOPs {rl.flops:.6g} traced = from_step on the card; "
+          f"{n_skipped} collectives, all skipped on the mesh of one, each (name, axes) "
+          f"counted as traced ({card})",
+          flush=True)
+    return {"argument_bytes": traced_args, "allocated": placed, "temp_bytes":
+            memory["temp_bytes"], "peak": peak, "ratio": ratio, "flops": rl.flops}
+
+
+def dryrun_phase(card):
+    """Phase 17 (the module docstring): the production-mesh traces of
+    qwen3-1.7b x train_4k start first, in two processes on the host, while
+    phase 16's runs are traced and run on the mesh of one."""
+    import dataclasses
+    import os
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as D
+
+    t0 = time.perf_counter()
+    tag = "chip_smoke"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    procs = {mk: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", QWEN, "--shape",
+         "train_4k", "--mesh", mk, "--tag", tag, "--force"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for mk in ("single", "multi")}
+    try:
+        made = {}
+        with world_of_one() as mesh:
+            for label, (arch, layers, (seq, batch, kind)) in DRYRUN_RUNS.items():
+                cfg = get_config(arch)
+                if layers is not None:
+                    cfg = dataclasses.replace(cfg, n_layers=layers)
+                dryrun_check(label, cfg, ShapeConfig(f"phase17_{label}", seq, batch, kind),
+                             mesh, made, card)
+        made.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        for mk, proc in procs.items():
+            log, _ = proc.communicate(timeout=600)
+            check(proc.returncode == 0, f"17: the {mk} dry run exited {proc.returncode}:\n"
+                                        f"{log[-3000:]}")
+            rec = json.loads(D.artifact_path(QWEN, "train_4k", mk, tag).read_text())
+            mem, r = rec["memory"], rec["roofline"]
+            axes = {a: f"{b / 2**30:.3f} GiB" for a, b in
+                    sorted(r["coll_detail"]["by_axes"].items())}
+            print(f"17 {QWEN} x train_4k on the {mk} mesh ({rec['chips']} devices), traced in "
+                  f"{rec['trace_s']} s on the host: per device arguments "
+                  f"{mem['argument_bytes'] / 2**30:.3f} GiB, temp {mem['temp_bytes'] / 2**30:.3f} "
+                  f"GiB (peak {mem['peak_state_bytes_per_chip'] / 2**30:.3f} GiB); compute "
+                  f"{r['t_compute_s'] * 1e3:.3f} ms, memory {r['t_memory_s'] * 1e3:.3f} ms, "
+                  f"collective {r['t_collective_s'] * 1e3:.3f} ms (H100 SXM peaks at 700 W, "
+                  f"NVLink 450 GB/s within a node, InfiniBand 50 GB/s across); bottleneck "
+                  f"{r['bottleneck']}; collective bytes by axes {axes}; useful FLOP ratio "
+                  f"{rec['useful_flop_ratio']:.4f}", flush=True)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    print(f"phase 17: the mesh of one {t1 - t0:.1f} s, the production meshes' traces "
+          f"{time.perf_counter() - t1:.1f} s more", flush=True)
+
+
 def global_loads(name):
     """The global-load instructions of ``csrc/<name>.cu``'s build, by SASS
     opcode (``cuobjdump -sass``): where ``slot_scan`` reads the DRAM backing
@@ -7079,6 +7276,11 @@ def main(argv):
         lm_mesh_phase(card)
         print(card)
         return 0
+    if argv == ["--phase", "17"]:  # phase 17 alone (it builds no kernel): no result line
+        phase("17 the dry run against the card on the mesh of one")
+        dryrun_phase(card)
+        print(card)
+        return 0
     if argv == ["--phase", "14"]:  # phase 14 alone: no result line
         t0 = time.perf_counter()
         kbuild.build_all(["ssm_scan"])
@@ -7090,8 +7292,8 @@ def main(argv):
         train_phase(card)
         print(card)
         return 0
-    check(not argv, f"arguments {argv}: none, --phase 13, --phase 14, --phase 15 or "
-                    f"--phase 16")
+    check(not argv, f"arguments {argv}: none, --phase 13, --phase 14, --phase 15, "
+                    f"--phase 16 or --phase 17")
     t0 = time.perf_counter()
     built = kbuild.build_all(SOURCES)
     print(f"built {sorted(built) or 'nothing (cached)'} in "
@@ -7187,6 +7389,8 @@ def main(argv):
     phase("16 the LM mesh paths on the mesh of one card")
     for name, n in lm_mesh_phase(card, depth1=False).items():
         launches[name] += n
+    phase("17 the dry run against the card on the mesh of one")
+    dryrun_phase(card)
 
     for row in rows:
         row["launches"] = launches[row["name"]]

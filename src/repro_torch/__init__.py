@@ -35,9 +35,14 @@ mesh (``make_train_step(mesh=)``), ``device_batch_at(mesh=)`` and
 weight over 'model' as its partition spec splits it (attention heads, the
 MLP's ff axis, the vocab, Mamba's ``d_inner``), served and trained;
 split-KV decode (every attention cache held as its partition spec splits
-it, the decode softmax combined over the ranks); and one-card FLOP
-accounting (``analysis.roofline``).  Still to come (ROADMAP): a
-counterpart of the reference's ``launch/dryrun.py`` (item 15).
+it, the decode softmax combined over the ranks); one-card FLOP
+accounting (``analysis.roofline``); and the multi-pod dry run
+(``launch.dryrun``): every (arch x shape x production mesh) cell's step
+run as rank 0 of a fake world of 256 or 512 on fake tensors, its memory,
+FLOPs and collective bytes per device counted as it runs
+(``analysis.comm_cost``, ``roofline.from_trace``), the counterpart of the
+reference's ``launch/dryrun.py`` and ``analysis/hlo_cost.py``.  The port
+now does everything the JAX package does.
 
 Entry points put state on ``cuda`` unless the caller passes
 ``device="cpu"``; with no GPU they raise instead of moving to the CPU.

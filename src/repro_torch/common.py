@@ -101,6 +101,15 @@ class NamedSharding:
     spec: P
 
 
+def dispatch_mode_on() -> bool:
+    """True while a ``TorchDispatchMode`` is on: a counter of
+    ``analysis.roofline`` or ``comm_cost``, or fake tensors'
+    (``launch/dryrun.py``).  The Mamba-1 scan, its backward and the chunked
+    prefill attention then reach the dispatcher as one custom op each;
+    otherwise they run their code directly."""
+    return torch._C._len_torch_dispatch_stack() > 0
+
+
 def entry_axes(entry) -> tuple[str, ...]:
     """A spec entry's axis names: () for None, a name as a 1-tuple."""
     if entry is None:

@@ -13,13 +13,27 @@ kernel (both of its functions), ``selective_scan_fused.launches`` of the
 fused one and ``selective_scan_fused_bwd.launches`` of its backward, so a
 run can show that its scans went through the kernels.
 ``selective_scan_fused`` is differentiable (``SelectiveScanFused``).
+
+Under a dispatch mode (``common.dispatch_mode_on``: a counter of
+``analysis.roofline``, fake tensors) the fused scan and its backward each
+reach the dispatcher as one custom op
+(``torch.ops.repro_torch.selective_scan_fused`` and ``..._bwd``), whose
+kernel is the code above and whose fake implementation gives the outputs'
+shapes: a counter sees a scan as one op (``analysis.roofline``'s byte
+count reads each input once and writes each output once, the kernel's
+traffic), and under fake tensors (``launch/dryrun.py``) a scan is traced as
+one op, not as the plain version's S steps.  With no mode on they run
+their code directly, as the main paths do.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
+from torch import Tensor
 
+from repro_torch.common import dispatch_mode_on
 from repro_torch.kernels import LOCK, build, count_launch
 from repro_torch.kernels.ssm_scan import ref
 
@@ -153,6 +167,24 @@ def selective_scan_fused(dt, x, b, c, a, h0=None, d_skip=None, chunk=None):
 
 
 def _fused(dt, x, b, c, a, h0, d_skip, chunk):
+    if dispatch_mode_on():  # one op for the modes (the module docstring)
+        return _fused_op(dt, x, b, c, a, h0, d_skip, chunk)
+    return _fused_run(dt, x, b, c, a, h0, d_skip, chunk)
+
+
+@torch.library.custom_op("repro_torch::selective_scan_fused", mutates_args=())
+def _fused_op(dt: Tensor, x: Tensor, b: Tensor, c: Tensor, a: Tensor, h0: Optional[Tensor],
+              d_skip: Optional[Tensor], chunk: Optional[int]) -> tuple[Tensor, Tensor]:
+    return _fused_run(dt, x, b, c, a, h0, d_skip, chunk)
+
+
+@_fused_op.register_fake
+def _(dt, x, b, c, a, h0, d_skip, chunk):
+    bsz, s, d = dt.shape
+    return dt.new_empty((bsz, s, d)), dt.new_empty((bsz, d, b.shape[-1]))
+
+
+def _fused_run(dt, x, b, c, a, h0, d_skip, chunk):
     if dt.device.type == "cpu":  # the plain expansion, each chunk through selective_scan
         return ref.selective_scan_fused(dt, x, b, c, a, h0, d_skip, chunk,
                                         scan=selective_scan)
@@ -267,6 +299,33 @@ def _bwd_result(buf, x, dy, d_skip):
 
 
 def _fused_bwd(dt, x, b, c, a, h0, d_skip, dy, dh_last, chunk):
+    if dispatch_mode_on():  # one op for the modes (the module docstring)
+        grads = iter(_fused_bwd_op(dt, x, b, c, a, h0, d_skip, dy, dh_last, chunk))
+        return tuple(None if absent else next(grads)
+                     for absent in (False,) * 5 + (h0 is None, d_skip is None))
+    return _fused_bwd_run(dt, x, b, c, a, h0, d_skip, dy, dh_last, chunk)
+
+
+@torch.library.custom_op("repro_torch::selective_scan_fused_bwd", mutates_args=())
+def _fused_bwd_op(dt: Tensor, x: Tensor, b: Tensor, c: Tensor, a: Tensor, h0: Optional[Tensor],
+                  d_skip: Optional[Tensor], dy: Tensor, dh_last: Optional[Tensor],
+                  chunk: Optional[int]) -> list[Tensor]:
+    """The gradients ``_fused_bwd_run`` returns, the absent ones left out
+    (a custom op returns no None)."""
+    out = _fused_bwd_run(dt, x, b, c, a, h0, d_skip, dy, dh_last, chunk)
+    return [g for g in out if g is not None]
+
+
+@_fused_bwd_op.register_fake
+def _(dt, x, b, c, a, h0, d_skip, dy, dh_last, chunk):
+    bsz, s, d = dt.shape
+    n = b.shape[-1]
+    shapes = [(bsz, s, d), (bsz, s, d), (bsz, s, n), (bsz, s, n), (d, n)]
+    shapes += [(bsz, d, n)] * (h0 is not None) + [(d,)] * (d_skip is not None)
+    return [dt.new_empty(shp) for shp in shapes]
+
+
+def _fused_bwd_run(dt, x, b, c, a, h0, d_skip, dy, dh_last, chunk):
     if dt.device.type == "cpu":
         return ref.selective_scan_fused_bwd(dt, x, b, c, a, h0, d_skip, dy, dh_last, chunk)
     bsz, s, d = dt.shape

@@ -28,10 +28,12 @@ pair: greedy decoding over vocab blocks).
 A collective over axes whose size is 1 is skipped: it returns its input
 (``all_reduce``, ``gather``, ``reduce_scatter`` and every function built on
 them, forward and backward passes alike), so a mesh of one runs the
-single-device arithmetic.  Every collective asks ``_skip`` first, the one
-place a harness wraps to count them.  A sum of 16-bit floats is taken in
-float32 and rounded once, as XLA promotes the reference's bf16 all-reduces
-(and reduce-scatters) to float32.
+single-device arithmetic.  Every collective asks ``_skip`` first, and
+each one skipped or issued is noted, by name, axes and operand bytes, in
+the open ``analysis.comm_cost.CollectiveCounter``s (``_tally``), the one
+count of them.  A sum of 16-bit floats is taken in float32 and rounded
+once, as XLA promotes the reference's bf16 all-reduces (and
+reduce-scatters) to float32.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ import math
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch import tree
 
@@ -144,8 +147,9 @@ def axis_group(mesh, axes):
     _, cache = _GROUPS.setdefault(id(mesh), (mesh, {}))
     if axes not in cache:
         names = list(mesh.mesh_dim_names)
-        layout = mesh.mesh  # global ranks, shaped like the mesh
-        coords = {int(layout[c]): c for c in itertools.product(*map(range, layout.shape))}
+        with _disable_current_modes():  # a dry run's fake tensors stay out of it
+            layout = mesh.mesh  # global ranks, shaped like the mesh
+            coords = {int(layout[c]): c for c in itertools.product(*map(range, layout.shape))}
         if len(axes) == 1:
             group = mesh.get_group(axes[0])
         else:
@@ -166,13 +170,32 @@ def axis_group(mesh, axes):
 _HALF = (torch.bfloat16, torch.float16)  # summed in float32
 
 
+_TALLIES: list = []  # the open ``analysis.comm_cost.CollectiveCounter``s
+
+
+def _tally(op: str, mesh, axes, nbytes: int, skipped: bool = False):
+    """Note one call of the collective ``op`` (``_skip``'s names) over
+    ``axes``, named in the mesh's order, and its operand bytes in every
+    open counter."""
+    if _TALLIES:
+        group = tuple(a for a in mesh.mesh_dim_names if a in _axes(axes))
+        for t in _TALLIES:
+            t.add(op, group, nbytes, skipped)
+
+
 def _skip(op: str, mesh, axes) -> bool:
-    """True where ``axes``' size is 1: the collective ``op`` (its name, for
-    a wrapper that counts the calls) has nothing to exchange."""
-    return axis_size(mesh, _axes(axes)) == 1
+    """True where ``axes``' size is 1: the collective ``op`` (its name:
+    "all_gather", "argmax", "all_reduce", "all_reduce_max" or
+    "reduce_scatter") has nothing to exchange, and is counted as
+    skipped."""
+    one = axis_size(mesh, _axes(axes)) == 1
+    if one:
+        _tally(op, mesh, axes, 0, skipped=True)
+    return one
 
 
-def _gather(x, mesh, axes, dim):
+def _gather(x, mesh, axes, dim, op="all_gather"):
+    _tally(op, mesh, axes, x.nbytes)
     group, order = axis_group(mesh, axes)
     parts = [torch.empty_like(x) for _ in order]
     dist.all_gather(parts, x.contiguous(), group=group)
@@ -195,14 +218,17 @@ def all_reduce(x: torch.Tensor, mesh, axes, op=None, inplace=False) -> torch.Ten
     new tensor, or ``x`` itself (contiguous) with ``inplace``; ``x`` itself
     over axes of size 1."""
     op = dist.ReduceOp.SUM if op is None else op
-    if _skip("all_reduce" if op == dist.ReduceOp.SUM else "all_reduce_max", mesh, axes):
+    name = "all_reduce" if op == dist.ReduceOp.SUM else "all_reduce_max"
+    if _skip(name, mesh, axes):
         return x
     group, _ = axis_group(mesh, axes)
     if op == dist.ReduceOp.SUM and x.dtype in _HALF:
         out = x.float()
+        _tally(name, mesh, axes, out.nbytes)
         dist.all_reduce(out, op=op, group=group)
         return x.copy_(out) if inplace else out.to(x.dtype)
     out = x if inplace else x.clone(memory_format=torch.contiguous_format)
+    _tally(name, mesh, axes, out.nbytes)
     dist.all_reduce(out, op=op, group=group)
     return out
 
@@ -214,6 +240,7 @@ def reduce_scatter(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
         return x
     group, order = axis_group(mesh, axes)
     wide = x.float() if x.dtype in _HALF else x
+    _tally("reduce_scatter", mesh, axes, wide.nbytes)
     chunks = wide.chunk(len(order), dim=dim)
     out = torch.empty_like(chunks[0], memory_format=torch.contiguous_format)
     dist.reduce_scatter(out, [chunks[b].contiguous() for b in order], group=group)
@@ -297,6 +324,6 @@ def argmax(x: torch.Tensor, mesh, axes, offset: int) -> torch.Tensor:
     val, idx = x.detach().gather(-1, idx), idx + offset
     if _skip("argmax", mesh, axes):
         return idx[..., 0]
-    vals, idxs = _gather(val.float(), mesh, _axes(axes), -1), _gather(idx, mesh, _axes(axes), -1)
+    vals, idxs = (_gather(t, mesh, _axes(axes), -1, "argmax") for t in (val.float(), idx))
     best = vals.amax(-1, keepdim=True)
     return torch.where(vals == best, idxs, torch.iinfo(torch.int64).max).amin(-1)

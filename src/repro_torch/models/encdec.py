@@ -134,7 +134,7 @@ def _dec_layer(cfg, lp, x, policy, *, mode, cache, xkv, pos, mesh=None, kv_spec=
     q = torch.einsum("bsd,dhk->bshk", xq, lp["xattn"]["wq"].to(cdt))
     if q.shape[1] == 1:  # the memory's blocks where xkv_spec splits it (split-KV)
         length = xkv[0].shape[1] * (1 if xkv_spec is None
-                                    else M.axis_size(mesh, entry_axes(xkv_spec[1])))
+                                    else M.axis_size(mesh, entry_axes(xkv_spec.spec[1])))
         o = decode_read(q, *xkv, length, hd, mesh, xkv_spec)
     else:
         xk, xv = (L.select_kv(t, hd) for t in xkv)

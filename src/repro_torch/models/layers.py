@@ -44,11 +44,15 @@ single device's.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+from typing import NamedTuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.common import P, ParamSpec
+from repro_torch.analysis.roofline import _ByteCounter, register_byte_formula
+from repro_torch.common import P, ParamSpec, dispatch_mode_on, entry_axes
 from repro_torch.launch import mesh as M
 
 _F32 = torch.float32
@@ -334,11 +338,21 @@ def row_axes(mesh) -> tuple[str, ...]:
     return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
 
 
-def kv_spec(entry) -> P:
-    """The (B, S, Hkv, Dh) pspec of one layer's k or v from a stacked
-    attention cache entry's pspec pair (its batch, sequence, kv-head and
-    head-dim entries; the stacking axes dropped)."""
-    return P(*list(entry[0])[-4:])
+class KVLayout(NamedTuple):
+    """One attention layer's decode layout: ``spec`` the (B, S, Hkv, Dh)
+    pspec of its k or v, ``rows`` the axes the step's batch is split over
+    (() where every rank holds the whole batch)."""
+
+    spec: P
+    rows: tuple[str, ...]
+
+
+def kv_spec(entry, batch: P) -> KVLayout:
+    """One layer's ``KVLayout`` from a stacked attention cache entry's
+    pspec pair (its batch, sequence, kv-head and head-dim entries; the
+    stacking axes dropped) and the decode layout's "batch" pspec (the
+    step's rows, ``model.decode_layout``)."""
+    return KVLayout(P(*list(entry[0])[-4:]), entry_axes(batch[0]))
 
 
 def block_scores(q, k_block, offset: int, length):
@@ -452,11 +466,103 @@ class FlashAttentionTrain(torch.autograd.Function):
 def flash_prefill_attention(q, k, v, *, chunk_q=512, chunk_k=512):
     """Causal chunked-flash attention for long prefill: the reference's
     triangular (i, j) chunk-pair online softmax (``_flash_fwd_core``), with
-    no gradient path."""
+    no gradient path.  Under a dispatch mode (``common.dispatch_mode_on``)
+    the loop runs inside one custom op (``torch.ops.repro_torch.flash_prefill``):
+    a counter sees one op whose FLOPs are the loop's two products per chunk
+    pair (``_flash_prefill_flops``) and whose bytes are the loop's
+    (``_flash_prefill_bytes``: the port has no fused prefill kernel), and
+    under fake tensors (``launch/dryrun.py``) it is traced as one op, not as
+    the 2080 chunk pairs of a 32k prompt.  With no mode on the loop runs
+    directly."""
     sq, sk = q.shape[1], k.shape[1]
     cq, ck = min(chunk_q, sq), min(chunk_k, sk)
     assert sq % cq == 0 and sk % ck == 0
+    if dispatch_mode_on():
+        return _flash_prefill(q, k, v, cq, ck)
+    return _flash_prefill_run(q, k, v, cq, ck)
+
+
+def _flash_prefill_run(q, k, v, cq, ck):
     return _flash_fwd_core(q, k, v, cq, ck)[0].transpose(1, 2).to(q.dtype)
+
+
+@torch.library.custom_op("repro_torch::flash_prefill", mutates_args=())
+def _flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cq: int,
+                   ck: int) -> torch.Tensor:
+    return _flash_prefill_run(q, k, v, cq, ck)
+
+
+@_flash_prefill.register_fake
+def _(q, k, v, cq, ck):
+    b, sq, h, dh = q.shape
+    return q.new_empty((b, h, sq, dh)).transpose(1, 2)
+
+
+def _flash_pairs(rows, cq, ck) -> int:
+    """The chunk pairs ``_flash_fwd_core`` visits for ``rows`` query chunks."""
+    return sum((i + 1) * cq // ck for i in range(rows))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_prefill)
+def _flash_prefill_flops(q_shape, k_shape, v_shape, cq, ck, *args, **kwargs) -> int:
+    """Two (cq x Dh) by (Dh x ck) products per chunk pair and head, as
+    ``FlopCounterMode`` counts the loop's einsums."""
+    b, sq, h, dh = q_shape
+    return _flash_pairs(sq // cq, cq, ck) * 2 * (2 * b * h * cq * ck * dh)
+
+
+@register_byte_formula(torch.ops.repro_torch.flash_prefill)
+def _flash_prefill_bytes(q, k, v, cq, ck) -> int:
+    """The bytes the loop's ops move, as ``roofline``'s byte counter counts
+    them: its (B, H, cq, ck) float32 score tiles and their elementwise
+    passes, each chunk pair's, as the eager loop writes them to memory."""
+    layout = tuple((tuple(t.shape), tuple(t.stride()), t.dtype) for t in (q, k, v))
+    return _flash_loop_bytes(layout, cq, ck)
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_loop_bytes(layout, cq, ck) -> int:
+    """``_flash_prefill_bytes`` for q, k, v of these (shape, stride, dtype)s.
+    Every chunk pair runs the same ops on tiles of the same shapes, and so
+    does every query chunk outside its pairs (its accumulators, its
+    normalisation, its share of the concatenation and the cast), so the
+    bytes are c + rows r + pairs p: the loop is counted on fake tensors of
+    the same strides cut to 1, 2 and 3 query chunks (or whole, if it has no
+    more), and c, r and p solved for.  It is counted on a thread of its
+    own, where no dispatch mode or handler is on: inside a mode's handler
+    (where the formula is called) the dispatcher would not decompose the
+    composite ops (``einsum``, ``where``) that a call of the loop runs
+    through."""
+    import concurrent.futures
+
+    assert cq % ck == 0, (cq, ck)
+    rows = layout[0][0][1] // cq
+    counts = (rows,) if rows <= 3 else (1, 2, 3)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        totals = pool.submit(_count_flash_loop, layout, cq, ck, counts).result()
+    if rows <= 3:
+        return totals[0]
+    t1, t2, t3 = totals
+    p1, p2, p3 = (_flash_pairs(n, cq, ck) for n in counts)
+    p = ((t3 - t2) - (t2 - t1)) // ((p3 - p2) - (p2 - p1))
+    r = (t2 - t1) - (p2 - p1) * p
+    return t1 - r - p1 * p + rows * r + _flash_pairs(rows, cq, ck) * p
+
+
+def _count_flash_loop(layout, cq, ck, counts) -> list[int]:
+    """The bytes of ``_flash_prefill_run`` on fake q, k, v of ``layout`` cut
+    to each of ``counts`` query chunks."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    totals = []
+    with FakeTensorMode():
+        q, k, v = (torch.empty_strided(shape, stride, dtype=dtype)
+                   for shape, stride, dtype in layout)
+        for n in counts:
+            with _ByteCounter() as moved:
+                _flash_prefill_run(*(t[:, :n * cq] for t in (q, k, v)), cq, ck)
+            totals.append(moved.bytes)
+    return totals
 
 
 def flash_attention_train(q, k, v, chunk_q=512, chunk_k=512):

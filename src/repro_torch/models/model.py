@@ -111,14 +111,16 @@ class Model:
         """One token for every sequence in the batch. Returns (logits, cache).
         Over ``mesh`` the cache is in ``layout`` (``decode_layout``'s pspec
         tree, which it must be given: a block's shape cannot tell a split
-        cache from a short whole one), and so is the cache returned."""
+        cache from a short whole one, nor a rank's rows from a whole small
+        batch), and so is the cache returned."""
         cfg = self.cfg
         if (mesh is None) != (layout is None):
             raise ValueError("decode_step takes the cache's layout (models.model."
                              "decode_layout) exactly when it runs over a mesh")
         if cfg.family == "encdec":
-            kv = {} if layout is None else {"kv_spec": L.kv_spec(layout["self"]),
-                                            "xkv_spec": L.kv_spec(layout["cross"])}
+            kv = {} if layout is None else {
+                "kv_spec": L.kv_spec(layout["self"], layout["batch"]),
+                "xkv_spec": L.kv_spec(layout["cross"], layout["batch"])}
             h, self_c = ED.decode_forward(cfg, params, batch["tokens"], self.policy,
                                           mode="decode", cache=cache["self"],
                                           xkv=cache["cross"], pos=pos, mesh=mesh, **kv)
@@ -344,7 +346,8 @@ def attn_cache_keys(cfg: ModelConfig) -> list[tuple[str, ...]]:
     return []
 
 
-def decode_layout(model: Model, mesh, batch: int, length: int, cross_length: int | None = None):
+def decode_layout(model: Model, mesh, batch: int, length: int, cross_length: int | None = None,
+                  rows: bool = True):
     """The decode cache's layout over ``mesh``: ``cache_specs``' pspec tree at
     the cache's global ``batch`` and sequence ``length`` at the mesh's
     'model' size, filtered to the mesh's axes (as ``run_pspecs`` filters the
@@ -352,7 +355,10 @@ def decode_layout(model: Model, mesh, batch: int, length: int, cross_length: int
     ``cross_length`` positions (the config's audio frames, a decode cell's,
     unless given), as ``cache_specs`` lays out a cell's memory.  Each rank
     holds its block of every leaf: a stacked attention entry's rows, kv
-    heads and positions where the pspec splits them.
+    heads and positions where the pspec splits them.  Its "batch" entry is
+    the step's batch: split over the batch axes (``layers.row_axes``) where
+    ``rows``, each rank its rows as ``greedy_generate(mesh=)`` serves
+    them; else whole on every rank (a batch they do not divide).
 
     Raises ``ValueError``, with the substance of ``jax.device_put``'s
     message, where a pspec splits a dim its axes do not divide: the
@@ -369,4 +375,5 @@ def decode_layout(model: Model, mesh, batch: int, length: int, cross_length: int
     layout = T.tree_map(lambda ps: filter_pspec(ps, mesh), pss)
     for (_, sd), (_, ps) in zip(T.leaves(sds), T.leaves(layout)):
         check_divisible(tuple(sd.shape), named(mesh, ps))
+    layout["batch"] = P(L.row_axes(mesh) if rows else None)
     return layout

@@ -37,7 +37,6 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.common import P, ParamSpec, spec_map
 from repro_torch.launch import mesh as M
@@ -119,12 +118,16 @@ def _route(cfg, p, x2d):
 
 def _positions_in_expert(experts, n_experts):
     """Each (token, k)'s slot within its expert: token-major, k-minor
-    arrival order, by a cumulative sum of one-hot rows (no sort)."""
+    arrival order, by a cumulative sum of one-hot rows (no sort).  The rows
+    are a comparison with the expert ids, where ``F.one_hot`` would read
+    its input's range back to the host (and take another path on fake
+    tensors than on real ones)."""
     t, kk = experts.shape
     base = torch.zeros((n_experts,), dtype=torch.int32, device=experts.device)
+    ids = torch.arange(n_experts, device=experts.device)
     pos = []
     for k in range(kk):
-        oh = F.one_hot(experts[:, k].long(), n_experts).to(torch.int32)  # (T, E)
+        oh = (experts[:, k, None].long() == ids).to(torch.int32)  # (T, E)
         within = torch.cumsum(oh, dim=0, dtype=torch.int32) - 1
         pos.append(((within * oh).sum(-1) + base[experts[:, k].long()]).to(torch.int32))
         base = base + oh.sum(0, dtype=torch.int32)

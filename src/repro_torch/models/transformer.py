@@ -154,16 +154,18 @@ def decode_write(k, v, cache, pos, mesh=None, kv_spec=None):
     fits, so a cache with no room left (no ``pad_to``) has its last
     position overwritten while attention reads ``pos + 1`` positions (all
     of them; ROADMAP F2).  Over ``mesh`` the cache is the blocks
-    ``kv_spec`` lays out, and the write lands on the rank whose block holds
-    the position; where the cache holds every row, the step's rows (this
-    rank's) are gathered over the batch axes first, so every rank of a
-    block writes the same rows.  Without ``kv_spec`` the cache is whole."""
+    ``kv_spec`` (a ``layers.KVLayout``) lays out, and the write lands on
+    the rank whose block holds the position; where the cache holds every
+    row and the step this rank's rows, they are gathered over the batch
+    axes first, so every rank of a block writes the same rows.  Without
+    ``kv_spec`` the cache is whole."""
     k_cache, v_cache = cache
     blk, n, idx = k_cache.shape[1], 1, 0
     if kv_spec is not None:
-        if kv_spec[0] is None:
-            k, v = (M.gather(t, mesh, L.row_axes(mesh), 0) for t in (k, v))
-        seq_axes = entry_axes(kv_spec[1])
+        spec, rows = kv_spec
+        if spec[0] is None and rows:
+            k, v = (M.gather(t, mesh, rows, 0) for t in (k, v))
+        seq_axes = entry_axes(spec[1])
         n, idx = M.axis_size(mesh, seq_axes), M.axis_index(mesh, seq_axes)
     at = min(pos, blk * n - 1) - idx * blk
     k_cache, v_cache = k_cache.clone(), v_cache.clone()
@@ -177,22 +179,26 @@ def decode_read(q, k_cache, v_cache, length, hd, mesh=None, kv_spec=None):
     """Decode attention of q (B, 1, Hq, Dh) (this rank's query heads ``hd``)
     against ``length`` valid global positions of the cache: without
     ``kv_spec`` the whole cache, ``_grouped_decode_attention``.  Over
-    ``mesh`` the cache is the blocks ``kv_spec`` lays out and the softmax is
-    combined over the sequence's axes (``_split_decode_attention``).  Where
-    the sequence is split over an axis that also splits the queries (the
-    rows over 'data' where the cache holds every row, the query heads over
+    ``mesh`` the cache is the blocks ``kv_spec`` (a ``layers.KVLayout``)
+    lays out and the softmax is combined over the sequence's axes
+    (``_split_decode_attention``).  Where the sequence is split over an
+    axis that also splits the queries (the rows over 'data' where the cache
+    holds every row and the step this rank's rows, the query heads over
     'model' where it holds every kv head) q is gathered over that axis,
     every query's partial computed and combined, and this rank's rows and
     heads kept; where the cache holds every row and the sequence is not
-    split over the batch axes, the rank's own rows of it are read."""
+    split over the batch axes, the rank's own rows of it are read.  A step
+    that holds the whole batch reads the cache's rows as they are."""
     if kv_spec is None:
         return _grouped_decode_attention(q, L.select_kv(k_cache, hd), L.select_kv(v_cache, hd),
                                          length)
-    rows, seq_axes = L.row_axes(mesh), entry_axes(kv_spec[1])
+    spec, rows = kv_spec
+    seq_axes = entry_axes(spec[1])
     b = q.shape[0]
-    q_rows = tuple(a for a in rows if a in seq_axes) if kv_spec[0] is None else ()
+    by_rows = spec[0] is None and bool(rows)  # q: this rank's rows; the cache: every row
+    q_rows = tuple(a for a in rows if a in seq_axes) if by_rows else ()
     q = M.gather(q, mesh, q_rows, 0)
-    if kv_spec[0] is None:
+    if by_rows:
         keep, n = tuple(a for a in rows if a not in q_rows), q.shape[0]
         k_cache, v_cache = (t.narrow(0, M.axis_index(mesh, keep) * n, n)
                             for t in (k_cache, v_cache))
@@ -383,7 +389,7 @@ def forward(cfg, params, batch, policy, *, mode, mesh=None, fsdp=False, cache=No
             stacks = ["dense_layers", "layers"]
         for name in stacks:
             outs = []
-            kv = None if layout is None else L.kv_spec(layout[name])
+            kv = None if layout is None else L.kv_spec(layout[name], layout["batch"])
             for i, lp in enumerate(_layers(params[name])):
                 c = _layer(cache[name], i) if decode else None
                 if fam == "moe" and name == "layers":
@@ -407,7 +413,7 @@ def forward(cfg, params, batch, policy, *, mode, mesh=None, fsdp=False, cache=No
             outs.append(c_out)
         new_cache["layers"] = None if train else T.stack(outs)
     elif fam == "hybrid":
-        kv = None if layout is None else L.kv_spec(layout["groups"]["attn"])
+        kv = None if layout is None else L.kv_spec(layout["groups"]["attn"], layout["batch"])
         h, new_cache["groups"] = _hybrid_groups(cfg, params, h, policy, cache, kw, run, mesh, kv)
     else:
         raise ValueError(fam)

@@ -83,10 +83,11 @@ def _pad_seq(cfg, cache, seq, batch, pad_to, mesh=None, layout=None):
     """Zero-pad every sequence-addressed cache leaf to ``pad_to`` positions
     (None: leave the lengths).  Over ``mesh`` (with ``layout``, the
     decode layout at the global batch and length ``pad_to or seq``) the
-    prefill's cache, this rank's rows, becomes the decode step's blocks:
-    each attention entry (the encdec cross memory too) gathered over the
-    batch axes where its pspec keeps the batch whole and cut to this
-    rank's block of positions where it splits the sequence."""
+    prefill's cache, the step's rows (the layout's "batch"), becomes the
+    decode step's blocks: each attention entry (the encdec cross memory
+    too) gathered over the batch axes where its pspec keeps the batch whole
+    and the step holds this rank's rows, and cut to this rank's block of
+    positions where it splits the sequence."""
     axes = dict(zip([p for p, _ in T.leaves(cache)], cache_seq_axes(cfg, cache, seq, batch)))
 
     def pad(path, x):
@@ -102,10 +103,12 @@ def _pad_seq(cfg, cache, seq, batch, pad_to, mesh=None, layout=None):
         return cache
     from repro_torch.models.model import attn_cache_keys
 
+    rows = entry_axes(layout["batch"][0])
+
     def place(x, ps):
         b_dim = x.dim() - 4  # (..., B, S, Hkv, Dh)
-        if ps[b_dim] is None:
-            x = M.gather(x, mesh, L.row_axes(mesh), b_dim)
+        if ps[b_dim] is None and rows:
+            x = M.gather(x, mesh, rows, b_dim)
         seq_axes = entry_axes(ps[b_dim + 1])
         blk = x.shape[b_dim + 1] // M.axis_size(mesh, seq_axes)
         return x.narrow(b_dim + 1, M.axis_index(mesh, seq_axes) * blk, blk).contiguous()

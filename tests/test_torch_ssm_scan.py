@@ -181,11 +181,19 @@ _WRAPPER = ops.selective_scan
 
 
 def _scan_state():
-    """What in the process could move either side of the comparison."""
+    """What in the process could move either side of the comparison: the
+    live threads, torch's intra-op thread count and whether a
+    ``torch.distributed`` group (a dry run's fake world) is open, the scan
+    the wrapper calls and the JAX numerics."""
+    import threading
+
     import jax
+    import torch.distributed as dist
 
     scan = ops.selective_scan
-    return dict(torch_threads=torch.get_num_threads(),
+    return dict(threads=sorted(t.name for t in threading.enumerate()),
+                torch_threads=torch.get_num_threads(),
+                process_group=dist.is_available() and dist.is_initialized(),
                 selective_scan=getattr(scan, "__qualname__", repr(scan)),
                 selective_scan_is_the_wrapper=scan is _WRAPPER,
                 jax_interpret=jax_ops.INTERPRET, jax_devices=len(jax.devices()),
