@@ -2762,7 +2762,10 @@ def profile_run(name, run, units, unit, unprofiled_s, top=8):
     host sync and returns after ``units()`` ``unit``s of work.  The
     profiler's own host cost inflates its wall time, so the busy share is
     also given against the same run unprofiled.  ``top``: how many kernels
-    to list by device time.  Returns (device seconds, {kernel: device
+    to list by device time.  A ``record_function`` range (the program's
+    host spans, ``repro_torch/obs/spans.py``) is mirrored on the device's
+    timeline as a user annotation whose device time is its whole span: it
+    is no kernel, and left out.  Returns (device seconds, {kernel: device
     seconds}), or None where the profile holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2773,7 +2776,8 @@ def profile_run(name, run, units, unit, unprofiled_s, top=8):
         run()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+               and not e.is_user_annotation]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     if busy == 0:
         print(f"{name} profile: device time not measured (no CUDA events)", flush=True)

@@ -64,6 +64,7 @@ import torch.distributed as dist
 from repro_torch import tree
 from repro_torch.core import channel as ch
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import spans
 from repro_torch.obs import trace as obs_trace
 from repro_torch.vp import platform as pf
 
@@ -81,7 +82,7 @@ def _device_get(x):
     card, numpy copies, each leaf copied without blocking into a pinned host
     buffer and the stream waited for once, however many leaves the fetch
     holds; a CPU tensor comes back as itself (``.cpu()``), to be read
-    before the next dispatch."""
+    before the next dispatch.  One ``dispatch.fetch`` span."""
     leaves, stream = [], None
 
     def get(t):
@@ -95,11 +96,12 @@ def _device_get(x):
         stream = torch.cuda.current_stream(t.device)
         return _PINNED[key].copy_(t, non_blocking=True)
 
-    out = tree.tree_map(get, x)
-    if stream is None:
-        return out
-    stream.synchronize()
-    return tree.tree_map(lambda b: b.numpy().copy(), out)
+    with spans.span(spans.FETCH):
+        out = tree.tree_map(get, x)
+        if stream is None:
+            return out
+        stream.synchronize()
+        return tree.tree_map(lambda b: b.numpy().copy(), out)
 
 
 # the single host-transfer primitive of the fused dispatch: one fetch of the
@@ -184,6 +186,10 @@ class Controller:
     device: object = None  # None = the GPU
 
     def __post_init__(self):
+        with spans.span(spans.INIT):
+            self._init()
+
+    def _init(self):
         self._pool = None  # the threads backend's workers, made below
         if self.backend not in ("sequential", "threads", "vmap", "shard_map"):
             raise ValueError(self.backend)
@@ -539,7 +545,7 @@ class Controller:
         dispatch graph (``kernels/dispatch_graph``): a WHILE node on the
         device-side ``running`` flag around a round, whose check sits in an
         IF node on ``at``.  A failure raises: there is no eager fallback.
-        Returns the seconds taken."""
+        Returns the seconds taken, its ``graph.capture`` span's."""
         from repro_torch.kernels.dispatch_graph import DispatchGraph
 
         if self.device.type != "cuda" or self.backend != "vmap":
@@ -547,26 +553,26 @@ class Controller:
                              f"{self.backend} on {self.device}")
         if self._graph is not None:
             return self.capture_seconds
-        t0 = _time.perf_counter()
-        scratch = _Dispatch(self.states, self.pending)
-        scratch.start(0, 1, 1)
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            self._round_body(scratch)
-            self._check_body(scratch)
-        current.wait_stream(side)
-        del scratch
-        d = self._buffers()
-        round_graph, check_graph = (torch.cuda.CUDAGraph(keep_graph=True) for _ in range(2))
-        with torch.cuda.graph(round_graph):
-            self._round_body(d)
-        with torch.cuda.graph(check_graph):
-            self._check_body(d)
-        self._graph = DispatchGraph(round_graph, check_graph, d.running, d.at)
-        torch.cuda.synchronize(self.device)
-        self.capture_seconds = _time.perf_counter() - t0
+        with spans.timed(spans.CAPTURE) as span:
+            scratch = _Dispatch(self.states, self.pending)
+            scratch.start(0, 1, 1)
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                self._round_body(scratch)
+                self._check_body(scratch)
+            current.wait_stream(side)
+            del scratch
+            d = self._buffers()
+            round_graph, check_graph = (torch.cuda.CUDAGraph(keep_graph=True) for _ in range(2))
+            with torch.cuda.graph(round_graph):
+                self._round_body(d)
+            with torch.cuda.graph(check_graph):
+                self._check_body(d)
+            self._graph = DispatchGraph(round_graph, check_graph, d.running, d.at)
+            torch.cuda.synchronize(self.device)
+        self.capture_seconds = span.seconds
         return self.capture_seconds
 
     def _buffers(self):
@@ -580,20 +586,22 @@ class Controller:
     def _dispatch(self, r0, k, check_every, on_telemetry=None):
         """One fused dispatch of up to ``k`` rounds; returns (rounds run,
         done, over) after one host fetch, which brings the trace rings too
-        when telemetry is on (their reset is a device fill, no sync)."""
+        when telemetry is on (their reset is a device fill, no sync).  The
+        capture, at the first, comes before the ``dispatch.issue`` span."""
         if self.device.type == "cuda":
             self.capture()
-        d = self._buffers()
-        # round() (or a caller) may have rebound the live trees: bring them
-        # into the buffers; a copy handed out before stays the caller's
-        _assign(d.states, self._states)
-        _assign(d.pending, self._pending)
-        self.states, self.pending = d.states, d.pending
-        d.start(r0, k, check_every)
-        if self._graph is not None:
-            self._graph.replay()
-        else:
-            self._eager(d)
+        with spans.span(spans.DISPATCH):
+            d = self._buffers()
+            # round() (or a caller) may have rebound the live trees: bring
+            # them into the buffers; a copy handed out before stays the caller's
+            _assign(d.states, self._states)
+            _assign(d.pending, self._pending)
+            self.states, self.pending = d.states, d.pending
+            d.start(r0, k, check_every)
+            if self._graph is not None:
+                self._graph.replay()
+            else:
+                self._eager(d)
         self.dispatches += 1
         if self.obs is None:
             ran, done, over = self._fetch(d.out).tolist()
@@ -970,23 +978,24 @@ class _JobMegaloop:
         from repro_torch.kernels.dispatch_graph import DispatchGraph
 
         dev = d.rounds.device
-        scratch = d.copy()
-        current = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            self._round_body(scratch)
-            self._check_body(scratch)
-        current.wait_stream(side)
-        torch.cuda.synchronize(dev)
-        del scratch
-        graphs = [torch.cuda.CUDAGraph(keep_graph=True) for _ in range(2)]
-        with torch.cuda.graph(graphs[0]):
-            self._round_body(d)
-        with torch.cuda.graph(graphs[1]):
-            self._check_body(d)
-        graph = DispatchGraph(graphs[0], graphs[1], d.running, d.at)
-        torch.cuda.synchronize(dev)
+        with spans.span(spans.CAPTURE):
+            scratch = d.copy()
+            current = torch.cuda.current_stream(dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                self._round_body(scratch)
+                self._check_body(scratch)
+            current.wait_stream(side)
+            torch.cuda.synchronize(dev)
+            del scratch
+            graphs = [torch.cuda.CUDAGraph(keep_graph=True) for _ in range(2)]
+            with torch.cuda.graph(graphs[0]):
+                self._round_body(d)
+            with torch.cuda.graph(graphs[1]):
+                self._check_body(d)
+            graph = DispatchGraph(graphs[0], graphs[1], d.running, d.at)
+            torch.cuda.synchronize(dev)
         return graph
 
     def __call__(self, states, pending, rounds, done, over, in_cap, out_cap, store_log,
@@ -997,35 +1006,46 @@ class _JobMegaloop:
         int32 tensors, all on the states' device; ``r0`` is the active
         jobs' shared round count and ``check_every`` the check period, as
         in ``Controller.run``.  Returns ``(states, pending, rounds, done,
-        over)``."""
+        over)``.  One ``dispatch.issue`` span; a width's first dispatch on
+        the card captures its graph from the loaded buffers before the span
+        opens."""
         dev = rounds.device
         key = (dev, rounds.shape[0])
         if key not in self._disp:
             self._disp[key] = [_JobDispatch(states, pending, rounds), None]
-        d = self._disp[key][0]
-        _assign(d.states, states)
-        _assign(d.pending, pending)
-        for dst, src in zip(d.carries(), (rounds, done, over)):
-            if src is not dst:
-                dst.copy_(src)
-        for row, cap in zip(d.caps, (in_cap, out_cap, store_log)):
-            row.copy_(cap)
-        for x, v in zip(d.args, (r0, k, check_every)):
-            x.fill_(v)
-        d.i.zero_()
-        if k > 0:
-            d.running.copy_((~(d.done | d.over)).any())
+        d, graph = self._disp[key]
+
+        def load():
+            _assign(d.states, states)
+            _assign(d.pending, pending)
+            for dst, src in zip(d.carries(), (rounds, done, over)):
+                if src is not dst:
+                    dst.copy_(src)
+            for row, cap in zip(d.caps, (in_cap, out_cap, store_log)):
+                row.copy_(cap)
+            for x, v in zip(d.args, (r0, k, check_every)):
+                x.fill_(v)
+            d.i.zero_()
+            if k > 0:
+                d.running.copy_((~(d.done | d.over)).any())
+            else:
+                d.running.fill_(False)
+
+        if dev.type == "cuda" and graph is None:
+            load()
+            graph = self._disp[key][1] = self._capture(d)
+            with spans.span(spans.DISPATCH):
+                graph.replay()
         else:
-            d.running.fill_(False)
-        if dev.type == "cuda":
-            if self._disp[key][1] is None:
-                self._disp[key][1] = self._capture(d)
-            self._disp[key][1].replay()
-        else:
-            while bool(d.running):
-                self._round_body(d)
-                if bool(d.at):
-                    self._check_body(d)
+            with spans.span(spans.DISPATCH):
+                load()
+                if graph is not None:
+                    graph.replay()
+                else:
+                    while bool(d.running):
+                        self._round_body(d)
+                        if bool(d.at):
+                            self._check_body(d)
         return d.states, d.pending, d.rounds, d.done, d.over
 
 

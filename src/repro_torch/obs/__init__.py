@@ -10,6 +10,9 @@ Module map:
                source of ``Controller.stats()`` and ``Controller.metrics()``
   export.py  — Chrome-trace/Perfetto JSON timelines and the NDJSON stream
                behind ``Controller.run(..., on_telemetry=...)``
+  spans.py   — host spans of the serving and controller layers (flush,
+               prep, issue, fetch, results, init, capture):
+               ``record_function`` events while a profiler records
 
 ``Controller(obs=None)`` (the default) leaves every emission out of the
 step; ``obs=TraceConfig(...)`` turns tracing on with results equal to the

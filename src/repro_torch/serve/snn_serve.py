@@ -40,6 +40,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.core import controller as ctl
+from repro_torch.obs import spans
 from repro_torch.obs import trace as obs_trace
 
 
@@ -181,10 +182,11 @@ class SnnServer:
     # -- execution ------------------------------------------------------
     def flush(self) -> dict:
         """Serve every queued request; returns ``{ticket: SnnResult}``."""
-        results = {}
-        queue, self._queue = self._queue, []
-        for key_cfg, entries in self._buckets_of(queue):
-            results.update(self._run_bucket(key_cfg, entries))
+        with spans.span(spans.FLUSH):
+            results = {}
+            queue, self._queue = self._queue, []
+            for key_cfg, entries in self._buckets_of(queue):
+                results.update(self._run_bucket(key_cfg, entries))
         return results
 
     def _buckets_of(self, queue):
@@ -198,41 +200,42 @@ class SnnServer:
                 yield key_cfg, entries[i:i + self.bucket_size]
 
     def _run_bucket(self, key_cfg, entries):
-        reqs = [e[1] for e in entries]
-        bucket_cfg = dataclasses.replace(
-            key_cfg,
-            in_cap=max(r.cfg.in_cap for r in reqs),
-            out_cap=max(r.cfg.out_cap for r in reqs),
-            store_log=max(r.cfg.store_log for r in reqs),
-        )
-        n = len(entries)
-        width = self._pad_width(n)
-        dev = self.device
+        with spans.span(spans.PREP):
+            reqs = [e[1] for e in entries]
+            bucket_cfg = dataclasses.replace(
+                key_cfg,
+                in_cap=max(r.cfg.in_cap for r in reqs),
+                out_cap=max(r.cfg.out_cap for r in reqs),
+                store_log=max(r.cfg.store_log for r in reqs),
+            )
+            n = len(entries)
+            width = self._pad_width(n)
+            dev = self.device
 
-        def prep(req):
-            st = tree.tree_map(lambda x: x.to(dev), req.states)
-            if self.obs is not None and "trace" not in st:
-                st = {**st, "trace": obs_trace.ring_state(
-                    int(self.obs.capacity), (bucket_cfg.n_segments,), dev)}
-            pen = tree.tree_map(lambda x: x.to(dev), req.pending)
-            return st, _pad_pending(pen, bucket_cfg.in_cap)
+            def prep(req):
+                st = tree.tree_map(lambda x: x.to(dev), req.states)
+                if self.obs is not None and "trace" not in st:
+                    st = {**st, "trace": obs_trace.ring_state(
+                        int(self.obs.capacity), (bucket_cfg.n_segments,), dev)}
+                pen = tree.tree_map(lambda x: x.to(dev), req.pending)
+                return st, _pad_pending(pen, bucket_cfg.in_cap)
 
-        lanes = [prep(r) for r in reqs]
-        lanes += [lanes[0]] * (width - n)  # inert padding lanes (done0=True)
-        states = tree.stack([lane[0] for lane in lanes])
-        pending = tree.stack([lane[1] for lane in lanes])
+            lanes = [prep(r) for r in reqs]
+            lanes += [lanes[0]] * (width - n)  # inert padding lanes (done0=True)
+            states = tree.stack([lane[0] for lane in lanes])
+            pending = tree.stack([lane[1] for lane in lanes])
 
-        def pad(vals):
-            return torch.tensor(list(vals) + [vals[0]] * (width - n),
-                                dtype=torch.int32).to(dev)
+            def pad(vals):
+                return torch.tensor(list(vals) + [vals[0]] * (width - n),
+                                    dtype=torch.int32).to(dev)
 
-        in_cap = pad([r.cfg.in_cap for r in reqs])
-        out_cap = pad([r.cfg.out_cap for r in reqs])
-        store_log = pad([r.cfg.store_log for r in reqs])
-        rounds = torch.zeros(width, dtype=torch.int32, device=dev)
-        done = torch.arange(width, device=dev) >= n  # padding lanes frozen from round 0
-        over = torch.zeros(width, dtype=torch.bool, device=dev)
-        mega = self._mega(bucket_cfg)
+            in_cap = pad([r.cfg.in_cap for r in reqs])
+            out_cap = pad([r.cfg.out_cap for r in reqs])
+            store_log = pad([r.cfg.store_log for r in reqs])
+            rounds = torch.zeros(width, dtype=torch.int32, device=dev)
+            done = torch.arange(width, device=dev) >= n  # padding lanes frozen from round 0
+            over = torch.zeros(width, dtype=torch.bool, device=dev)
+            mega = self._mega(bucket_cfg)
 
         per_job_events = [[] for _ in range(n)]
         per_job_lost = [0] * n
@@ -262,27 +265,28 @@ class SnnServer:
                 break
         t_done = _time.perf_counter()
 
-        out = {}
-        for j, (ticket, req, t_submit) in enumerate(entries):
-            # copies: the buffers belong to the dispatch, which the next
-            # bucket of this shape overwrites
-            st_j = tree.tree_map(lambda x: x[j].clone(), states)
-            pen_j = tree.tree_map(lambda x: x[j].clone(), pending)
-            error = None
-            if bool(over_h[j]) or not bool(done_h[j]):
-                drop = req.cfg.faults is not None and req.cfg.faults.drop_overflow
-                error = ctl.overflow_error(
-                    st_j, pen_j, in_cap=req.cfg.in_cap, out_cap=req.cfg.out_cap,
-                    store_log=req.cfg.store_log, drop=drop)
-                if error is None:
-                    error = (f"max_rounds={self.max_rounds} exhausted "
-                             "before termination")
-            events = (np.concatenate(per_job_events[j]) if per_job_events[j]
-                      else np.empty(0, obs_trace.EVENT_DTYPE))
-            out[ticket] = SnnResult(
-                request_id=ticket, ok=error is None, error=error,
-                rounds=int(rounds_h[j]), latency_s=t_done - t_submit,
-                states=st_j, meta=req.meta, events=events,
-                trace_lost=per_job_lost[j])
-            self.served += 1
+        with spans.span(spans.RESULTS):
+            out = {}
+            for j, (ticket, req, t_submit) in enumerate(entries):
+                # copies: the buffers belong to the dispatch, which the next
+                # bucket of this shape overwrites
+                st_j = tree.tree_map(lambda x: x[j].clone(), states)
+                pen_j = tree.tree_map(lambda x: x[j].clone(), pending)
+                error = None
+                if bool(over_h[j]) or not bool(done_h[j]):
+                    drop = req.cfg.faults is not None and req.cfg.faults.drop_overflow
+                    error = ctl.overflow_error(
+                        st_j, pen_j, in_cap=req.cfg.in_cap, out_cap=req.cfg.out_cap,
+                        store_log=req.cfg.store_log, drop=drop)
+                    if error is None:
+                        error = (f"max_rounds={self.max_rounds} exhausted "
+                                 "before termination")
+                events = (np.concatenate(per_job_events[j]) if per_job_events[j]
+                          else np.empty(0, obs_trace.EVENT_DTYPE))
+                out[ticket] = SnnResult(
+                    request_id=ticket, ok=error is None, error=error,
+                    rounds=int(rounds_h[j]), latency_s=t_done - t_submit,
+                    states=st_j, meta=req.meta, events=events,
+                    trace_lost=per_job_lost[j])
+                self.served += 1
         return out
