@@ -61,7 +61,11 @@ class SnnResult:
     """Outcome of one served request.  ``ok=False`` carries the watermark
     message the request's solo ``Controller.run`` would have raised, or a
     max_rounds note.  ``latency_s`` is host wall time from ``submit`` to the
-    request's bucket completing."""
+    request's bucket completing.
+
+    ``states``' leaves are views into one copy per leaf of the bucket's real
+    lanes: a result kept keeps its bucket's copy of each leaf it keeps (all
+    of the bucket's lanes).  Clone the leaves of a result held for long."""
     request_id: int
     ok: bool
     error: str | None
@@ -89,6 +93,20 @@ def _normalize(cfg):
         # must match exactly, so they stay in the key
         return dataclasses.replace(cfg, faults=fc)
     return dataclasses.replace(cfg, faults=fc, in_cap=0, out_cap=0, store_log=0)
+
+
+def _split(states, n: int):
+    """The first ``n`` lanes of the stacked tree of dicts ``states`` as ``n``
+    trees of its structure, and the number of copies made: each leaf's
+    lanes are copied once, together, and each tree's leaves are views into
+    the copies (one ``unbind`` a leaf)."""
+    if not isinstance(states, dict):
+        return states[:n].clone().unbind(0), 1
+    parts, copies = {}, 0
+    for k, v in states.items():
+        parts[k], c = _split(v, n)
+        copies += c
+    return [{k: p[j] for k, p in parts.items()} for j in range(n)], copies
 
 
 def _pad_pending(pending, cap: int):
@@ -144,6 +162,7 @@ class SnnServer:
         self.dispatches = 0  # job-axis dispatches issued
         self.dispatch_syncs = 0  # host fetches from the serving loop
         self.served = 0  # requests completed over the server's life
+        self.result_copies = 0  # device copies the results steps have issued
         self._queue = []  # (ticket, SnnRequest, t_submit)
         self._next_id = 0
         self._sharded_cache = {}  # bucket cfg -> its sharded dispatch
@@ -266,17 +285,20 @@ class SnnServer:
         t_done = _time.perf_counter()
 
         with spans.span(spans.RESULTS):
+            # one copy of each state leaf's n real lanes: the buffers belong
+            # to the dispatch, which the next bucket of this shape overwrites.
+            # Each result's leaves are views into these copies.
+            per_job, copies = _split(states, n)
+            self.result_copies += copies
             out = {}
             for j, (ticket, req, t_submit) in enumerate(entries):
-                # copies: the buffers belong to the dispatch, which the next
-                # bucket of this shape overwrites
-                st_j = tree.tree_map(lambda x: x[j].clone(), states)
-                pen_j = tree.tree_map(lambda x: x[j].clone(), pending)
                 error = None
                 if bool(over_h[j]) or not bool(done_h[j]):
+                    # read here, before the next dispatch: no copy of pending
+                    pen_j = tree.tree_map(lambda x: x[j], pending)
                     drop = req.cfg.faults is not None and req.cfg.faults.drop_overflow
                     error = ctl.overflow_error(
-                        st_j, pen_j, in_cap=req.cfg.in_cap, out_cap=req.cfg.out_cap,
+                        per_job[j], pen_j, in_cap=req.cfg.in_cap, out_cap=req.cfg.out_cap,
                         store_log=req.cfg.store_log, drop=drop)
                     if error is None:
                         error = (f"max_rounds={self.max_rounds} exhausted "
@@ -286,7 +308,7 @@ class SnnServer:
                 out[ticket] = SnnResult(
                     request_id=ticket, ok=error is None, error=error,
                     rounds=int(rounds_h[j]), latency_s=t_done - t_submit,
-                    states=st_j, meta=req.meta, events=events,
+                    states=per_job[j], meta=req.meta, events=events,
                     trace_lost=per_job_lost[j])
                 self.served += 1
         return out

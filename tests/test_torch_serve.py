@@ -9,7 +9,9 @@ telemetry rides per job; run re-entry and counters across runs.
 Counterpart of tests/test_serve.py:68-355 (its ``shard_map`` case is in
 tests/test_torch_distributed.py; its ``pad_to`` cases belong to the LM
 stack)."""
+import collections
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +29,7 @@ from repro.vp import platform as jpf
 from repro_torch import faults, tree
 from repro_torch.core import controller as ctl
 from repro_torch.core.controller import Controller
-from repro_torch.obs import TraceConfig
+from repro_torch.obs import TraceConfig, spans
 from repro_torch.serve.snn_serve import SnnServer, _normalize
 from repro_torch.snn import workloads as wl
 from repro_torch.vp import platform as pf
@@ -204,6 +206,7 @@ def test_per_job_fault_seeds_one_bucket():
         int(got[1].states["stats"]["spikes_dropped"].sum())
 
 
+@functools.lru_cache(maxsize=None)
 def _overflowing_request():
     """A request whose wide hidden layer overflows its own small inbox
     mid-run (the reference test's recipe, searched with the JAX package's
@@ -277,6 +280,74 @@ def test_serve_with_telemetry(fleet):
         assert len(res.events) > 0 and res.trace_lost == 0
         assert_tree_equal(w.states, res.states, "traced served states")
         np.testing.assert_array_equal(res.events, w.events)
+
+
+def _serve_profiled(srv, reqs):
+    """``serve`` under the CPU profiler, and the ops that ran inside its
+    buckets' results spans, counted by name."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = serve(srv, reqs)
+    ops = collections.Counter()
+    for e in prof.events():
+        p = e.cpu_parent
+        while p is not None and p.name != spans.RESULTS:
+            p = p.cpu_parent
+        if p is not None:
+            ops[e.name] += 1
+    return got, ops
+
+
+def _results_bucket(case):
+    """A bucket's requests and the server's ``obs``: 1, 3 (4 lanes, one
+    padding) or 8 requests; 3 traced; or an inbox overflow and its mate."""
+    if case == "overflow":
+        kw, _ = _overflowing_request()
+        return [wl.serve_request((8, 64, 8), device="cpu", **kw),
+                wl.serve_request((8, 64, 8), t_steps=2, rate=0.2, seed=1000, in_cap=256,
+                                 device="cpu")], None
+    n = {"n1": 1, "n3": 3, "n8": 8, "obs": 3}[case]
+    obs = TraceConfig(capacity=4096) if case == "obs" else None
+    return wl.serve_fleet(n, SIZES, seed=20 + n, device="cpu"), obs
+
+
+@pytest.mark.parametrize("case", ["n1", "n3", "n8", "obs", "overflow"])
+def test_results_copy_each_state_leaf_once(case):
+    """A bucket's results step copies each state leaf once, its real lanes
+    together, and pending never (a failed lane's watermarks are read where
+    the dispatch left them): ``result_copies`` and the clones inside the
+    results span both count the state leaves, whatever the bucket's width.
+    A result's leaves are views holding the bucket's real lanes, not its
+    padding; each equals its solo run (states, rounds, events, or the solo
+    run's watermark message while its mate completes) and stays so through
+    the next bucket."""
+    reqs, obs = _results_bucket(case)
+    n = len(reqs)
+    srv = server(bucket_size=8, obs=obs)
+    got, ops = _serve_profiled(srv, reqs)
+    leaves = len(tree.leaves(got[0].states))  # the request's, and a traced bucket's ring
+    ring = len(tree.leaves(got[0].states["trace"])) if obs is not None else 0
+    assert leaves == len(tree.leaves(reqs[0].states)) + ring and (ring > 0) == (obs is not None)
+    assert srv.result_copies == ops["aten::clone"] == ops["aten::copy_"] == leaves
+    assert [r.ok for r in got] == [case != "overflow"] + [True] * (n - 1)
+    for res, req in zip(got, reqs):
+        for path, x in tree.leaves(res.states):
+            assert x._base is not None and x.untyped_storage().nbytes() == n * x.nbytes, path
+        if not res.ok:
+            with pytest.raises(RuntimeError) as e:
+                solo(req)
+            assert res.error == str(e.value) and "inbox overflow" in res.error
+            continue
+        rounds, c = solo(req, obs=obs)
+        assert res.rounds == rounds
+        assert_states_equal(c.result_states(), res.states)
+        if obs is not None:
+            assert len(res.events) > 0 and res.trace_lost == 0
+            np.testing.assert_array_equal(res.events, c.trace_events())
+    kept = [tree.tree_map(torch.clone, r.states) for r in got]
+    serve(srv, reqs)
+    assert srv.result_copies == 2 * leaves
+    for k, res in zip(kept, got):
+        assert_states_equal(k, res.states, "after the next bucket")
 
 
 def test_job_dispatch_matches_jax_dispatch_by_dispatch():
