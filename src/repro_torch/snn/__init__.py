@@ -22,6 +22,7 @@ from repro_torch.snn.topology import (
     hybrid_results,
     is_cyclic,
     layer_groups,
+    layer_spikes,
     measure_traffic,
     n_units_for,
     output_spike_counts,

@@ -830,3 +830,14 @@ def output_spike_counts(states, meta) -> np.ndarray:
 def total_spikes(states) -> int:
     """All spikes emitted by every unit over the whole run."""
     return int(states["cims"]["spikes_total"].sum())
+
+
+def layer_spikes(states, meta) -> np.ndarray:
+    """Spikes emitted over the whole run by each layer, int64 (L,): the sum
+    over its stripe groups' units (a column group's contributors emit
+    none)."""
+    total = states["cims"]["spikes_total"].cpu().numpy()
+    out = np.zeros(len(meta["unit_of_layer"]), np.int64)
+    for g in meta["groups"]:
+        out[g["group"].layer] += sum(int(total[s, k]) for s, k in g["units"])
+    return out

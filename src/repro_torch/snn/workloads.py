@@ -244,6 +244,24 @@ def serve_request(layer_sizes=(16, 12, 8), *, t_steps: int = 6,
                       expected_counts=tuple(int(c) for c in job.expected_counts))
 
 
+def network_request(layers, raster, *, edges=(), n_ticks=None, n_segments: int = 2,
+                    strategy: str = "uniform", in_cap=None, device=None):
+    """One admission-ready serving request of any network ``build_snn``
+    wires: wide layers tiled into column groups (the grouped tick), lateral,
+    recurrent and skip ``edges`` under the tick horizon ``n_ticks``
+    (mandatory when cyclic; each unit carries it as its ``tick_limit``, so
+    it rides the request's state, not the bucket key).  The segments are
+    ``segmentation_for(layers, strategy, edges=edges)``'s, sized by the
+    tiling.  Requests of one network shape, horizon aside, share a bucket
+    (docs/serving.md)."""
+    from repro_torch.serve.snn_serve import SnnRequest
+
+    descs = topology.segmentation_for(layers, strategy, n_segments=n_segments, edges=edges)
+    cfg, states, pending, meta = topology.build_snn(
+        layers, descs, raster, edges=edges, n_ticks=n_ticks, in_cap=in_cap, device=device)
+    return SnnRequest(cfg, states, pending, meta)
+
+
 def serve_fleet(n_requests: int, layer_sizes=(16, 12, 8), *, seed: int = 0,
                 t_steps_choices=(4, 6, 8), rate: float = 0.5,
                 n_segments: int = 2, strategy: str = "uniform",
